@@ -1,0 +1,151 @@
+"""Device-resident index tensors (counterpart of
+bitmapperbs_tpu/index/device.py).
+
+The same flat layouts as the reference: the two FM blocks padded to a common
+row count and stacked, so one gather indexed by `block * rows_max + row`
+serves lanes in either block; the original genome as bit-packed planes in
+both orientations, one row of [b0, b1, nmask] per 32-position word.
+
+The large tables (cp_rows, sa_samples, g_planes, klt) are int32 tensors
+holding the u32 bits (ops/u32.py); callers widen after each gather.  The
+small ones (cbase, n) are int64.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from bitmapperbs_tpu import constants as K
+from bitmapperbs_tpu.index.build import BSIndex
+from bitmapperbs_tpu_torch.ops.u32 import u32_to_i32_np
+
+PLANES_CACHE_VERSION = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceIndex:
+    cp_rows: torch.Tensor      # int32 bits [2 * rows_max, CP_ROW_U32]
+    cbase: torch.Tensor        # int64 [2, CONV_ALPHA]
+    sa_samples: torch.Tensor   # int32 bits [2 * samples_max]
+    n: torch.Tensor            # int64 [2] text lengths (incl. sentinel)
+    g_planes: torch.Tensor     # int32 bits [2 * g_words, 3]
+    klt: torch.Tensor          # int32 bits [2 * 3^klt_k, 2]
+    rows_max: int
+    genome_len: int
+    samples_max: int
+    sa_rate: int = K.DEFAULT_SA_RATE
+    klt_k: int = 0
+    g_words: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.cp_rows.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   (self.cp_rows, self.cbase, self.sa_samples, self.n,
+                    self.g_planes, self.klt))
+
+
+# ---- genome-plane cache (copied from the reference: numpy only) -----------
+
+def _planes_cache_path(idx: BSIndex) -> str | None:
+    """Derived genome-plane cache next to the artifact, keyed by the genome
+    hash; the file format is the reference's, so both packages share it."""
+    if idx.source_prefix is None:
+        return None
+    sha = idx.meta.get("genome_sha256", "")[:16]
+    if not sha:
+        return None
+    d = os.path.dirname(os.path.abspath(idx.source_prefix))
+    return os.path.join(d, f"gplanes_{sha}.v{PLANES_CACHE_VERSION}.bin")
+
+
+def _device_layout_planes(genome) -> np.ndarray:
+    """Genome -> uint32[2 * (words+1), 3] in the upload layout: a leading
+    zero word per orientation (window_planes biases starts by +32 so wrapped
+    negative starts resolve) and plane-interleaved rows."""
+    planes = genome.packed_planes()
+    words = len(planes["g0"])
+    gp = np.zeros((2, words + 1, 3), dtype=np.uint32)
+    for oi, pref in enumerate(("g", "r")):
+        for pi, suf in enumerate(("0", "1", "n")):
+            gp[oi, 1:, pi] = planes[pref + suf]
+    return gp.reshape(2 * (words + 1), 3)
+
+
+def _load_or_build_planes(idx: BSIndex) -> np.ndarray:
+    path = _planes_cache_path(idx)
+    words = (idx.genome.length + 31) // 32
+    n_rows = 2 * (words + 1)
+    if path is not None:
+        if not os.path.exists(path):
+            gp = _device_layout_planes(idx.genome)
+            tmp = path + f".tmp.{os.getpid()}"
+            gp.tofile(tmp)
+            os.replace(tmp, path)
+        gp = np.memmap(path, dtype=np.uint32, mode="r")
+        if gp.size == n_rows * 3:
+            return gp.reshape(n_rows, 3)
+        # stale/foreign cache (size mismatch): rebuild in RAM, don't trust it
+    return _device_layout_planes(idx.genome)
+
+
+# ---- upload ----------------------------------------------------------------
+
+def _stacked(parts, shape) -> np.ndarray:
+    """Row-stitch (row_offset, uint32 array) parts into one zeroed array."""
+    out = np.zeros(shape, dtype=np.uint32)
+    for off, a in parts:
+        out[off:off + a.shape[0]] = a
+    return out
+
+
+def from_arrays(arrays: dict[str, np.ndarray], device=None,
+                **static) -> DeviceIndex:
+    """uint32 host arrays in the reference's DeviceIndex layout (e.g. the JAX
+    DeviceIndex's arrays fetched as numpy) -> the port's DeviceIndex.
+
+    static: rows_max, genome_len, samples_max, sa_rate, klt_k, g_words."""
+    def big(name):   # copies only when not already writable C-order uint32
+        a = np.require(arrays[name], np.uint32, ["C", "W"])
+        return torch.from_numpy(u32_to_i32_np(a)).to(device)
+
+    def small(name):
+        return torch.from_numpy(
+            np.require(arrays[name], np.int64, ["C", "W"])).to(device)
+
+    return DeviceIndex(
+        cp_rows=big("cp_rows"), cbase=small("cbase"),
+        sa_samples=big("sa_samples"), n=small("n"),
+        g_planes=big("g_planes"), klt=big("klt"), **static)
+
+
+def upload_index(idx: BSIndex, device=None) -> DeviceIndex:
+    """Host BSIndex -> device tensors (replicated on one device)."""
+    rows_max = max(b.cp_rows.shape[0] for b in idx.blocks)
+    smax = max(max(len(b.sa_samples) for b in idx.blocks), 1)
+    klt_k = idx.blocks[0].klt_k
+    assert all(b.klt_k == klt_k for b in idx.blocks)
+    gp = _load_or_build_planes(idx)
+    arrays = {
+        "cp_rows": _stacked([(i * rows_max, b.cp_rows)
+                             for i, b in enumerate(idx.blocks)],
+                            (2 * rows_max, K.CP_ROW_U32)),
+        "cbase": np.stack([b.cbase for b in idx.blocks]),
+        "sa_samples": _stacked([(i * smax, b.sa_samples)
+                                for i, b in enumerate(idx.blocks)],
+                               (2 * smax,)),
+        "n": np.array([b.n for b in idx.blocks], dtype=np.uint32),
+        "g_planes": gp,
+        "klt": np.stack([b.klt for b in idx.blocks]).reshape(
+            2 * 3 ** klt_k, 2),
+    }
+    return from_arrays(arrays, device, rows_max=rows_max,
+                       genome_len=idx.genome.length, samples_max=smax,
+                       sa_rate=idx.blocks[0].sa_rate, klt_k=klt_k,
+                       g_words=gp.shape[0] // 2)

@@ -1,0 +1,92 @@
+"""PyTorch port CLI: `search` SAM records equal the reference CLI's, the GPU
+platform refuses to fall back to the CPU, unported options exit 2, and the
+package never imports jax."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from bitmapperbs_tpu.cli import main as jmain  # noqa: E402
+from bitmapperbs_tpu.index.build import parse_fasta  # noqa: E402
+from bitmapperbs_tpu.io.fastq import write_fastq  # noqa: E402
+from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,  # noqa: E402
+                                            simulate_reads)
+from bitmapperbs_tpu_torch.cli import main  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    fa = random_genome_fasta(np.random.default_rng(12), contigs=(4000, 1500))
+    (d / "ref.fa").write_text(fa)
+    sims = simulate_reads(parse_fasta(fa), 40, read_len=80, seed=4,
+                          sub_rate=0.01, indel_rate=0.005)
+    write_fastq(d / "reads.fq", [s.codes for s in sims],
+                quals=[s.qual for s in sims])
+    assert main(["index", str(d / "ref.fa")]) == 0
+    return d
+
+
+def records(path):
+    return [ln for ln in path.read_text().splitlines()
+            if not ln.startswith("@PG")]
+
+
+@pytest.mark.parametrize("extra", [[], ["--pbat", "-e", "0.05"]])
+def test_search_matches_reference_cli(workdir, extra):
+    d = workdir
+    common = ["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
+              "--batch-size", "16", "--platform", "cpu", *extra]
+    assert main([*common, "-o", str(d / "port.sam"),
+                 "--stats-json", str(d / "port.json")]) == 0
+    assert jmain([*common, "--single-device", "-o", str(d / "ref.sam"),
+                  "--stats-json", str(d / "ref.json")]) == 0
+    got, want = records(d / "port.sam"), records(d / "ref.sam")
+    assert got == want
+    assert sum(not ln.startswith("@") for ln in got) == 40
+    assert (d / "port.json").read_text() == (d / "ref.json").read_text()
+
+
+def test_platform_auto_needs_a_gpu(workdir, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    d = workdir
+    args = ["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
+            "-o", str(d / "x.sam")]
+    assert main(args) == 2
+    assert main([*args, "--platform", "gpu"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (d / "x.sam").exists()
+
+
+@pytest.mark.parametrize("flag", [["--pe"], ["--resume"], ["--oracle"],
+                                  ["--profile", "p"], ["--dist-hosts", "2"],
+                                  ["--shard-index", "2"]])
+def test_unported_options_exit_2(workdir, capsys, flag):
+    d = workdir
+    assert main(["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
+                 "--platform", "cpu", *flag]) == 2
+    assert "not yet ported (ROADMAP.md)" in capsys.readouterr().err
+
+
+def test_package_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bitmapperbs_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.') if not m.name.endswith('__main__')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 10, mods\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
