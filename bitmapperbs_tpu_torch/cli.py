@@ -2,12 +2,15 @@
 
     python -m bitmapperbs_tpu_torch index  ref.fa [--prefix P]
     python -m bitmapperbs_tpu_torch search ref.fa --seq r.fq [options]  (SE)
+    python -m bitmapperbs_tpu_torch search ref.fa --pe --seq1 r1.fq \
+        --seq2 r2.fq [options]                                         (PE)
 
-The parser, `index`, config building and genome-size autotune are the
-reference CLI's (bitmapperbs_tpu/cli.py); `search` maps single-end reads
-through models/host.map_batch on one GPU (`--platform auto|gpu`) or, when
-asked for explicitly, on the CPU (`--platform cpu`).  Options of the
-reference that this port does not run yet exit 2.
+The parser, `index`, config building, genome-size autotune and the per-read
+budget grouping are the reference CLI's (bitmapperbs_tpu/cli.py); `search`
+maps single-end reads through models/host.map_batch and pairs through
+models/host.map_batch_pe on one GPU (`--platform auto|gpu`) or, when asked
+for explicitly, on the CPU (`--platform cpu`).  Options of the reference
+that this port does not run yet exit 2.
 """
 from __future__ import annotations
 
@@ -16,10 +19,10 @@ import re
 import sys
 import time
 
-from bitmapperbs_tpu.cli import (_budget_for, _closing_iter, _map_grouped_se,
-                                 _translate_legacy, autotune_for_genome,
-                                 build_parser, cmd_index, default_prefix,
-                                 make_config)
+from bitmapperbs_tpu.cli import (_budget_for, _closing_iter, _map_grouped_pe,
+                                 _map_grouped_se, _translate_legacy,
+                                 autotune_for_genome, build_parser, cmd_index,
+                                 default_prefix, make_config)
 
 PLATFORMS = ("auto", "cpu", "gpu")
 
@@ -37,7 +40,7 @@ def _parser():
 
 
 def _unported(args) -> str | None:
-    for flag, on in (("--pe", args.pe), ("--dist-hosts", args.dist_hosts > 1),
+    for flag, on in (("--dist-hosts", args.dist_hosts > 1),
                      ("--shard-index", args.shard_index),
                      ("--profile", args.profile is not None),
                      ("--oracle", args.oracle), ("--resume", args.resume)):
@@ -61,7 +64,10 @@ def cmd_search(args) -> int:
     if flag is not None:
         sys.stderr.write(f"error: {flag} is not yet ported (ROADMAP.md)\n")
         return 2
-    if not args.seq:
+    if args.pe and not (args.seq1 and args.seq2):
+        sys.stderr.write("error: --pe requires --seq1 and --seq2\n")
+        return 2
+    if not args.pe and not args.seq:
         sys.stderr.write("error: single-end search requires --seq\n")
         return 2
     device = _device(args.platform)
@@ -72,12 +78,13 @@ def cmd_search(args) -> int:
 
     from bitmapperbs_tpu import constants as K
     from bitmapperbs_tpu.index.build import load_index
-    from bitmapperbs_tpu.io.fastq import FastqReader, Prefetcher, write_fastq
+    from bitmapperbs_tpu.io.fastq import (FastqReader, Prefetcher, read_pairs,
+                                          write_fastq)
     from bitmapperbs_tpu.io.sam import SamWriter
     from bitmapperbs_tpu.io.stats import MapStats
     from bitmapperbs_tpu.models.pool import make_finalize_pool
     from bitmapperbs_tpu_torch.index.device import upload_index
-    from bitmapperbs_tpu_torch.models.host import map_batch
+    from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
 
     # ref may be the FASTA path (resolves <ref>.btidx) or an index prefix
     for prefix in (default_prefix(args.ref), args.ref,
@@ -89,17 +96,22 @@ def cmd_search(args) -> int:
                          f"{default_prefix(args.ref)}.json (run: python -m "
                          f"bitmapperbs_tpu_torch index {args.ref})\n")
         return 2
+    inputs = (args.seq1, args.seq2) if args.pe else (args.seq,)
     if args.read_bucket is None:
-        # size the padded-length bucket from the head of the input
-        head = next(iter(FastqReader(args.seq, batch_size=1024)), None)
-        mx = max((len(c) for c in head.codes), default=160) if head else 160
+        # size the padded-length bucket from the head of the input(s)
+        lens = []
+        for path in inputs:
+            head = next(iter(FastqReader(path, batch_size=1024)), None)
+            if head is not None:
+                lens.extend(len(c) for c in head.codes)
+        mx = max(lens) if lens else 160
         args.read_bucket = max(32, -(-mx // 32) * 32)
         sys.stderr.write(f"[bitmapperbs_tpu_torch] read bucket auto-sized to "
                          f"{args.read_bucket} (longest head read {mx} bp)\n")
     error_rate = None
     if 0 < args.max_errors < 1:
         # -e as an error rate: budgets resolve per read (floor(rate * len))
-        first = next(iter(FastqReader(args.seq, batch_size=1)), None)
+        first = next(iter(FastqReader(inputs[0], batch_size=1)), None)
         if first is None or not len(first.codes):
             sys.stderr.write("error: empty FASTQ\n")
             return 2
@@ -145,29 +157,46 @@ def cmd_search(args) -> int:
         return map_batch(idx, dix, c, codes, quals, qnames, stats=stats,
                          pool=pool)
 
+    def run_pe(c, pairs, quals, qnames):
+        return map_batch_pe(idx, dix, c, pairs, quals, qnames, stats=stats,
+                            pool=pool)
+
     try:
-        # group `threads` reader batches per call so the finalize pool has
-        # cross-batch work
-        group_n = max(1, args.threads)
-        gbuf: list = []
+        if args.pe:
+            for b1, b2 in _closing_iter(Prefetcher(read_pairs(
+                    args.seq1, args.seq2, cfg.batch_size, args.phred64))):
+                prs = list(zip(b1.codes, b2.codes))
+                quals = list(zip(b1.quals, b2.quals))
+                recs = _map_grouped_pe(run_pe, cfg, error_rate, prs, quals,
+                                       b1.qnames)
+                # two records per pair: mate 1, mate 2
+                emit(recs, [r for p in prs for r in p],
+                     [q for q in b1.qnames for _ in (0, 1)],
+                     [q for p in quals for q in p])
+                out_fh.flush()
+        else:
+            # group `threads` reader batches per call so the finalize pool
+            # has cross-batch work
+            group_n = max(1, args.threads)
+            gbuf: list = []
 
-        def flush_group():
-            if not gbuf:
-                return
-            codes = [c for g in gbuf for c in g[0]]
-            qnames = [c for g in gbuf for c in g[1]]
-            quals = [c for g in gbuf for c in g[2]]
-            gbuf.clear()
-            emit(_map_grouped_se(run, cfg, error_rate, codes, quals, qnames),
-                 codes, qnames, quals)
-            out_fh.flush()
+            def flush_group():
+                if not gbuf:
+                    return
+                codes = [c for g in gbuf for c in g[0]]
+                qnames = [c for g in gbuf for c in g[1]]
+                quals = [c for g in gbuf for c in g[2]]
+                gbuf.clear()
+                emit(_map_grouped_se(run, cfg, error_rate, codes, quals,
+                                     qnames), codes, qnames, quals)
+                out_fh.flush()
 
-        reader = FastqReader(args.seq, cfg.batch_size, args.phred64)
-        for batch in _closing_iter(Prefetcher(reader)):
-            gbuf.append((batch.codes, batch.qnames, batch.quals))
-            if len(gbuf) >= group_n:
-                flush_group()
-        flush_group()
+            reader = FastqReader(args.seq, cfg.batch_size, args.phred64)
+            for batch in _closing_iter(Prefetcher(reader)):
+                gbuf.append((batch.codes, batch.qnames, batch.quals))
+                if len(gbuf) >= group_n:
+                    flush_group()
+            flush_group()
     finally:
         if pool is not None:
             pool.terminate()

@@ -18,21 +18,13 @@ import torch
 
 from bitmapperbs_tpu import constants as K
 from bitmapperbs_tpu.config import AlignerConfig
+from bitmapperbs_tpu.oracle.pipeline import se_frames
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
 from bitmapperbs_tpu_torch.ops import fm, kernels, verify
 from bitmapperbs_tpu_torch.ops.u32 import INVALID, MASK, wrap
 
 INF = K.INF_SCORE
 _I64 = torch.int64
-
-
-def frames_for(cfg: AlignerConfig) -> list[tuple[int, int]]:
-    """Static (pattern, block) frame list; order fixes bp_code =
-    block*2 + pat."""
-    out = [(K.PAT_CT, K.BLOCK_FWD), (K.PAT_CT, K.BLOCK_RC)]
-    if cfg.non_directional:
-        out += [(K.PAT_GA, K.BLOCK_FWD), (K.PAT_GA, K.BLOCK_RC)]
-    return out
 
 
 def _arange(n, dev):
@@ -70,6 +62,9 @@ def _seed_stage(dix: DeviceIndex, cfg: AlignerConfig, reads, lengths,
 
     conv = torch.tensor(K.CONV_MAP, dtype=torch.uint8, device=dev)
     rc = _revcomp_padded(reads, lengths)
+    # se_frames(cfg, mate) lists the mate's own pattern first: frame 0 is
+    # the read (mate 1) or its reverse complement (mate 2), frame 2 (PBAT)
+    # the other one -- the layout paired._missing_mate_tables indexes
     frame_reads = torch.stack(
         [reads if p == K.PAT_CT else rc for p, _ in frames], dim=1)  # B,F,m
     patterns = conv[frame_reads.to(_I64)]                             # B,F,m
@@ -445,5 +440,5 @@ def map_batch_device(dix: DeviceIndex, cfg: AlignerConfig, reads, lengths,
     (int32, INF when no distinct-locus second), overflow and gdrop (bool;
     gdrop = host must re-run dense)."""
     grids = candidate_stage(dix, cfg, reads, lengths.to(_I64),
-                            tuple(frames_for(cfg)), min_read_len)
+                            tuple(se_frames(cfg)), min_read_len)
     return select_se(grids, cfg.max_errors)

@@ -1,10 +1,12 @@
-"""Host side of the single-end device pipeline (counterpart of the SE half of
+"""Host side of the device pipelines (counterpart of
 bitmapperbs_tpu/models/host.py): batch prep, dispatch with a bounded
-in-flight window, gdrop dense fallback, finalize to SAM records.
+in-flight window, gdrop dense fallback, finalize to SAM records, for
+single-end reads (map_batch) and pairs (map_batch_pe).
 
-Finalize is the reference's jax-free models/pool.py (native C++ finalize
-when libsais.so is built, numpy spec path otherwise), so a batch whose
-(best, second) tuples equal the reference's gives byte-identical SAM.
+Finalize and PE assembly are the reference's jax-free models/pool.py
+(native C++ finalize when libsais.so is built, numpy spec path otherwise),
+so a batch whose device tensors equal the reference's gives
+byte-identical SAM.
 """
 from __future__ import annotations
 
@@ -15,10 +17,13 @@ from bitmapperbs_tpu import constants as K
 from bitmapperbs_tpu.config import AlignerConfig
 from bitmapperbs_tpu.index.build import BSIndex
 from bitmapperbs_tpu.io.sam import SamRecord
-from bitmapperbs_tpu.models.pool import (_finalize_se_task,
+from bitmapperbs_tpu.models.pool import (_assemble_pe_local,
+                                         _assemble_pe_task,
+                                         _finalize_se_task,
                                          _finalize_se_task_local)
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
 from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
 
 MAX_INFLIGHT = 3  # device batches dispatched ahead of host finalize
 
@@ -61,12 +66,27 @@ def _merge_where(sel, dense, fast):
 
 
 def to_host(out: dict) -> dict:
-    """Device output dict -> numpy dict in ONE device-to-host copy (the
-    per-read vectors are stacked as int64 first)."""
-    keys = list(out)
-    host = torch.stack([out[k].to(torch.int64) for k in keys]).cpu().numpy()
-    return {k: host[i].astype(bool) if out[k].dtype == torch.bool
-            else host[i] for i, k in enumerate(keys)}
+    """Device output dict (nested dicts allowed, as PE's se1/se2) -> numpy
+    dict of the same shape in ONE device-to-host copy (the per-read vectors
+    are stacked as int64 first)."""
+    leaves = []
+
+    def flatten(d, path):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                flatten(v, path + (k,))
+            else:
+                leaves.append((path + (k,), v))
+
+    flatten(out, ())
+    host = torch.stack([v.to(torch.int64) for _, v in leaves]).cpu().numpy()
+    res: dict = {}
+    for row, (path, v) in zip(host, leaves):
+        d = res
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = row.astype(bool) if v.dtype == torch.bool else row
+    return res
 
 
 def _to_device(arr, lengths, device):
@@ -92,6 +112,24 @@ def _gdrop_fallback_se(dix: DeviceIndex, cfg: AlignerConfig, arr, lengths,
     return _merge_where(gdrop, dense, out_np)
 
 
+def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
+    """Batches start at each lo in range(0, n, bs): dispatch(lo) enqueues
+    one on the device (no sync) up to MAX_INFLIGHT batches ahead of
+    finish(item), which takes dispatch's result and returns its records, or
+    the finalize pool's AsyncResult of them.  Returns all records in input
+    order."""
+    parts, pending = [], []
+    for lo in range(0, n, bs):
+        pending.append(dispatch(lo))
+        if len(pending) >= MAX_INFLIGHT:
+            parts.append(finish(pending.pop(0)))
+    parts.extend(finish(item) for item in pending)
+    out: list[SamRecord] = []
+    for part in parts:   # ordered gather
+        out.extend(part if isinstance(part, list) else part.get())
+    return out
+
+
 def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
               quals=None, qnames=None, stats=None,
               pool=None) -> list[SamRecord]:
@@ -106,34 +144,72 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
     rc_ref = idx.genome.rc_codes()
     m_pad = cfg.read_len_bucket
     bs = cfg.batch_size
-    out_recs: list[SamRecord] = []
-    futures = []
 
-    def drain(item):
-        lo, n, arr, lengths, out = item
-        out_np = _gdrop_fallback_se(dix, cfg, arr, lengths, to_host(out))
-        if stats is not None:
-            stats.overflow_reads += int(out_np["overflow"][:n].sum())
-        task = (arr, lengths, n, quals[lo:lo + n], qnames[lo:lo + n], out_np)
-        if pool is not None:
-            futures.append(pool.apply_async(_finalize_se_task,
-                                            (task + (cfg,),)))
-        else:
-            out_recs.extend(_finalize_se_task_local(idx, rc_ref, cfg, task))
-
-    pending = []
-    for lo in range(0, len(reads), bs):
+    def dispatch(lo):
         chunk = reads[lo:lo + bs]
         arr, lengths = prepare_batch(chunk, m_pad,
                                      batch=_pad_rows(len(chunk), bs))
         out = map_batch_device(dix, cfg,
                                *_to_device(arr, lengths, dix.device),
                                min_read_len=int(lengths.min()))
-        pending.append((lo, len(chunk), arr, lengths, out))
-        if len(pending) >= MAX_INFLIGHT:
-            drain(pending.pop(0))
-    for item in pending:
-        drain(item)
-    for fut in futures:   # ordered gather
-        out_recs.extend(fut.get())
-    return out_recs
+        return lo, len(chunk), arr, lengths, out
+
+    def finish(item):
+        lo, n, arr, lengths, out = item
+        out_np = _gdrop_fallback_se(dix, cfg, arr, lengths, to_host(out))
+        if stats is not None:
+            stats.overflow_reads += int(out_np["overflow"][:n].sum())
+        task = (arr, lengths, n, quals[lo:lo + n], qnames[lo:lo + n], out_np)
+        if pool is not None:
+            return pool.apply_async(_finalize_se_task, (task + (cfg,),))
+        return _finalize_se_task_local(idx, rc_ref, cfg, task)
+
+    return _pipelined(len(reads), bs, dispatch, finish)
+
+
+def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
+                 quals=None, qnames=None, stats=None,
+                 pool=None) -> list[SamRecord]:
+    """End-to-end device PE mapping of (read1, read2) code-array pairs ->
+    SAM records, two per pair, in input order.
+
+    quals: optional per-pair (qual1, qual2); qnames: optional per-pair
+    names (default p<i>).  As map_batch: up to MAX_INFLIGHT batches in
+    flight, one D2H copy per batch, a whole-batch dense re-run merged per
+    pair when any pair has gdrop, stats.overflow_reads counts pairs with a
+    capacity overflow in either mate, and `pool` fans the assembly out."""
+    m_pad = cfg.read_len_bucket
+    bs = cfg.batch_size
+    rc_ref = idx.genome.rc_codes()
+
+    def run(c, a1, l1, a2, l2):
+        dev = dix.device
+        return map_batch_pe_device(
+            dix, c, *_to_device(a1, l1, dev), *_to_device(a2, l2, dev),
+            min_read_len1=int(l1.min()), min_read_len2=int(l2.min()))
+
+    def dispatch(lo):
+        chunk = pairs[lo:lo + bs]
+        B = _pad_rows(len(chunk), bs)
+        a1, l1 = prepare_batch([p[0] for p in chunk], m_pad, B)
+        a2, l2 = prepare_batch([p[1] for p in chunk], m_pad, B)
+        return lo, len(chunk), a1, l1, a2, l2, run(cfg, a1, l1, a2, l2)
+
+    def finish(item):
+        lo, n, a1, l1, a2, l2, out = item
+        host = to_host(out)
+        if stats is not None:
+            stats.overflow_reads += int((host["se1"]["overflow"][:n]
+                                         | host["se2"]["overflow"][:n]).sum())
+        if cfg.compact and host["gdrop"].any():
+            dense = to_host(run(cfg.replace(compact=False), a1, l1, a2, l2))
+            host = _merge_where(host["gdrop"], dense, host)
+        task = (a1, l1, a2, l2, n,
+                quals[lo:lo + n] if quals else None,
+                qnames[lo:lo + n] if qnames else
+                [f"p{lo + i}" for i in range(n)], host)
+        if pool is not None:
+            return pool.apply_async(_assemble_pe_task, (task + (cfg,),))
+        return _assemble_pe_local(idx, rc_ref, cfg, *task)
+
+    return _pipelined(len(pairs), bs, dispatch, finish)

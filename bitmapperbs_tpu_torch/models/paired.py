@@ -1,0 +1,302 @@
+"""Paired-end device pipeline (counterpart of bitmapperbs_tpu/models/paired.py).
+
+Runs the SE candidate stages for both mates (mate 2 with the opposite
+conversion, oracle.pipeline.se_frames), then: proper-pair join over the
+compatible frame pairs, lexicographic pair selection, pair second-best,
+per-mate SE selection, and one windowed mate-rescue pass per pair (a Myers
+scan over the whole insert window with indels, per-offset Hamming without).
+The host (models/host.map_batch_pe) applies oracle/paired.map_pair's
+decision order through the reference's models/pool, so SAM equality again
+reduces to equality of these tensors.
+
+u32 lanes are int64 (ops/u32.py); every u32 add and subtract that the
+reference lets wrap is wrapped here at the same place, because invalid
+lanes (no anchor, bp = 127) still reach the output dict.  The pair join
+materializes one (B, Kc, Kc) grid per compatible frame pair (2
+directional, 4 PBAT), with staged reductions, never the P-way stack.
+"""
+from __future__ import annotations
+
+import torch
+
+from bitmapperbs_tpu import constants as K
+from bitmapperbs_tpu.config import AlignerConfig
+from bitmapperbs_tpu.oracle.pipeline import se_frames
+from bitmapperbs_tpu_torch.index.device import DeviceIndex
+from bitmapperbs_tpu_torch.models.aligner import (INF, candidate_stage,
+                                                  select_se)
+from bitmapperbs_tpu_torch.ops import kernels, verify
+from bitmapperbs_tpu_torch.ops.u32 import INVALID, wrap
+
+_I64 = torch.int64
+
+# bp code -> is-reverse (bp = block*2 + pat; see constants.IS_REVERSE)
+_REV_BY_BP = [K.IS_REVERSE[(bp >> 1, bp & 1)] for bp in range(4)]
+
+
+def _frame_anchor(fwd, block, m, L):
+    """fwd-genome anchor <-> frame anchor (the map is its own inverse;
+    block: int or int lanes)."""
+    rc = wrap(L - fwd - m)
+    if isinstance(block, int):
+        return fwd if block == K.BLOCK_FWD else rc
+    return torch.where(block == K.BLOCK_FWD, fwd, rc)
+
+
+def _lex_lt(a: tuple, b: tuple):
+    """Elementwise lexicographic a < b over equal-length tuples of tensors."""
+    lt = eq = None
+    for x, y in zip(a, b):
+        if lt is None:
+            lt, eq = x < y, x == y
+        else:
+            lt = lt | (eq & (x < y))
+            eq = eq & (x == y)
+    return lt
+
+
+def _missing_mate_tables(cfg: AlignerConfig, g1, g2, anch_is_1, opp_pat,
+                         ms_len, m: int):
+    """Read planes / PEQ / masks of the missing mate at pattern `opp_pat`.
+
+    se_frames gives [own, own(, other, other)] patterns per mate, so frame
+    0 carries the mate's own pattern and (PBAT) frame 2 the opposite.  In
+    directional mode the opposite pattern of the anchored mate is always
+    the missing mate's own pattern (frame 0)."""
+    def tables(grids, want_alt):
+        fr = grids["frame_reads"]
+        return fr[:, 2 if (want_alt and fr.shape[1] > 2) else 0]
+
+    a1 = anch_is_1[:, None]
+    if not cfg.non_directional:
+        ms_reads = torch.where(a1, tables(g2, False), tables(g1, False))
+    else:
+        ms_reads = torch.where(
+            a1,
+            torch.where((opp_pat == K.PAT_GA)[:, None], tables(g2, False),
+                        tables(g2, True)),
+            torch.where((opp_pat == K.PAT_CT)[:, None], tables(g1, False),
+                        tables(g1, True)))
+    planes = verify.pack_codes(ms_reads)
+    lenmask = verify.length_mask(ms_len, m)
+    peq, pad = verify.build_peq(ms_reads, ms_len, m)
+    return planes, peq, pad, lenmask
+
+
+def _pair_join(cfg: AlignerConfig, g1, g2, frames1, frames2, m1, m2, L):
+    """Best proper pair by (sum, fwd1, fwd2, bp1, bp2) and the best pair
+    sum at a distinct locus (either mate more than e away, or another
+    frame).  Returns (best tuple, mate-1 score of the best, the best's
+    frame anchors a1 and a2, second sum)."""
+    B = m1.shape[0]
+    e = cfg.max_errors
+    dev = m1.device
+    compat = [(i1, i2)
+              for i1, (p1, b1) in enumerate(frames1)
+              for i2, (p2, b2) in enumerate(frames2)
+              if b1 == b2 and p1 != p2]
+
+    def full(v, dtype=_I64):
+        return torch.full((B,), v, dtype=dtype, device=dev)
+
+    best = (full(2 * INF, torch.int32), full(INVALID), full(INVALID),
+            full(127), full(127))
+    best_s1 = full(INF, torch.int32)      # payload: mate-1 score of best
+    pair_data = []
+    for i1, i2 in compat:
+        s1, f1 = g1["score"][:, i1, :, None], g1["fwd"][:, i1, :, None]
+        s2, f2 = g2["score"][:, i2, None, :], g2["fwd"][:, i2, None, :]
+        bp1 = frames1[i1][1] * 2 + frames1[i1][0]
+        bp2 = frames2[i2][1] * 2 + frames2[i2][0]
+        if not _REV_BY_BP[bp1]:           # mate 1 is the forward mate
+            ffwd, frev, mrev = f1, f2, m2[:, None, None]
+        else:
+            ffwd, frev, mrev = f2, f1, m1[:, None, None]
+        insert = wrap(frev + mrev - ffwd)
+        ok = ((s1 < INF) & (s2 < INF) & (ffwd <= frev)
+              & (insert >= cfg.min_insert) & (insert <= cfg.max_insert))
+        ssum = torch.where(ok, s1 + s2, 2 * INF)              # B,Kc,Kc
+
+        # staged lexicographic min inside this grid
+        smin = ssum.reshape(B, -1).amin(dim=-1)
+        at_min = ssum == smin[:, None, None]
+        f1min = torch.where(at_min, f1, INVALID).reshape(B, -1).amin(dim=-1)
+        m2sel = at_min & (f1 == f1min[:, None, None])
+        f2min = torch.where(m2sel, f2, INVALID).reshape(B, -1).amin(dim=-1)
+        cand = (smin, f1min, f2min, full(bp1), full(bp2))
+        # mate-1 score of the selected cell (unique per read)
+        m3sel = m2sel & (f2 == f2min[:, None, None])
+        s1min = torch.where(m3sel, s1, INF).reshape(B, -1).amin(dim=-1)
+        take = _lex_lt(cand, best)
+        best = tuple(torch.where(take, c, b) for c, b in zip(cand, best))
+        best_s1 = torch.where(take, s1min, best_s1)
+        pair_data.append((ssum, f1, f2, bp1, bp2))
+
+    _, pf1, pf2, pbp1, pbp2 = best
+    pa1 = _frame_anchor(pf1, pbp1 >> 1, m1, L)
+    pa2 = _frame_anchor(pf2, pbp2 >> 1, m2, L)
+    second = full(2 * INF, torch.int32)
+    for ssum, f1, f2, bp1, bp2 in pair_data:
+        a1 = _frame_anchor(f1, bp1 >> 1, m1[:, None, None], L)
+        a2 = _frame_anchor(f2, bp2 >> 1, m2[:, None, None], L)
+        b1, b2 = pa1[:, None, None], pa2[:, None, None]
+        d1 = (pbp1[:, None, None] != bp1) | (
+            torch.maximum(a1, b1) - torch.minimum(a1, b1) > e)
+        d2 = (pbp2[:, None, None] != bp2) | (
+            torch.maximum(a2, b2) - torch.minimum(a2, b2) > e)
+        s = torch.where(d1 | d2, ssum, 2 * INF).reshape(B, -1).amin(dim=-1)
+        second = torch.minimum(second, s)
+    return best, best_s1, pa1, pa2, second
+
+
+def _rescue_scan(dix: DeviceIndex, cfg: AlignerConfig, block, lo, hi, r_ok,
+                 ms_len, ms_peq, ms_pad, m: int):
+    """One semi-global Myers scan per pair over the whole insert window
+    (oracle/paired.rescue's frozen spec): the per-offset banded DPs'
+    alignment sets union to the scan's infix set.  Column j is the REAL
+    read's alignment ending at win_start + j - (m - length), since pad rows
+    shift by m - length (verify.myers_scan)."""
+    e = cfg.max_errors
+    L = dix.genome_len
+    R = cfg.max_insert - cfg.min_insert + 1
+    a_lo = torch.where(block == 0, lo, wrap(L - hi - ms_len))
+    span = wrap(hi - lo)                                  # == a_hi - a_lo
+    ncols = R + m + 2 * e
+    Ww = -(-ncols // 32)
+    win_start = torch.where(r_ok, wrap(a_lo - e), 0)      # wrap >= -e legal
+    win = verify.window_planes(dix.g_planes, block, win_start, Ww, L,
+                               dix.g_words)
+    S = kernels.myers_scan(win, ms_peq, ms_pad, m, ncols)  # B, ncols
+    # real frame anchor of column j: a_lo + (j - (e + m - 1)); valid iff
+    # j >= e+m-1 and j - (e+m-1) <= span, span read as int32 (as the
+    # reference casts it)
+    joff = torch.arange(ncols, dtype=_I64, device=S.device) - (e + m - 1)
+    span_i32 = (span ^ 0x80000000) - 0x80000000
+    in_range = (joff >= 0) & (joff <= span_i32[:, None])
+    A_raw = wrap(a_lo[:, None] + joff.clamp(min=0))
+    valid = r_ok[:, None] & in_range & (S <= e)
+    P = _frame_anchor(A_raw, block[:, None], ms_len[:, None], L)
+    rs_best = torch.where(valid, S, INF).amin(dim=-1)
+    rm1 = valid & (S == rs_best[:, None])
+    rp_best = torch.where(rm1, P, INVALID).amin(dim=-1)
+    A_best = _frame_anchor(rp_best, block, ms_len, L)
+    rdiff = torch.maximum(A_raw, A_best[:, None]) - torch.minimum(
+        A_raw, A_best[:, None])
+    rs_second = torch.where(valid & (rdiff > e), S, INF).amin(dim=-1)
+    return rs_best, rp_best, rs_second
+
+
+def _rescue_hamming(dix: DeviceIndex, cfg: AlignerConfig, block, lo, hi,
+                    r_ok, ms_len, ms_planes, ms_lenmask, m: int):
+    """Mismatch-only rescue: per-offset Hamming over the window (frozen
+    spec), (B, R) lanes."""
+    e = cfg.max_errors
+    L = dix.genome_len
+    R = cfg.max_insert - cfg.min_insert + 1
+    B = block.shape[0]
+    p = wrap(lo[:, None] + torch.arange(R, dtype=_I64, device=lo.device))
+    p_ok = r_ok[:, None] & (p >= lo[:, None]) & (p <= hi[:, None])
+    a_ms = _frame_anchor(p, block[:, None], ms_len[:, None], L)
+    ref = verify.window_planes(dix.g_planes, block[:, None].expand(B, R),
+                               torch.where(p_ok, a_ms, 0), m // 32, L,
+                               dix.g_words)
+    rham = verify.hamming(ref, tuple(pl[:, None, :] for pl in ms_planes),
+                          ms_lenmask[:, None, :])
+    rscore = torch.where(p_ok & (rham <= e), rham, INF)   # B,R
+    rs_best = rscore.amin(dim=-1)
+    rm1 = rscore == rs_best[:, None]
+    rp_best = torch.where(rm1, p, INVALID).amin(dim=-1)
+    rdiff = torch.maximum(p, rp_best[:, None]) - torch.minimum(
+        p, rp_best[:, None])
+    rs_second = torch.where(rdiff > e, rscore, INF).amin(dim=-1)
+    return rs_best, rp_best, rs_second
+
+
+def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig, reads1,
+                        lengths1, reads2, lengths2, min_read_len1: int = 0,
+                        min_read_len2: int = 0):
+    """Paired batch -> decision inputs for the host PE assembler.
+
+    reads1/reads2: uint8[B, m_pad] (pad = N), lengths1/lengths2 int[B], on
+    dix's device; min_read_len1/2: host-known shortest length of each mate
+    in the batch (0 = unknown), as in map_batch_device.  Returns the
+    reference's dict: pair_* (best proper pair, its second-best sum),
+    se1/se2 (select_se per mate), resc_* (mate rescue from the better
+    mate's SE hit), and gdrop (either mate; host must re-run dense)."""
+    B, m = reads1.shape
+    e = cfg.max_errors
+    L = dix.genome_len
+    frames1 = tuple(se_frames(cfg, mate=0))
+    frames2 = tuple(se_frames(cfg, mate=1))
+    m1 = lengths1.to(_I64)
+    m2 = lengths2.to(_I64)
+
+    g1 = candidate_stage(dix, cfg, reads1, m1, frames1, min_read_len1)
+    g2 = candidate_stage(dix, cfg, reads2, m2, frames2, min_read_len2)
+
+    (psum, _, _, pbp1, pbp2), best_s1, pa1, pa2, second_sum = _pair_join(
+        cfg, g1, g2, frames1, frames2, m1, m2, L)
+
+    se1 = select_se(g1, e)
+    se2 = select_se(g2, e)
+
+    # ---- mate rescue: anchored mate = smaller SE key (score, fwd, bp) -----
+    f1fwd = _frame_anchor(se1["best_anchor"], se1["best_bp"] >> 1, m1, L)
+    f2fwd = _frame_anchor(se2["best_anchor"], se2["best_bp"] >> 1, m2, L)
+    s1, s2 = se1["best_score"], se2["best_score"]
+    anch_is_1 = (s1 < INF) & ((s2 >= INF) | ~_lex_lt(
+        (s2, f2fwd, se2["best_bp"]), (s1, f1fwd, se1["best_bp"])))
+    have_anchor = (s1 < INF) | (s2 < INF)
+    A = torch.where(anch_is_1, f1fwd, f2fwd)             # fwd anchor
+    a_bp = torch.where(anch_is_1, se1["best_bp"], se2["best_bp"])
+    # bp = 127 (no anchor) reads entry 3, as the reference's clamped gather
+    bp_c = a_bp.clamp(0, 3)
+    a_rev = torch.zeros_like(bp_c, dtype=torch.bool)
+    for bp, rev in enumerate(_REV_BY_BP):
+        if rev:
+            a_rev |= bp_c == bp
+    a_len = torch.where(anch_is_1, m1, m2)
+    ms_len = torch.where(anch_is_1, m2, m1)              # missing mate
+    block = (a_bp >> 1).clamp(0, 1)
+    opp_pat = 1 - (a_bp & 1)
+    ms_planes, ms_peq, ms_pad, ms_lenmask = _missing_mate_tables(
+        cfg, g1, g2, anch_is_1, opp_pat, ms_len, m)
+
+    # fwd offset range [lo, hi] with the reference's u32 underflow guards:
+    # a negative hi means "no rescue window", never a wrapped huge window
+    A_len = wrap(A + a_len)
+    A_min = wrap(A + cfg.min_insert)
+    A_max = wrap(A + cfg.max_insert)
+    lo = torch.where(
+        a_rev,
+        torch.where(A_len >= cfg.max_insert, A_len - cfg.max_insert, 0),
+        torch.where(A_min >= ms_len, A_min - ms_len, 0))
+    hi_ok = torch.where(a_rev, A_len >= cfg.min_insert, A_max >= ms_len)
+    hi = torch.where(
+        a_rev,
+        torch.where(A_len >= cfg.min_insert, A_len - cfg.min_insert, 0),
+        torch.where(A_max >= ms_len, A_max - ms_len, 0))
+    hi = torch.minimum(hi, wrap(L - ms_len))
+    r_ok = have_anchor & hi_ok & (lo <= hi)
+
+    if cfg.indels and e > 0:
+        rs_best, rp_best, rs_second = _rescue_scan(
+            dix, cfg, block, lo, hi, r_ok, ms_len, ms_peq, ms_pad, m)
+    else:
+        rs_best, rp_best, rs_second = _rescue_hamming(
+            dix, cfg, block, lo, hi, r_ok, ms_len, ms_planes, ms_lenmask, m)
+
+    return {
+        "pair_valid": psum < 2 * INF,
+        "gdrop": g1["gdrop"] | g2["gdrop"],
+        "pair_sum": psum, "pair_second_sum": second_sum,
+        "pair_s1": best_s1,
+        "pair_a1": pa1, "pair_bp1": pbp1,
+        "pair_a2": pa2, "pair_bp2": pbp2,
+        "se1": se1, "se2": se2,
+        "resc_valid": have_anchor & (rs_best < INF),
+        "resc_anch_is_1": anch_is_1,
+        "resc_fwd": rp_best, "resc_score": rs_best,
+        "resc_second": rs_second,
+        "resc_block": block, "resc_pat": opp_pat,
+    }

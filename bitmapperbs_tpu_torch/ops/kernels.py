@@ -3,6 +3,7 @@ bitmapperbs_tpu/ops/pallas_kernels.py).
 
     verify_fused  <- verify_fused_pallas / _fused_verify_kernel
     myers         <- myers_pallas / _myers_kernel
+    myers_scan    <- myers_scan_pallas / _myers_scan_kernel
 
 Each wrapper takes u32 plane lanes as int64 tensors (ops/u32.py).  On CPU
 tensors it runs its plain version (`*_ref`); on CUDA tensors it checks
@@ -27,7 +28,7 @@ import torch
 from bitmapperbs_tpu_torch.ops import verify
 from bitmapperbs_tpu_torch.ops.u32 import bnot, to_i32
 
-LAUNCHES = {"verify_fused": 0, "myers": 0}
+LAUNCHES = {"verify_fused": 0, "myers": 0, "myers_scan": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "verify.cu")
@@ -84,6 +85,8 @@ def _lib():
         lib.btbs_myers.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                    vp]
         lib.btbs_myers.restype = ctypes.c_int
+        lib.btbs_myers_scan.argtypes = lib.btbs_myers.argtypes
+        lib.btbs_myers_scan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -150,20 +153,13 @@ def verify_fused(win, read_planes, lenmask, m: int, ncols: int, e: int):
     return out.reshape(lanes)
 
 
-# ---- Myers from a precomputed PEQ (dense path) ------------------------------
+# ---- Myers from a precomputed PEQ (dense path, mate-rescue scan) ---------
 
-def myers_ref(win, peq, pad, m: int, ncols: int):
-    """Plain version: ops/verify.myers."""
-    return verify.myers(win, peq, pad, m, ncols)
-
-
-def myers(win, peq, pad, m: int, ncols: int):
-    """win: 3 x int64 [..., Ww]; peq int64 [..., 4, Wd]; pad int64
-    [..., Wd] (broadcastable).  Returns int32 lanes.  Broadcast PEQ/pad
-    tables are materialized per lane before the launch (the dense gdrop
-    grid at 2.1 M lanes makes ~100 MB of them)."""
-    if not _on_cuda(*win, peq, pad):
-        return myers_ref(win, peq, pad, m, ncols)
+def _myers_rows(win, peq, pad, m: int):
+    """(win, peq, pad) broadcast to their common lanes -> lane-major int32
+    rows (w, q, p) and the lane shape.  Broadcast PEQ/pad tables are
+    materialized per lane (the dense gdrop grid at 2.1 M lanes makes
+    ~100 MB of them)."""
     Wd, Ww = m // 32, win[0].shape[-1]
     lanes = torch.broadcast_shapes(win[0].shape[:-1], peq.shape[:-2],
                                    pad.shape[:-1])
@@ -174,12 +170,49 @@ def myers(win, peq, pad, m: int, ncols: int):
     q = _rows_i32((peq.expand(*lanes, 4, Wd).reshape(*lanes, 4 * Wd),),
                   lanes, 4 * Wd)
     p = _rows_i32((pad,), lanes, Wd)
+    return w, q, p, lanes
+
+
+def myers_ref(win, peq, pad, m: int, ncols: int):
+    """Plain version: ops/verify.myers."""
+    return verify.myers(win, peq, pad, m, ncols)
+
+
+def myers(win, peq, pad, m: int, ncols: int):
+    """win: 3 x int64 [..., Ww]; peq int64 [..., 4, Wd]; pad int64
+    [..., Wd] (broadcastable).  Returns int32 lanes."""
+    if not _on_cuda(*win, peq, pad):
+        return myers_ref(win, peq, pad, m, ncols)
+    w, q, p, lanes = _myers_rows(win, peq, pad, m)
     L = w.shape[0]
     out = torch.empty(L, dtype=torch.int32, device=w.device)
     if L:
         stream = torch.cuda.current_stream(w.device).cuda_stream
         _check_rc(_lib().btbs_myers(
-            w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L, Wd,
-            Ww, m, ncols, stream), "btbs_myers")
+            w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
+            m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers")
         LAUNCHES["myers"] += 1
     return out.reshape(lanes)
+
+
+def myers_scan_ref(win, peq, pad, m: int, ncols: int):
+    """Plain version: ops/verify.myers_scan."""
+    return verify.myers_scan(win, peq, pad, m, ncols)
+
+
+def myers_scan(win, peq, pad, m: int, ncols: int):
+    """As `myers`, but returns every column's running score: int32
+    [..., ncols].  The kernel stores column-major ([ncols, L]); the result
+    is its transpose, a view."""
+    if not _on_cuda(*win, peq, pad):
+        return myers_scan_ref(win, peq, pad, m, ncols)
+    w, q, p, lanes = _myers_rows(win, peq, pad, m)
+    L = w.shape[0]
+    out = torch.empty((ncols, L), dtype=torch.int32, device=w.device)
+    if L:
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        _check_rc(_lib().btbs_myers_scan(
+            w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
+            m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers_scan")
+        LAUNCHES["myers_scan"] += 1
+    return out.t().reshape(*lanes, ncols)

@@ -134,15 +134,11 @@ def peq_from_planes(d0, d1, dn, pad):
     return peq, pad
 
 
-def myers(window_planes_, peq, pad, m: int, ncols: int):
-    """Multi-word bit-parallel semi-global edit distance per lane.
-
-    window_planes_: (b0, b1, nmask) u32[..., Ww] covering ncols columns.
-    peq: u32[..., 4, Wd]; pad: u32[..., Wd] (always-match rows).
-    Returns int32 lanes: min over end columns of D[m_pad][j], the real
-    read's semi-global distance (pad rows are free diagonals).  Search
-    variant: D[0][j] = 0, so the horizontal carry into row 0 is 0.
-    """
+def _myers_scores(window_planes_, peq, pad, m: int, ncols: int):
+    """The multi-word bit-parallel semi-global Myers recurrence, one window
+    column at a time: yields the int64 score lanes D[m_pad][j] after each of
+    the ncols columns.  Search variant: D[0][j] = 0, so the horizontal
+    carry into row 0 is 0; N columns take the pad row."""
     wb0, wb1, wn = window_planes_
     Wd = m // 32
     lanes = torch.broadcast_shapes(wb0.shape[:-1], peq.shape[:-2],
@@ -154,7 +150,6 @@ def myers(window_planes_, peq, pad, m: int, ncols: int):
     vp = torch.full((*lanes, Wd), MASK, dtype=torch.int64, device=dev)
     vn = torch.zeros((*lanes, Wd), dtype=torch.int64, device=dev)
     score = torch.full(lanes, m, dtype=torch.int64, device=dev)
-    best = score.clone()
     zero_col = torch.zeros((*lanes, 1), dtype=torch.int64, device=dev)
 
     def shl1(x):
@@ -183,9 +178,36 @@ def myers(window_planes_, peq, pad, m: int, ncols: int):
 
         score = score + ((hp[..., Wd - 1] >> 31) & 1) \
             - ((hn[..., Wd - 1] >> 31) & 1)
-        best = torch.minimum(best, score)
+        yield score
 
         x = shl1(hp)             # shift-in 0: free start
         vp = shl1(hn) | bnot(d0 | x)
         vn = d0 & x
-    return best.to(torch.int32)
+
+
+def myers(window_planes_, peq, pad, m: int, ncols: int):
+    """Multi-word bit-parallel semi-global edit distance per lane.
+
+    window_planes_: (b0, b1, nmask) u32[..., Ww] covering ncols columns.
+    peq: u32[..., 4, Wd]; pad: u32[..., Wd] (always-match rows).
+    Returns int32 lanes: min over end columns (and the start score m) of
+    D[m_pad][j], the real read's semi-global distance (pad rows are free
+    diagonals).
+    """
+    best = None
+    for score in _myers_scores(window_planes_, peq, pad, m, ncols):
+        best = score if best is None else torch.minimum(best, score)
+    return best.clamp(max=m).to(torch.int32)
+
+
+def myers_scan(window_planes_, peq, pad, m: int, ncols: int):
+    """Per-end-column semi-global scores: int32[..., ncols].
+
+    The recurrence of `myers`, with every column's running score kept:
+    out[..., j] = min edit distance of the (padded) read against any window
+    infix ending at column j.  The pad rows are always-match diagonals, so
+    out[..., j] is the REAL read's score for the alignment ending at column
+    j - (m - length); mate rescue (models/paired.py) accounts for the shift.
+    """
+    return torch.stack(list(_myers_scores(window_planes_, peq, pad, m,
+                                          ncols)), dim=-1).to(torch.int32)

@@ -1,30 +1,55 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's single-end search path on one CUDA card.
+"""Smoke run of the PyTorch port's single-end and paired-end search paths on
+one CUDA card.
 
     python3 chip_smoke.py            (from the repository root)
 
 Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
   1. card: name and power limit (nvidia-smi), torch / CUDA versions
   2. build: the native finalize library (make) and the CUDA kernels (nvcc)
-  3. each kernel vs its plain PyTorch version at the main path's shapes
-     (163,840 lanes, m = 96, e = 4), torch.equal, median CUDA-event times
-  4. main path: 10 Mbp two-contig genome, 4 x 16,384 reads through
+  3. each kernel vs its plain PyTorch version at the main paths' shapes,
+     torch.equal, median CUDA-event times: verify_fused and myers at
+     163,840 lanes (m = 96, e = 4); myers_scan at 4,096 lanes (one per
+     pair; insert 0-500 -> 605 columns, 19 window words) and at a ragged
+     4,093
+  4. SE main path: 10 Mbp two-contig genome, 4 x 16,384 reads through
      models.host.map_batch.  The last batch carries 1,024 low-complexity
      (pyrimidine-only, poly-T once converted) reads, as bisulfite libraries
      do; they overflow the flat buffer, so that batch takes the gdrop dense
      re-run.  SAM of the first 128 and the last 8 reads equals the numpy
-     oracle's; mapped fraction and recall against the simulator.  The launch
-     counts in the kernels' record are this phase's alone.
-  5. forced gdrop: the first batch with locate_flat_cap=1 (dense fallback
+     oracle's; mapped fraction and recall against the simulator.
+  5. SE forced gdrop: the first batch with locate_flat_cap=1 (dense fallback
      for every read) gives the same SAM as phase 4; its launches and peak
      device memory are reported apart from phase 4's
-  6. CLI: `python -m bitmapperbs_tpu_torch search -t 4` (spawned finalize
-     pool) in a subprocess gives the same records as phase 4
-  7. throughput: map_batch_device reads/s over 8 distinct simulated batches
-     (each synced by copying best_score to the host) and end-to-end
+  6. SE CLI: `python -m bitmapperbs_tpu_torch search -t 4` (spawned
+     finalize pool) in a subprocess gives the same records as phase 4
+  7. SE throughput: map_batch_device reads/s over 8 distinct simulated
+     batches (each synced by copying best_score to the host) and end-to-end
      map_batch reads/s over phase 4's 4 batches
-The second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
+  8. PE main path: 4 x 4,096 pairs (simulate_pairs, 90 bp, insert
+     150-480; cfg insert 0-500 as bench.py) through models.host.map_batch_pe.
+     The last batch ends with 256 pairs whose mate 2 carries one
+     substitution in each of three of its five seeds, and 512
+     low-complexity pairs (mate 1 pyrimidine-only, mate 2 purine-only) that
+     take the gdrop dense re-run.  All three kernels must launch.  SAM of
+     64 ordinary, 16 seed-killed and 8 low-complexity pairs equals the
+     oracle's; proper-pair rate, recall, and how the last batch's pairs
+     were decided (pair join / rescue / neither).  On a random genome a
+     mate with <= e errors always has an exact seed (e + 1 seeds), so the
+     pair join, not rescue, decides the seed-killed pairs; rescue decides
+     where seeds are too frequent, hence
+ 8b. 64 pairs on a small genome with a tandem repeat, one mate inside it:
+     rescue decides at least half, SAM equal to the oracle's
+  9. PE forced gdrop: the first PE batch with locate_flat_cap=1 gives the
+     same SAM, with its launches and peak device memory
+ 10. PE CLI: `search --pe -t 4` in a subprocess gives phase 8's records
+ 11. PE throughput: map_batch_pe_device reads/s (2 x pairs) over 8 distinct
+     batches (synced by copying pair_sum) and end-to-end map_batch_pe
+     reads/s over phase 8's batches
+The launch counts in the kernels' record are phase 8's (this slice's main
+path), with phase 4's beside them.  The second-to-last line is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -49,9 +74,21 @@ N_ORACLE, N_ORACLE_LOWCX = 128, 8
 REPS = 20
 CLI_THREADS = 4                    # finalize worker processes in phase 6
 
+PE_PAIRS = 4_096                   # pairs per PE batch (bench.py:149)
+N_PE_MAIN_BATCHES = 4
+N_PE_RESCUE, N_PE_LOWCX = 256, 512  # groups ending the PE main path
+N_PE_TIMED_BATCHES = 8
+MIN_INSERT, MAX_INSERT = 0, 500    # bench.py:150-151
+SCAN_LANES = (PE_PAIRS, PE_PAIRS - 3)  # one lane per pair; a ragged count
+PLAIN_SCAN_REPS = 5                # the plain scan is ~600 columns of ops
+KILL_POS = (9, 27, 63)             # in seeds 0, 1 and 3 of a 90 bp read
+N_PE_ORACLE, N_PE_ORACLE_RESCUE, N_PE_ORACLE_LOWCX = 64, 16, 8
+N_REPEAT_PAIRS = 64                # phase 8b: one mate inside a repeat
+
 KERNEL_SOURCES = {
     "verify_fused": "bitmapperbs_tpu/ops/pallas_kernels.py:212",
     "myers": "bitmapperbs_tpu/ops/pallas_kernels.py:29",
+    "myers_scan": "bitmapperbs_tpu/ops/pallas_kernels.py:119",
 }
 
 
@@ -113,12 +150,14 @@ def build_native() -> None:
                 name = None
 
 
-def kernel_inputs(idx, dix, n: int, seed: int):
+def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
     """Candidate lanes at the main path's widths: reads cut from either
     genome orientation with bisulfite conversion, per-lane substitution
     rates and indel-like offsets (ham <= e and ham > e both occur), N codes,
     reads shorter than the bucket, window starts that wrap below 0 and
-    windows that run past the genome end."""
+    windows that run past the genome end.  span > 0 (the rescue scan):
+    windows cover m + 2e + span columns and each read starts up to
+    span - 1 columns further in."""
     import numpy as np
     import torch
 
@@ -138,6 +177,8 @@ def kernel_inputs(idx, dix, n: int, seed: int):
     lens = np.where(rng.random(n) < 0.2, rng.integers(m // 2, m + 1, n),
                     READ_LEN)
     shift = np.where(rng.random(n) < 0.3, rng.integers(-2, 3, n), 0)
+    if span:
+        shift = shift + rng.integers(0, span, n)
     pos = anchor[:, None] + shift[:, None] + np.arange(m)
     inside = (pos >= 0) & (pos < L)
     reads = ref[orient[:, None], np.clip(pos, 0, L - 1)]
@@ -154,7 +195,7 @@ def kernel_inputs(idx, dix, n: int, seed: int):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     rp = verify.pack_codes(t(reads.astype(np.uint8)))
     lm = verify.length_mask(t(lens), m)
-    ncols = m + 2 * E
+    ncols = m + 2 * E + span
     wide = verify.window_planes(dix.g_planes, t(orient),
                                 wrap(t(anchor) - E), -(-ncols // 32), L,
                                 dix.g_words)
@@ -199,16 +240,98 @@ def phase_kernels(idx, dix) -> dict:
     return out
 
 
-def low_complexity_reads(n: int, seed: int):
-    """Pyrimidine-only reads: C->T conversion turns them into poly-T, whose
-    seeds hit tens of loci each on the converted genome."""
+def phase_scan_kernel(idx, dix) -> dict:
+    """myers_scan vs its plain version at the PE rescue shape."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    m, span = BUCKET, MAX_INSERT - MIN_INSERT + 1
+    ncols = span + m + 2 * E
+    out = None
+    for n in SCAN_LANES:
+        win, _, _, peq, pad = kernel_inputs(idx, dix, n, seed=11, span=span)
+        def kern():
+            return kernels.myers_scan(win, peq, pad, m, ncols)
+
+        def plain():
+            return kernels.myers_scan_ref(win, peq, pad, m, ncols)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (n, ncols), (got.shape, want.shape)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"myers_scan: kernel != plain on "
+                                 f"{int((got != want).sum())} of {got.numel()}"
+                                 f" scores ({n} lanes)")
+        hit = float((want.amin(dim=-1) <= E).float().mean())
+        msg = (f"kernel myers_scan: {n} lanes x {ncols} columns (Ww "
+               f"{win[0].shape[-1]}) equal to plain (max_abs_err {err}; a "
+               f"column <= e on {hit:.3f} of lanes)")
+        if out is None:
+            ms = median_ms(kern)
+            plain_ms = median_ms(plain, reps=PLAIN_SCAN_REPS)
+            msg += f"; median {ms:.3f} ms vs plain {plain_ms:.3f} ms"
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(msg)
+    return out
+
+
+def low_complexity_reads(n: int, seed: int, bases=None):
+    """Pyrimidine-only reads (or from `bases`): C->T conversion turns them
+    into poly-T, whose seeds hit tens of loci each on the converted
+    genome."""
     import numpy as np
 
     from bitmapperbs_tpu import constants as K
 
+    lo, hi = bases or (K.C, K.T)
     rng = np.random.default_rng(seed)
-    return list(np.where(rng.random((n, READ_LEN)) < 0.5, K.C,
-                         K.T).astype(np.uint8))
+    return list(np.where(rng.random((n, READ_LEN)) < 0.5, lo,
+                         hi).astype(np.uint8))
+
+
+def repeat_genome_fasta(seed: int) -> str:
+    """chr1 = 3 kb unique + 200 copies of a random 20 bp unit + 3 kb unique;
+    chr2 = 2 kb unique.  Every seed of a read inside the repeat occurs ~200
+    times, past max_seed_occ (128): such a mate has no SE hit, and only the
+    rescue pass next to its unique mate places it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def seq(n):
+        return "".join(rng.choice(list("ACGT"), n))
+    chr1 = seq(3000) + seq(20) * 200 + seq(3000)
+    return f">chr1\n{chr1}\n>chr2\n{seq(2000)}\n"
+
+
+def straddling_pairs(idx, n: int, seed: int, read_len: int = 80):
+    """n OT/OB fragments of read_len * 2 + 0..79 bp across a boundary of
+    repeat_genome_fasta's repeat: one read in the unique flank, the other
+    wholly inside the repeat."""
+    import numpy as np
+
+    from bitmapperbs_tpu import constants as K
+    from bitmapperbs_tpu.utils import dna
+
+    rng = np.random.default_rng(seed)
+    g = np.asarray(idx.genome.codes)
+    base = int(idx.genome.offsets[0])
+    pairs = []
+    for k in range(n):
+        b = base + (3000 if k % 2 else 7000)
+        s = b - read_len - int(rng.integers(0, 20))
+        frag = g[s:b + int(rng.integers(0, 60)) + read_len].copy()
+        if rng.integers(0, 2):
+            frag = dna.revcomp(frag)                # OB
+        frag[(frag == K.C) & (rng.random(len(frag)) < 0.7)] = K.T
+        pairs.append((frag[:read_len].copy(),
+                      dna.revcomp(frag)[:read_len].copy()))
+    return pairs
 
 
 def recall(idx, sims, recs) -> float:
@@ -233,40 +356,21 @@ def reset_launches() -> None:
         kernels.LAUNCHES[k] = 0
 
 
-def run(card: str) -> dict:
-    """Phases 2-7 on cuda:0 (`card` labels the throughput line); returns
-    the kernels' JSON record."""
-    import numpy as np
+def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
+    """SE phases 4-7; returns phase 4's and phase 5's launch counts."""
     import torch
 
     from bitmapperbs_tpu.config import AlignerConfig
-    from bitmapperbs_tpu.index.build import build_index, save_index
     from bitmapperbs_tpu.io.fastq import write_fastq
     from bitmapperbs_tpu.oracle.pipeline import map_batch_se
-    from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,
-                                                simulate_reads)
-    from bitmapperbs_tpu_torch.index.device import upload_index
+    from bitmapperbs_tpu.utils.simulate import simulate_reads
     from bitmapperbs_tpu_torch.models.aligner import map_batch_device
     from bitmapperbs_tpu_torch.models.host import map_batch, prepare_batch
     from bitmapperbs_tpu_torch.ops import kernels
 
-    device = torch.device("cuda", 0)
-    build_native()
+    device = dix.device
 
-    t0 = time.perf_counter()
-    idx = build_index(random_genome_fasta(np.random.default_rng(0),
-                                          contigs=GENOME_CONTIGS))
-    t1 = time.perf_counter()
-    dix = upload_index(idx, device)
-    torch.cuda.synchronize()
-    log(f"index: {sum(GENOME_CONTIGS)} bp, built in {t1 - t0:.2f} s, "
-        f"uploaded in {time.perf_counter() - t1:.2f} s ({dix.nbytes / 1e6:.1f}"
-        f" MB of tables; sa_rate {dix.sa_rate}, klt_k {dix.klt_k})")
-
-    # ---- phase 3: kernels vs plain ------------------------------------------
-    kstats = phase_kernels(idx, dix)
-
-    # ---- phase 4: main path -------------------------------------------------
+    # ---- phase 4: SE main path ----------------------------------------------
     cfg = AlignerConfig(max_errors=E, indels=True, read_len_bucket=BUCKET,
                         batch_size=BATCH)
     sims = [simulate_reads(idx.genome, BATCH, read_len=READ_LEN, seed=10 + i,
@@ -317,10 +421,8 @@ def run(card: str) -> dict:
         f"launches {gdrop_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
 
-    # ---- phase 6: CLI, with the spawned finalize pool beside CUDA ------------
+    # ---- phase 6: SE CLI, with the spawned finalize pool beside CUDA ---------
     with tempfile.TemporaryDirectory(prefix="btbs_smoke_") as d:
-        prefix = os.path.join(d, "ref")
-        save_index(idx, prefix)
         fq = os.path.join(d, "reads.fq")
         write_fastq(fq, reads, qnames, quals)
         out = os.path.join(d, "out.sam")
@@ -340,7 +442,7 @@ def run(card: str) -> dict:
         log(f"CLI (-t {CLI_THREADS}): {len(cli)} records equal to phase 4 "
             f"({time.perf_counter() - t0:.2f} s incl. start-up)")
 
-    # ---- phase 7: throughput ------------------------------------------------
+    # ---- phase 7: SE throughput ---------------------------------------------
     dev_batches = []
     for b in sims:
         a, ln = prepare_batch([s.codes for s in b], BUCKET, BATCH)
@@ -367,12 +469,246 @@ def run(card: str) -> dict:
         f"over phase 4's {N_MAIN_BATCHES} batches (one gdrop re-run), on "
         f"{card}")
 
+    return main_launches, gdrop_launches
+
+
+def pe_inputs(idx):
+    """Phase 8's pairs: simulated batches (the first N_PE_MAIN_BATCHES feed
+    the main path, all of them the throughput phase), the seed-killed and
+    low-complexity groups ending the main path."""
+    import numpy as np
+
+    from bitmapperbs_tpu import constants as K
+    from bitmapperbs_tpu.utils.simulate import simulate_pairs
+
+    sims = [simulate_pairs(idx.genome, PE_PAIRS, read_len=READ_LEN,
+                           seed=50 + i, sub_rate=0.01, indel_rate=0.005,
+                           min_insert=150, max_insert=480)
+            for i in range(N_PE_TIMED_BATCHES)]
+    n_main = N_PE_MAIN_BATCHES * PE_PAIRS
+    main = [p for b in sims[:N_PE_MAIN_BATCHES] for p in b][:n_main
+                                                           - N_PE_LOWCX]
+    pairs = [(a.codes, b.codes) for a, b in main]
+    rng = np.random.default_rng(98)
+    r0 = len(pairs) - N_PE_RESCUE
+    for i in range(r0, len(pairs)):
+        r2 = pairs[i][1].copy()
+        for j in KILL_POS:
+            r2[j] = (r2[j] + 1 + rng.integers(0, 3)) % 4
+        pairs[i] = (pairs[i][0], r2)
+    pairs += list(zip(low_complexity_reads(N_PE_LOWCX, 97),
+                      low_complexity_reads(N_PE_LOWCX, 96, (K.A, K.G))))
+    quals = [(a.qual, b.qual) for a, b in main] + \
+        [("I" * READ_LEN,) * 2] * N_PE_LOWCX
+    qnames = [f"p{i}" for i in range(len(pairs))]
+    return sims, main, pairs, quals, qnames, r0
+
+
+def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
+    """PE phases 8-11; returns phase 8's and phase 9's launch counts."""
+    import torch
+
+    from bitmapperbs_tpu import constants as K
+    from bitmapperbs_tpu.config import AlignerConfig
+    from bitmapperbs_tpu.index.build import build_index
+    from bitmapperbs_tpu.io.fastq import write_fastq
+    from bitmapperbs_tpu.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch.index.device import upload_index
+    from bitmapperbs_tpu_torch.models.host import (map_batch_pe,
+                                                   prepare_batch, to_host)
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    device = dix.device
+    cfg = AlignerConfig(max_errors=E, indels=True, read_len_bucket=BUCKET,
+                        batch_size=PE_PAIRS, paired=True,
+                        min_insert=MIN_INSERT, max_insert=MAX_INSERT)
+    t0 = time.perf_counter()
+    sims, main, pairs, quals, qnames, r0 = pe_inputs(idx)
+    log(f"PE inputs: {len(sims)} x {PE_PAIRS} simulated pairs in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def to_dev(batch):
+        a1, l1 = prepare_batch([p[0] for p in batch], BUCKET, PE_PAIRS)
+        a2, l2 = prepare_batch([p[1] for p in batch], BUCKET, PE_PAIRS)
+        return ([torch.from_numpy(x).to(device) for x in (a1, l1, a2, l2)],
+                int(l1.min()), int(l2.min()))
+
+    # ---- phase 8: PE main path ----------------------------------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
+    main_launches = dict(kernels.LAUNCHES)
+    log(f"PE main path: {len(pairs)} pairs mapped in "
+        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{main_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    assert len(recs) == 2 * len(pairs)
+    for name in ("verify_fused", "myers_scan", "myers"):
+        assert main_launches[name] > 0, f"{name} never ran on the PE path"
+    lines = [r.line() for r in recs]
+    n = len(pairs)
+    for lo, hi in ((0, N_PE_ORACLE), (r0, r0 + N_PE_ORACLE_RESCUE),
+                   (n - N_PE_ORACLE_LOWCX, n)):
+        oracle = [r.line() for r in oracle_pe(idx, cfg, pairs[lo:hi],
+                                              quals[lo:hi], qnames[lo:hi])]
+        bad = [i for i, (a, b) in enumerate(zip(oracle, lines[2 * lo:2 * hi]))
+               if a != b]
+        assert len(oracle) == 2 * (hi - lo) and not bad, \
+            f"PE oracle mismatch at record {2 * lo + bad[0]}:\n" \
+            f"{oracle[bad[0]]}\n{lines[2 * lo + bad[0]]}"
+    proper = sum(bool(r.flag & K.FLAG_PROPER) for r in recs[::2]) / n
+    sim_mates = [s for p in main for s in p]
+    log(f"PE main path: SAM of pairs [0, {N_PE_ORACLE}), [{r0}, "
+        f"{r0 + N_PE_ORACLE_RESCUE}) (seed-killed mate 2) and the last "
+        f"{N_PE_ORACLE_LOWCX} (low-complexity, gdrop re-run) equals the "
+        f"oracle; proper-pair rate {proper:.4f}, recall of the simulated "
+        f"mates {recall(idx, sim_mates, recs[:2 * len(main)]):.4f}")
+
+    # how the last batch's pairs were decided (outside the counted run)
+    lo = (N_PE_MAIN_BATCHES - 1) * PE_PAIRS
+    args, mn1, mn2 = to_dev(pairs[lo:])
+    host = to_host(map_batch_pe_device(dix, cfg, *args, min_read_len1=mn1,
+                                       min_read_len2=mn2))
+    pv, rv, gd = host["pair_valid"], host["resc_valid"], host["gdrop"]
+    for name, sl in (("ordinary", slice(0, r0 - lo)),
+                     ("seed-killed", slice(r0 - lo, n - N_PE_LOWCX - lo)),
+                     ("low-complexity", slice(n - N_PE_LOWCX - lo, n - lo))):
+        log(f"PE decisions, last batch, {name} pairs: pair join "
+            f"{int(pv[sl].sum())}, rescue {int((rv & ~pv)[sl].sum())}, "
+            f"neither {int((~rv & ~pv)[sl].sum())} (compact pass; gdrop "
+            f"{int(gd[sl].sum())})")
+
+    # ---- phase 8b: rescue deciding: mates inside a repeat ---------------------
+    rep_idx = build_index(repeat_genome_fasta(31))
+    rep_dix = upload_index(rep_idx, device)
+    rep = straddling_pairs(rep_idx, N_REPEAT_PAIRS, seed=32,
+                           read_len=READ_LEN)
+    reset_launches()
+    rep_recs = [r.line() for r in map_batch_pe(rep_idx, rep_dix, cfg, rep)]
+    rep_launches = dict(kernels.LAUNCHES)
+    assert rep_launches["myers_scan"] > 0, "myers_scan never ran (repeat)"
+    assert rep_recs == [r.line() for r in oracle_pe(rep_idx, cfg, rep)], \
+        "repeat-genome PE SAM differs from the oracle"
+    args, mn1, mn2 = to_dev(rep)
+    host = to_host(map_batch_pe_device(rep_dix, cfg, *args,
+                                       min_read_len1=mn1, min_read_len2=mn2))
+    decided = int((host["resc_valid"] & ~host["pair_valid"])[:len(rep)].sum())
+    assert 2 * decided >= len(rep), f"rescue decided only {decided} pairs"
+    log(f"PE rescue in a repeat: {len(rep)} pairs with one mate inside a "
+        f"20 bp x 200 tandem repeat; rescue decided {decided}, SAM equal to "
+        f"the oracle; launches {rep_launches}")
+
+    # ---- phase 9: PE gdrop dense fallback forced for a whole batch ----------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    recs_g = map_batch_pe(idx, dix, cfg.replace(locate_flat_cap=1),
+                          pairs[:PE_PAIRS], quals[:PE_PAIRS],
+                          qnames[:PE_PAIRS])
+    gdrop_launches = dict(kernels.LAUNCHES)
+    assert gdrop_launches["myers"] > 0, "Myers kernel never ran (forced)"
+    assert [r.line() for r in recs_g] == lines[:2 * PE_PAIRS], \
+        "PE gdrop SAM differs"
+    log(f"PE forced gdrop: {PE_PAIRS} pairs re-run dense, SAM equal to "
+        f"phase 8; launches {gdrop_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+
+    # ---- phase 10: PE CLI ---------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="btbs_smoke_pe_") as d:
+        fq = [os.path.join(d, f"pairs_{k}.fq") for k in (1, 2)]
+        for k in (0, 1):
+            write_fastq(fq[k], [p[k] for p in pairs], qnames,
+                        [q[k] for q in quals])
+        out = os.path.join(d, "out.sam")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bitmapperbs_tpu_torch", "search", prefix,
+             "--pe", "--seq1", fq[0], "--seq2", fq[1], "-o", out,
+             "--read-bucket", str(BUCKET), "--batch-size", str(PE_PAIRS),
+             "--min", str(MIN_INSERT), "--max", str(MAX_INSERT),
+             "--platform", "gpu", "-t", str(CLI_THREADS)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"PE CLI failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        with open(out) as f:
+            cli = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
+        assert cli == lines, "PE CLI records differ from map_batch_pe's"
+        log(f"PE CLI (--pe -t {CLI_THREADS}): {len(cli)} records equal to "
+            f"phase 8 ({time.perf_counter() - t0:.2f} s incl. start-up)")
+
+    # ---- phase 11: PE throughput --------------------------------------------
+    dev_batches = [to_dev([(a.codes, b.codes) for a, b in sb]) for sb in sims]
+
+    def run_dev(batch):
+        args, mn1, mn2 = batch
+        return map_batch_pe_device(dix, cfg, *args, min_read_len1=mn1,
+                                   min_read_len2=mn2)
+
+    run_dev(dev_batches[0])["pair_sum"].cpu()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    outs = [run_dev(b) for b in dev_batches]
+    for o in outs:
+        o["pair_sum"].cpu()
+    dev_rps = 2 * len(dev_batches) * PE_PAIRS / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    del outs
+    t0 = time.perf_counter()
+    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
+    e2e_rps = 2 * len(pairs) / (time.perf_counter() - t0)
+    assert [r.line() for r in recs] == lines
+    log(f"PE throughput: map_batch_pe_device {dev_rps:.1f} reads/s "
+        f"({dev_rps / 2:.1f} pairs/s) over {len(dev_batches)} simulated "
+        f"batches of {PE_PAIRS} pairs (peak device memory {peak:.2f} GB); "
+        f"end-to-end map_batch_pe {e2e_rps:.1f} reads/s over phase 8's "
+        f"{N_PE_MAIN_BATCHES} batches (one gdrop re-run), on {card}")
+    return main_launches, gdrop_launches
+
+
+def run(card: str) -> dict:
+    """Phases 2-11 on cuda:0 (`card` labels the throughput lines); returns
+    the kernels' JSON record."""
+    import numpy as np
+    import torch
+
+    from bitmapperbs_tpu.index.build import build_index, save_index
+    from bitmapperbs_tpu.utils.simulate import random_genome_fasta
+    from bitmapperbs_tpu_torch.index.device import upload_index
+
+    device = torch.device("cuda", 0)
+    build_native()
+
+    t0 = time.perf_counter()
+    idx = build_index(random_genome_fasta(np.random.default_rng(0),
+                                          contigs=GENOME_CONTIGS))
+    t1 = time.perf_counter()
+    dix = upload_index(idx, device)
+    torch.cuda.synchronize()
+    log(f"index: {sum(GENOME_CONTIGS)} bp, built in {t1 - t0:.2f} s, "
+        f"uploaded in {time.perf_counter() - t1:.2f} s ({dix.nbytes / 1e6:.1f}"
+        f" MB of tables; sa_rate {dix.sa_rate}, klt_k {dix.klt_k})")
+
+    # ---- phase 3: kernels vs plain ------------------------------------------
+    kstats = phase_kernels(idx, dix)
+    kstats["myers_scan"] = phase_scan_kernel(idx, dix)
+
+    with tempfile.TemporaryDirectory(prefix="btbs_smoke_idx_") as d:
+        prefix = os.path.join(d, "ref")
+        save_index(idx, prefix)            # for the CLI phases 6 and 10
+        se_launches, se_gdrop = run_se(idx, dix, card, prefix)
+        pe_launches, pe_gdrop = run_pe(idx, dix, card, prefix)
+
     return {"kernels": [
         {"name": name, "route": "cuda",
          "source": "bitmapperbs_tpu_torch/csrc/verify.cu",
-         "replaces": KERNEL_SOURCES[name], "launches": main_launches[name],
-         **kstats[name]} for name in ("verify_fused", "myers")],
-        "forced_gdrop_launches": gdrop_launches}
+         "replaces": KERNEL_SOURCES[name], "launches": pe_launches[name],
+         **kstats[name],
+         "launches_by_path": {"se": se_launches[name],
+                              "pe": pe_launches[name]}}
+        for name in ("verify_fused", "myers", "myers_scan")],
+        "forced_gdrop_launches": {"se": se_gdrop, "pe": pe_gdrop}}
 
 
 def main() -> int:

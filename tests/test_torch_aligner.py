@@ -103,7 +103,7 @@ def test_compact_equals_dense_grids(setup):
     idx, _, td, reads, _ = setup
     arr, lens = prepare_batch(reads, 96, B)
     a, ln = torch.from_numpy(arr), torch.from_numpy(lens).long()
-    frames = tuple(tal.frames_for(BASE))
+    frames = tuple(tal.se_frames(BASE))
     gd = tal.candidate_grids(td, BASE, a, ln, frames)
     gc = tal.candidate_grids_compact(td, BASE, a, ln, frames)
     assert not gc["gdrop"].any()

@@ -1,6 +1,7 @@
-"""PyTorch port CLI: `search` SAM records equal the reference CLI's, the GPU
-platform refuses to fall back to the CPU, unported options exit 2, and the
-package never imports jax."""
+"""PyTorch port CLI: `search` SAM records equal the reference CLI's (single
+end and `--pe`), the GPU platform refuses to fall back to the CPU, `--pe`
+needs both mate files, unported options exit 2, and the package never
+imports jax."""
 import os
 import subprocess
 import sys
@@ -14,7 +15,7 @@ from bitmapperbs_tpu.cli import main as jmain  # noqa: E402
 from bitmapperbs_tpu.index.build import parse_fasta  # noqa: E402
 from bitmapperbs_tpu.io.fastq import write_fastq  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,  # noqa: E402
-                                            simulate_reads)
+                                            simulate_pairs, simulate_reads)
 from bitmapperbs_tpu_torch.cli import main  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +30,13 @@ def workdir(tmp_path_factory):
                           sub_rate=0.01, indel_rate=0.005)
     write_fastq(d / "reads.fq", [s.codes for s in sims],
                 quals=[s.qual for s in sims])
+    pairs = simulate_pairs(parse_fasta(fa), 24, read_len=80, seed=6,
+                           min_insert=150, max_insert=300, sub_rate=0.01,
+                           indel_rate=0.005)
+    for mate in (0, 1):
+        write_fastq(d / f"pairs_{mate + 1}.fq", [p[mate].codes for p in pairs],
+                    qnames=[f"pair{i}" for i in range(len(pairs))],
+                    quals=[p[mate].qual for p in pairs])
     assert main(["index", str(d / "ref.fa")]) == 0
     return d
 
@@ -53,6 +61,39 @@ def test_search_matches_reference_cli(workdir, extra):
     assert (d / "port.json").read_text() == (d / "ref.json").read_text()
 
 
+@pytest.mark.parametrize("extra", [[], ["--pbat", "-e", "0.05"]])
+def test_search_pe_matches_reference_cli(workdir, extra):
+    d = workdir
+    common = ["search", str(d / "ref.fa"), "--pe", "--seq1",
+              str(d / "pairs_1.fq"), "--seq2", str(d / "pairs_2.fq"),
+              "--batch-size", "16", "--min", "100", "--max", "400",
+              "--platform", "cpu", *extra]
+    assert main([*common, "-o", str(d / "port_pe.sam"),
+                 "--stats-json", str(d / "port_pe.json")]) == 0
+    assert jmain([*common, "--single-device", "-o", str(d / "ref_pe.sam"),
+                  "--stats-json", str(d / "ref_pe.json")]) == 0
+    got, want = records(d / "port_pe.sam"), records(d / "ref_pe.sam")
+    assert got == want
+    body = [ln for ln in got if not ln.startswith("@")]
+    assert len(body) == 48
+    assert sum(int(ln.split("\t")[1]) & 0x2 > 0 for ln in body) > 24
+    assert (d / "port_pe.json").read_text() == \
+        (d / "ref_pe.json").read_text()
+
+
+@pytest.mark.parametrize("mate", ["--seq1", "--seq2"])
+def test_pe_needs_both_mates(workdir, capsys, mate):
+    """`--pe` with one mate file exits 2 with the reference's message."""
+    d = workdir
+    args = ["search", str(d / "ref.fa"), "--pe", mate,
+            str(d / "pairs_1.fq"), "--platform", "cpu"]
+    assert main(args) == 2
+    err = capsys.readouterr().err
+    assert jmain(args) == 2
+    assert err == capsys.readouterr().err == \
+        "error: --pe requires --seq1 and --seq2\n"
+
+
 def test_platform_auto_needs_a_gpu(workdir, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -65,7 +106,7 @@ def test_platform_auto_needs_a_gpu(workdir, capsys):
     assert not (d / "x.sam").exists()
 
 
-@pytest.mark.parametrize("flag", [["--pe"], ["--resume"], ["--oracle"],
+@pytest.mark.parametrize("flag", [["--resume"], ["--oracle"],
                                   ["--profile", "p"], ["--dist-hosts", "2"],
                                   ["--shard-index", "2"]])
 def test_unported_options_exit_2(workdir, capsys, flag):
@@ -82,7 +123,8 @@ def test_package_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.') if not m.name.endswith('__main__')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 10, mods\n"
+        "assert len(mods) >= 11, mods\n"
+        "assert 'bitmapperbs_tpu_torch.models.paired' in mods, mods\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
