@@ -4,39 +4,379 @@
     python -m bitmapperbs_tpu_torch search ref.fa --seq r.fq [options]  (SE)
     python -m bitmapperbs_tpu_torch search ref.fa --pe --seq1 r1.fq \
         --seq2 r2.fq [options]                                         (PE)
+    python -m bitmapperbs_tpu_torch resample P [--sa-rate R] [--out Q]
 
-The parser, `index`, config building, genome-size autotune and the per-read
-budget grouping are the reference CLI's (bitmapperbs_tpu/cli.py); `search`
-maps single-end reads through models/host.map_batch and pairs through
+Counterpart of bitmapperbs_tpu/cli.py, with the same options: the parser,
+`index`, `resample`, config building, genome-size autotune and the per-read
+budget grouping are kept equal to the reference CLI's.  `search` maps
+single-end reads through models/host.map_batch and pairs through
 models/host.map_batch_pe on one GPU (`--platform auto|gpu`) or, when asked
 for explicitly, on the CPU (`--platform cpu`).  Options of the reference
 that this port does not run yet exit 2.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import re
 import sys
 import time
 
-from bitmapperbs_tpu.cli import (_budget_for, _closing_iter, _map_grouped_pe,
-                                 _map_grouped_se, _translate_legacy,
-                                 autotune_for_genome, build_parser, cmd_index,
-                                 default_prefix, make_config)
 
 PLATFORMS = ("auto", "cpu", "gpu")
 
 
-def _parser():
-    ap = build_parser()
-    ap.prog = "bitmapperbs_tpu_torch"
-    sub = next(a for a in ap._actions if a.dest == "cmd")
-    for act in sub.choices["search"]._actions:
-        if act.dest == "platform":
-            act.choices = PLATFORMS
-            act.help = ("auto/gpu: the CUDA device (exit 2 when there is "
-                        "none); cpu: the plain PyTorch path on the host")
+def _translate_legacy(argv):
+    if argv and argv[0] in ("--index", "--search"):
+        return [argv[0][2:]] + argv[1:]
+    return argv
+
+
+def build_parser():
+    from bitmapperbs_tpu_torch.io.sam import VERSION
+
+    ap = argparse.ArgumentParser(prog="bitmapperbs_tpu_torch",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--version", action="version",
+                    version=f"bitmapperbs_tpu_torch {VERSION}")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    ix = sub.add_parser("index", help="build the bisulfite FM-index")
+    ix.add_argument("ref")
+    ix.add_argument("--prefix", default=None,
+                    help="index output prefix (default: <ref>.btidx)")
+    ix.add_argument("--sa-rate", type=int, default=None,
+                    help="SA sample rate (default: 4 for <=134 Mbp, else 8; "
+                         "lower = faster locate, more HBM)")
+    ix.add_argument("--klt-k", type=int, default=None,
+                    help="k-mer lookup table depth (default: genome-size "
+                         "adaptive, <= 14)")
+    ix.add_argument("-t", "--threads", type=int, default=1,
+                    help="build the two FM blocks (CT(W), CT(rc W)) in "
+                         "parallel worker processes (>=2 halves the "
+                         "suffix-array wall time; needs RAM for two "
+                         "concurrent builds)")
+    ix.add_argument("--build-mode", choices=("auto", "sais", "lowmem"),
+                    default="auto",
+                    help="sais: in-RAM suffix array (~12 B/char); lowmem: "
+                         "native dynamic-BWT insertion, no suffix array "
+                         "(~1 B/char peak -- whole-genome builds on small "
+                         "hosts); auto picks by genome size")
+
+    rs = sub.add_parser(
+        "resample",
+        help="densify an index's SA samples (halve sa-rate) in place -- "
+             "faster locate without rebuilding the suffix array")
+    rs.add_argument("prefix", help="index prefix (from `index`)")
+    rs.add_argument("--sa-rate", type=int, default=None,
+                    help="target rate (default: half the current rate; must "
+                         "be current/2^k)")
+    rs.add_argument("--out", default=None,
+                    help="output prefix (default: rewrite in place)")
+
+    se = sub.add_parser("search", help="map reads")
+    se.add_argument("ref")
+    se.add_argument("--seq", help="single-end FASTQ(.gz)")
+    se.add_argument("--seq1", help="paired-end mate 1")
+    se.add_argument("--seq2", help="paired-end mate 2")
+    se.add_argument("--pe", action="store_true", help="paired-end mode")
+    se.add_argument("-o", "--output", default="-", help="SAM output (default stdout)")
+    se.add_argument("--bam", action="store_true",
+                    help="write BAM instead of SAM (also implied by a .bam "
+                         "output path)")
+    se.add_argument("-e", "--max-errors", type=float, default=4,
+                    help="error budget: an integer = max edit distance; a "
+                         "fraction in (0,1) = error rate, resolved as "
+                         "floor(rate * first-read length) (min 1)")
+    se.add_argument("--no-indels", action="store_true",
+                    help="Hamming-only mode (mismatches, no gaps)")
+    se.add_argument("--min", dest="min_insert", type=int, default=0)
+    se.add_argument("--max", dest="max_insert", type=int, default=1000)
+    se.add_argument("--pbat", "--non-directional", dest="non_directional",
+                    action="store_true")
+    se.add_argument("--fast", action="store_true",
+                    help="sensitivity preset: fewer candidates")
+    se.add_argument("--sensitive", action="store_true",
+                    help="sensitivity preset: more candidates")
+    se.add_argument("--seed-ext", type=int, default=None, metavar="N",
+                    help="adaptive seed extension: a heavy seed grows left "
+                         "by up to N chars until its interval is small "
+                         "(default: auto -- 20 for genomes over 512 Mbp, "
+                         "else off; 0 disables)")
+    se.add_argument("--seed-ext-occ", type=int, default=4, metavar="T",
+                    help="extension stops once a seed's interval holds <= T "
+                         "occurrences (with --seed-ext)")
+    se.add_argument("--max-candidates", type=int, default=None, metavar="K",
+                    help="verified anchors per read per (pattern, block) "
+                         "(default: auto -- 128 for genomes over 512 Mbp, "
+                         "else 64)")
+    se.add_argument("-t", "--threads", type=int, default=1,
+                    help="host IO worker threads (device does the mapping)")
+    se.add_argument("--batch-size", type=int, default=4096)
+    se.add_argument("--flat-chunks", type=int, default=None, metavar="N",
+                    help="run locate/verify over the candidate buffer in N "
+                         "occupancy-bounded chunks (skip work past the last "
+                         "occupied slot; bit-identical; default: size-"
+                         "adaptive)")
+    se.add_argument("--read-bucket", type=int, default=None,
+                    help="padded read length (multiple of 32; default: "
+                         "sized from the first reads -- shorter buckets map "
+                         "proportionally faster)")
+    se.add_argument("--phred64", action="store_true")
+    se.add_argument("--unmapped-out", default=None,
+                    help="write unmapped reads to this FASTQ")
+    se.add_argument("--ambiguous-out", default=None,
+                    help="write ambiguous (MAPQ 0) reads to this FASTQ")
+    se.add_argument("--suppress-ambiguous", action="store_true",
+                    help="do not report multi-mapping (MAPQ 0) reads")
+    se.add_argument("--stats-json", default=None)
+    se.add_argument("--resume", action="store_true",
+                    help="resume from the output's cursor checkpoint")
+    se.add_argument("--dist-hosts", type=int, default=1,
+                    help="number of hosts in a multi-host (pod) run")
+    se.add_argument("--dist-host-id", type=int, default=None,
+                    help="this host's process id (default: auto)")
+    se.add_argument("--dist-coordinator", default=None,
+                    help="coordinator address host:port of a multi-host run")
+    se.add_argument("--dist-shard", choices=("auto", "bytes", "records"),
+                    default="auto",
+                    help="multi-host input sharding: 'bytes' = per-host "
+                         "byte ranges (each host decodes ~1/H of the FASTQ; "
+                         "uncompressed only), 'records' = record striding "
+                         "(every host decodes everything, keeps 1/H); auto "
+                         "picks bytes unless input is .gz")
+    se.add_argument("--shard-index", type=int, default=0, metavar="N",
+                    help="shard the index over N chips (HBM relief for "
+                         "genomes larger than one chip; must divide the "
+                         "local device count; default 0 = replicated)")
+    se.add_argument("--single-device", action="store_true",
+                    help="map on one chip even when more are attached")
+    se.add_argument("--platform", choices=PLATFORMS, default="auto",
+                    help="auto/gpu: the CUDA device (exit 2 when there is "
+                         "none); cpu: the plain PyTorch path on the host")
+    se.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a profiler trace to DIR")
+    se.add_argument("--oracle", action="store_true",
+                    help="use the pure-CPU numpy oracle path (debug)")
+    se.add_argument("--rg", default=None, help="read group id")
     return ap
+
+
+def default_prefix(ref):
+    return ref + ".btidx"
+
+
+def cmd_index(args) -> int:
+    from bitmapperbs_tpu_torch.index.build import build_index, save_index
+
+    prefix = args.prefix or default_prefix(args.ref)
+    t0 = time.time()
+    idx = build_index(args.ref, sa_rate=args.sa_rate, klt_k=args.klt_k,
+                      build_mode=args.build_mode, jobs=args.threads)
+    save_index(idx, prefix)
+    sys.stderr.write(
+        f"[bitmapperbs_tpu_torch] indexed {sum(idx.genome.lengths)} bp "
+        f"({len(idx.genome.names)} contigs) in {time.time() - t0:.1f}s "
+        f"-> {prefix}.bin ({idx.nbytes() / 1e6:.0f} MB)\n")
+    return 0
+
+
+def make_config(args):
+    from bitmapperbs_tpu_torch.config import AlignerConfig
+
+    e = args.max_errors
+    if not 0 < e < 1 and e != int(e):
+        raise SystemExit(f"error: -e must be an integer or a rate in (0,1), "
+                         f"got {e}")
+    cfg = AlignerConfig(
+        max_errors=int(e),
+        indels=not args.no_indels,
+        non_directional=args.non_directional,
+        paired=bool(args.pe),
+        min_insert=args.min_insert,
+        max_insert=args.max_insert,
+        batch_size=args.batch_size,
+        read_len_bucket=args.read_bucket,
+        report_ambiguous=not args.suppress_ambiguous,
+        sam_rg=args.rg,
+    )
+    if getattr(args, "flat_chunks", None) is not None:
+        cfg = cfg.replace(flat_chunks=args.flat_chunks)
+    if args.fast:
+        cfg = cfg.replace(max_seed_occ=32, locate_budget=64, max_candidates=16)
+    if args.sensitive:
+        cfg = cfg.replace(max_seed_occ=512, locate_budget=512,
+                          max_candidates=128)
+    if getattr(args, "seed_ext", None) is not None:
+        cfg = cfg.replace(seed_ext_max=args.seed_ext,
+                          seed_ext_occ=args.seed_ext_occ)
+    if getattr(args, "max_candidates", None) is not None:
+        cfg = cfg.replace(max_candidates=args.max_candidates)
+    cfg.validate()
+    return cfg
+
+
+def autotune_for_genome(cfg, args, genome_bp: int):
+    """Genome-size config auto-tune (SURVEY.md C9).  At Gbp scale the
+    3-letter alphabet makes T-rich seeds heavy-tailed: measured at 3.08 Gbp,
+    mean candidate occupancy is ~259 entries/read and the default caps
+    collapse recall to 0.59.  Adaptive seed extension (grow heavy seeds
+    until <= 4 occurrences, <= 20 chars) cuts occupancy to ~78 and, with
+    max_candidates 128, restores recall to 0.989 -- above even the
+    cap-512 dense sweep (0.988) at a third of the candidate volume
+    (PERF.md round-3 3 Gbp study).  Explicit flags always win."""
+    if genome_bp <= 512_000_000:
+        return cfg
+    tuned = []
+    # The small-genome presets are HARMFUL at Gbp scale (the reference
+    # package's study on its 3 Gbp repeat artifact; recall is a count and
+    # carries over, its TPU rates do not): --fast's tiny caps drop recall
+    # to 0.83 without being faster there, and --sensitive's occ/LB flood
+    # gdrops 14% of reads into host dense reruns (device recall 0.77).
+    # Remap them onto the adaptive-seeding regime's real lever, the
+    # candidate cap: recall is monotone over Kc64 / 128 / 256-2chunks.
+    explicit_kc = getattr(args, "max_candidates", None) is not None
+    if getattr(args, "fast", False):
+        cfg = cfg.replace(max_seed_occ=128, locate_budget=256)
+        if not explicit_kc:
+            cfg = cfg.replace(max_candidates=64)
+        tuned.append("fast -> Kc64 (Gbp regime)")
+    if getattr(args, "sensitive", False):
+        cfg = cfg.replace(max_seed_occ=128, locate_budget=256)
+        if not explicit_kc:
+            cfg = cfg.replace(max_candidates=256)
+        if getattr(args, "flat_chunks", None) is None:
+            cfg = cfg.replace(flat_chunks=max(cfg.flat_chunks, 2))
+        tuned.append("sensitive -> Kc256/2-chunks (Gbp regime)")
+    if getattr(args, "seed_ext", None) is None and cfg.seed_ext_max == 0:
+        cfg = cfg.replace(seed_ext_max=20,
+                          seed_ext_occ=getattr(args, "seed_ext_occ", 4))
+        tuned.append(f"seed-ext {cfg.seed_ext_max} "
+                     f"(occ<={cfg.seed_ext_occ})")
+    if (getattr(args, "max_candidates", None) is None
+            and not getattr(args, "fast", False)
+            and not getattr(args, "sensitive", False)):
+        cfg = cfg.replace(max_candidates=128)
+        tuned.append("max-candidates 128")
+    if (cfg.non_directional and cfg.locate_flat_cap == 0
+            and getattr(args, "flat_chunks", None) is None):
+        # 4 frames carry ~2x the SE occupancy (~156/read measured at
+        # 3.08 Gbp with extension): above flat_cap_max=128, so PBAT would
+        # gdrop ~22% of reads into dense reruns; 192 slots in 3
+        # occupancy-bounded chunks measured gdrop-free at recall 0.9893
+        cfg = cfg.replace(locate_flat_cap=192, flat_chunks=3)
+        tuned.append("flat-cap 192 (3 chunks)")
+    if tuned:
+        sys.stderr.write(f"[bitmapperbs_tpu_torch] {genome_bp/1e9:.2f} Gbp genome:"
+                         f" auto-tuned {', '.join(tuned)}\n")
+    return cfg
+
+
+def cmd_resample(args) -> int:
+    from bitmapperbs_tpu_torch.index.build import load_index, save_index
+    from bitmapperbs_tpu_torch.index.resample import halve_sa_rate
+
+    t0 = time.time()
+    # mmap=False: densification rewrites cp_rows in place; a v4 mmap view
+    # is read-only
+    idx = load_index(args.prefix, mmap=False)
+    old = idx.blocks[0].sa_rate
+    halve_sa_rate(idx, args.sa_rate)
+    save_index(idx, args.out or args.prefix)
+    sys.stderr.write(
+        f"[bitmapperbs_tpu_torch] sa_rate {old} -> {idx.blocks[0].sa_rate} "
+        f"({idx.nbytes() / 1e6:.0f} MB) in {time.time() - t0:.1f}s\n")
+    return 0
+
+
+MAX_READ_LEN = 1024   # short-read aligner (SURVEY.md: WGBS reads 50-300 bp)
+
+
+def _budget_for(rate: float, length: int) -> int:
+    """Per-read -e rate resolution: floor(rate*len) (SURVEY.md 2.1 'max
+    errors or error rate').  A resolved budget beyond the config maximum
+    fails loudly -- silently clamping would unmap reads the user's rate
+    promises to tolerate."""
+    b = max(1, int(rate * length))
+    if b > 15:
+        raise SystemExit(f"error: -e {rate} resolves to max_errors={b} for "
+                         f"a {length} bp read (limit 15); use a smaller "
+                         f"rate or an explicit integer -e")
+    return b
+
+
+def _cfg_key(cfg, rate, length: int):
+    """Per-read static-config key (error budget, padded-length bucket).
+
+    Budget: -e rate mode resolves floor(rate*len) per read.  Bucket: grows
+    in 32-wide steps beyond the base bucket so a longer read later in the
+    file maps in its own group instead of aborting the run; SURVEY.md 5.7
+    'bucketing + masked batching'."""
+    if length > MAX_READ_LEN:
+        raise SystemExit(f"error: read of {length} bp exceeds the "
+                         f"{MAX_READ_LEN} bp short-read limit")
+    b = _budget_for(rate, length) if rate is not None else cfg.max_errors
+    bk = max(cfg.read_len_bucket, -(-length // 32) * 32)
+    return (b, bk)
+
+
+def _map_grouped_se(run, cfg, rate, codes, quals, qnames):
+    """Partition a batch by per-read (budget, bucket) and map each group
+    with its own static config; records are reassembled in input order."""
+    keys = [_cfg_key(cfg, rate, len(c)) for c in codes]
+    uniq = sorted(set(keys))
+    if len(uniq) == 1:
+        b, bk = uniq[0]
+        return run(cfg.replace(max_errors=b, read_len_bucket=bk),
+                   codes, quals, qnames)
+    recs = [None] * len(codes)
+    for key in uniq:
+        b, bk = key
+        sel = [i for i, v in enumerate(keys) if v == key]
+        sub = run(cfg.replace(max_errors=b, read_len_bucket=bk),
+                  [codes[i] for i in sel],
+                  [quals[i] for i in sel], [qnames[i] for i in sel])
+        for i, r in zip(sel, sub):
+            recs[i] = r
+    return recs
+
+
+def _map_grouped_pe(run, cfg, rate, prs, quals, qn):
+    """PE analogue of _map_grouped_se: a pair's key is the max of its two
+    mates' (equal-length mates -- the norm -- resolve exactly per read);
+    two records per pair, input order preserved."""
+    keys = []
+    for a, b in prs:
+        ka = _cfg_key(cfg, rate, len(a))
+        kb = _cfg_key(cfg, rate, len(b))
+        keys.append((max(ka[0], kb[0]), max(ka[1], kb[1])))
+    uniq = sorted(set(keys))
+    if len(uniq) == 1:
+        b, bk = uniq[0]
+        return run(cfg.replace(max_errors=b, read_len_bucket=bk),
+                   prs, quals, qn)
+    recs = [None] * (2 * len(prs))
+    for key in uniq:
+        b, bk = key
+        sel = [i for i, v in enumerate(keys) if v == key]
+        sub = run(cfg.replace(max_errors=b, read_len_bucket=bk),
+                  [prs[i] for i in sel],
+                  [quals[i] for i in sel], [qn[i] for i in sel])
+        for j, i in enumerate(sel):
+            recs[2 * i], recs[2 * i + 1] = sub[2 * j], sub[2 * j + 1]
+    return recs
+
+
+def _closing_iter(pf):
+    """Yield from a Prefetcher, closing it when iteration stops for ANY
+    reason (exhaustion, break, or an exception unwinding the caller) --
+    the generator's finally runs when its frame is released, so the pump
+    thread and its open FASTQ handle never outlive an aborted run."""
+    try:
+        yield from pf
+    finally:
+        pf.close()
+
 
 
 def _unported(args) -> str | None:
@@ -76,13 +416,13 @@ def cmd_search(args) -> int:
                          f" available (use --platform cpu for a host run)\n")
         return 2
 
-    from bitmapperbs_tpu import constants as K
-    from bitmapperbs_tpu.index.build import load_index
-    from bitmapperbs_tpu.io.fastq import (FastqReader, Prefetcher, read_pairs,
-                                          write_fastq)
-    from bitmapperbs_tpu.io.sam import SamWriter
-    from bitmapperbs_tpu.io.stats import MapStats
-    from bitmapperbs_tpu.models.pool import make_finalize_pool
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.index.build import load_index
+    from bitmapperbs_tpu_torch.io.fastq import (FastqReader, Prefetcher,
+                                                read_pairs, write_fastq)
+    from bitmapperbs_tpu_torch.io.sam import SamWriter
+    from bitmapperbs_tpu_torch.io.stats import MapStats
+    from bitmapperbs_tpu_torch.models.pool import make_finalize_pool
     from bitmapperbs_tpu_torch.index.device import upload_index
     from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
 
@@ -136,7 +476,7 @@ def cmd_search(args) -> int:
     t0 = time.time()
     cl = "bitmapperbs_tpu_torch " + " ".join(sys.argv[1:])
     if bam:
-        from bitmapperbs_tpu.io.bam import BamWriter
+        from bitmapperbs_tpu_torch.io.bam import BamWriter
         writer = BamWriter(out_fh, idx.genome.names, idx.genome.lengths,
                            rg=args.rg, cl=cl)
     else:
@@ -217,14 +557,12 @@ def cmd_search(args) -> int:
 
 def main(argv=None) -> int:
     argv = _translate_legacy(sys.argv[1:] if argv is None else argv)
-    args = _parser().parse_args(argv)
+    args = build_parser().parse_args(argv)
     if args.cmd == "index":
         return cmd_index(args)
-    if args.cmd == "search":
-        return cmd_search(args)
-    sys.stderr.write(f"error: `{args.cmd}` is not yet ported (ROADMAP.md); "
-                     f"run it with python -m bitmapperbs_tpu.cli\n")
-    return 2
+    if args.cmd == "resample":
+        return cmd_resample(args)
+    return cmd_search(args)
 
 
 if __name__ == "__main__":

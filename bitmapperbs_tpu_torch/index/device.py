@@ -18,8 +18,8 @@ import os
 import numpy as np
 import torch
 
-from bitmapperbs_tpu import constants as K
-from bitmapperbs_tpu.index.build import BSIndex
+from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.index.build import BSIndex
 from bitmapperbs_tpu_torch.ops.u32 import u32_to_i32_np
 
 PLANES_CACHE_VERSION = 1

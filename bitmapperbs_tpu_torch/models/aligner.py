@@ -16,12 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from bitmapperbs_tpu import constants as K
-from bitmapperbs_tpu.config import AlignerConfig
-from bitmapperbs_tpu.oracle.pipeline import se_frames
+from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.config import AlignerConfig
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
 from bitmapperbs_tpu_torch.ops import fm, kernels, verify
 from bitmapperbs_tpu_torch.ops.u32 import INVALID, MASK, wrap
+from bitmapperbs_tpu_torch.oracle.pipeline import se_frames
 
 INF = K.INF_SCORE
 _I64 = torch.int64

@@ -3,27 +3,27 @@ bitmapperbs_tpu/models/host.py): batch prep, dispatch with a bounded
 in-flight window, gdrop dense fallback, finalize to SAM records, for
 single-end reads (map_batch) and pairs (map_batch_pe).
 
-Finalize and PE assembly are the reference's jax-free models/pool.py
-(native C++ finalize when libsais.so is built, numpy spec path otherwise),
-so a batch whose device tensors equal the reference's gives
-byte-identical SAM.
+Finalize and PE assembly are models/pool.py (native C++ finalize when
+index/sais_native/libsais.so is built, numpy spec path otherwise), kept
+equal to the reference's, so a batch whose device tensors equal the
+reference's gives byte-identical SAM.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from bitmapperbs_tpu import constants as K
-from bitmapperbs_tpu.config import AlignerConfig
-from bitmapperbs_tpu.index.build import BSIndex
-from bitmapperbs_tpu.io.sam import SamRecord
-from bitmapperbs_tpu.models.pool import (_assemble_pe_local,
-                                         _assemble_pe_task,
-                                         _finalize_se_task,
-                                         _finalize_se_task_local)
+from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.config import AlignerConfig
+from bitmapperbs_tpu_torch.index.build import BSIndex
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
+from bitmapperbs_tpu_torch.io.sam import SamRecord
 from bitmapperbs_tpu_torch.models.aligner import map_batch_device
 from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+from bitmapperbs_tpu_torch.models.pool import (_assemble_pe_local,
+                                               _assemble_pe_task,
+                                               _finalize_se_task,
+                                               _finalize_se_task_local)
 
 MAX_INFLIGHT = 3  # device batches dispatched ahead of host finalize
 

@@ -6,7 +6,7 @@ compatible frame pairs, lexicographic pair selection, pair second-best,
 per-mate SE selection, and one windowed mate-rescue pass per pair (a Myers
 scan over the whole insert window with indels, per-offset Hamming without).
 The host (models/host.map_batch_pe) applies oracle/paired.map_pair's
-decision order through the reference's models/pool, so SAM equality again
+decision order through models/pool, so SAM equality again
 reduces to equality of these tensors.
 
 u32 lanes are int64 (ops/u32.py); every u32 add and subtract that the
@@ -19,14 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from bitmapperbs_tpu import constants as K
-from bitmapperbs_tpu.config import AlignerConfig
-from bitmapperbs_tpu.oracle.pipeline import se_frames
+from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.config import AlignerConfig
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
 from bitmapperbs_tpu_torch.models.aligner import (INF, candidate_stage,
                                                   select_se)
 from bitmapperbs_tpu_torch.ops import kernels, verify
 from bitmapperbs_tpu_torch.ops.u32 import INVALID, wrap
+from bitmapperbs_tpu_torch.oracle.pipeline import se_frames
 
 _I64 = torch.int64
 

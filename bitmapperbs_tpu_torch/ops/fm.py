@@ -4,16 +4,20 @@ bounded-LF locate.
 
 Every op is elementwise over an arbitrary lane shape with no data-dependent
 control flow and no host sync.  Positions and counts are u32 lanes carried
-as int64 (ops/u32.py); each checkpoint row is one gather of int32 bits,
-widened right after.  Where the reference used where-chains to dodge TPU
-gather costs, plain indexing gives the same values.
+as int64 (ops/u32.py); each checkpoint row, SA sample and k-mer table row
+is one row gather of int32 bits (ops/kernels.gather_rows: the CUDA kernel
+on the card, plain indexing on CPU tensors), widened right after.  The
+gather clamps its row index into the table, as the reference's gathers do.
+Where the reference used where-chains to dodge its device's gather costs
+on SMALL tables (cbase, n), plain indexing gives the same values.
 """
 from __future__ import annotations
 
 import torch
 
-from bitmapperbs_tpu import constants as K
+from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
+from bitmapperbs_tpu_torch.ops.kernels import gather_rows
 from bitmapperbs_tpu_torch.ops.u32 import (MASK, bnot, mask_lt, popcount,
                                            widen, wrap)
 
@@ -34,13 +38,12 @@ def _popcount_sum(words):
 def fetch_cp_rows(dix: DeviceIndex, row):
     """Checkpoint rows by flat row index, widened to u32 lanes.  Rows are
     clamped into the table, as the reference's gathers clamp."""
-    row = row.clamp(0, dix.cp_rows.shape[0] - 1)
-    return widen(dix.cp_rows[row])
+    return widen(gather_rows(dix.cp_rows, row.contiguous()))
 
 
 def fetch_sa_samples(dix: DeviceIndex, flat_idx):
-    flat_idx = flat_idx.clamp(0, 2 * dix.samples_max - 1)
-    return widen(dix.sa_samples[flat_idx])
+    return widen(gather_rows(dix.sa_samples[:, None],
+                             flat_idx.contiguous())[..., 0])
 
 
 def block_n(dix: DeviceIndex, block):
@@ -164,9 +167,8 @@ def rolling_kmers(patterns, k: int):
 
 def klt_lookup(dix: DeviceIndex, block, kmer_idx):
     """(sp, ep) after klt_k backward steps: one row gather per lane."""
-    row = (block.to(torch.int64) * (3 ** dix.klt_k) + kmer_idx).clamp(
-        0, dix.klt.shape[0] - 1)
-    rows = widen(dix.klt[row])
+    row = block.to(torch.int64) * (3 ** dix.klt_k) + kmer_idx
+    rows = widen(gather_rows(dix.klt, row.contiguous()))
     return rows[..., 0], rows[..., 1]
 
 

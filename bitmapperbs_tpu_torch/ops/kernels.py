@@ -1,19 +1,20 @@
-"""CUDA verification kernels and their plain PyTorch versions (counterpart of
-bitmapperbs_tpu/ops/pallas_kernels.py).
+"""CUDA kernels and their plain PyTorch versions (counterpart of
+bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
 
     verify_fused  <- verify_fused_pallas / _fused_verify_kernel
     myers         <- myers_pallas / _myers_kernel
     myers_scan    <- myers_scan_pallas / _myers_scan_kernel
+    gather_rows   <- make_pallas_gather.gather
 
-Each wrapper takes u32 plane lanes as int64 tensors (ops/u32.py).  On CPU
-tensors it runs its plain version (`*_ref`); on CUDA tensors it checks
-dtype, shape and device, packs the lanes into contiguous int32 rows and
-launches the kernel from csrc/verify.cu, or raises.  `LAUNCHES` counts the
-kernel launches.
+The verify wrappers take u32 plane lanes as int64 tensors (ops/u32.py);
+gather_rows takes an int32 table and int64 row indices.  On CPU tensors a
+wrapper runs its plain version (`*_ref`); on CUDA tensors it checks dtype,
+shape and device and launches its kernel from csrc/verify.cu or
+csrc/gather.cu, or raises.  `LAUNCHES` counts the kernel launches.
 
-The kernels are built on first use with nvcc for sm_90a into _build/, as a
-shared library named by the hash of the source and flags, and bound with
-ctypes.
+The kernels are built on first use with nvcc for sm_90a into _build/, one
+shared library per source (compiled side by side), each named by the hash
+of its source and the flags, and bound with ctypes.
 """
 from __future__ import annotations
 
@@ -28,10 +29,11 @@ import torch
 from bitmapperbs_tpu_torch.ops import verify
 from bitmapperbs_tpu_torch.ops.u32 import bnot, to_i32
 
-LAUNCHES = {"verify_fused": 0, "myers": 0, "myers_scan": 0}
+LAUNCHES = {"verify_fused": 0, "myers": 0, "myers_scan": 0, "gather_rows": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "verify.cu")
+SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
+           for name in ("verify", "gather")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,33 +53,45 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile csrc/verify.cu (once per source hash); returns the .so path.
-    The compiler's output (ptxas register/spill report) is kept beside it
-    as <name>.log."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libbtbs_verify_{tag}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    with open(path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
+def build() -> dict[str, str]:
+    """Compile every source of csrc/ (once per source hash), one nvcc per
+    source, all started together; returns {source name: .so path}.  The
+    compiler's output (ptxas register/spill report) is kept beside each
+    library as <name>.log."""
+    paths, procs = {}, {}
+    for name, source in SOURCES.items():
+        with open(source, "rb") as f:
+            src = f.read()
+        tag = hashlib.sha256(
+            src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        paths[name] = os.path.join(BUILD_DIR, f"libbtbs_{name}_{tag}.so")
+        if not os.path.exists(paths[name]):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{paths[name]}.tmp.{os.getpid()}"
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
+                          f"{out}\n{err}")
+            continue
+        with open(paths[name] + ".log", "w") as f:
+            f.write(out + err)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def _lib():
+    """The bound entry points of both libraries, on one namespace."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        paths = build()
+        lib = ctypes.CDLL(paths["verify"])
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.btbs_verify_fused.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                           i32, i32, vp]
@@ -87,6 +101,9 @@ def _lib():
         lib.btbs_myers.restype = ctypes.c_int
         lib.btbs_myers_scan.argtypes = lib.btbs_myers.argtypes
         lib.btbs_myers_scan.restype = ctypes.c_int
+        lib.btbs_gather_rows = ctypes.CDLL(paths["gather"]).btbs_gather_rows
+        lib.btbs_gather_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
+        lib.btbs_gather_rows.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -216,3 +233,37 @@ def myers_scan(win, peq, pad, m: int, ncols: int):
             m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers_scan")
         LAUNCHES["myers_scan"] += 1
     return out.t().reshape(*lanes, ncols)
+
+
+# ---- table row gather --------------------------------------------------------
+
+def gather_rows_ref(table, idx):
+    """Plain version: table[idx] with idx clamped into the table."""
+    return table[idx.clamp(0, table.shape[0] - 1)]
+
+
+def gather_rows(table, idx):
+    """table int32 [R, W] (contiguous); idx int64 lanes of any shape
+    (contiguous).  Returns int32 [..., W]: row idx of the table per lane,
+    idx clamped into [0, R - 1]."""
+    if not _on_cuda(table, idx):
+        return gather_rows_ref(table, idx)
+    if table.dtype != torch.int32 or table.dim() != 2 \
+            or not table.is_contiguous() or table.shape[0] < 1 \
+            or table.shape[1] < 1:
+        raise ValueError(f"expected a contiguous int32 [R, W] table, got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if idx.dtype != torch.int64 or not idx.is_contiguous():
+        raise ValueError(f"expected contiguous int64 row indices, got "
+                         f"{idx.dtype} {tuple(idx.shape)} strides "
+                         f"{idx.stride()}")
+    R, W = table.shape
+    L = idx.numel()
+    out = torch.empty((*idx.shape, W), dtype=torch.int32, device=table.device)
+    if L:
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        _check_rc(_lib().btbs_gather_rows(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L, W,
+            stream), "btbs_gather_rows")
+        LAUNCHES["gather_rows"] += 1
+    return out

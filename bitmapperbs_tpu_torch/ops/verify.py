@@ -5,13 +5,15 @@ Plane words are u32 lanes carried as int64 (ops/u32.py).  Reads and
 reference windows are 3 planes (bit0, bit1 of the 2-bit base code, N mask);
 LSB = lowest position.  Everything is elementwise over an arbitrary lane
 shape.  These are the plain versions; ops/kernels.py runs the hot Myers
-loops as CUDA kernels on the card.
+loops as CUDA kernels on the card, and the genome-plane row gather of
+window_planes goes through its gather_rows.
 """
 from __future__ import annotations
 
 import torch
 
-from bitmapperbs_tpu import constants as K
+from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.ops import kernels   # mutual import: used in calls
 from bitmapperbs_tpu_torch.ops.u32 import (MASK, bnot, mask_lt, popcount,
                                            shl, wrap)
 
@@ -62,7 +64,8 @@ def window_planes(g_planes, orient, start, nwords: int, genome_len: int,
     wi = wrap(start + 32) >> 5                  # u32 add: wraps below 0
     offs = torch.arange(nwords + 1, dtype=torch.int64, device=dev)
     rows = (wi[..., None] + offs).clamp(0, W - 1)
-    raw3 = g_planes[orient.to(torch.int64)[..., None] * W + rows]
+    raw3 = kernels.gather_rows(
+        g_planes, (orient.to(torch.int64)[..., None] * W + rows).contiguous())
     raw3 = raw3.to(torch.int64) & MASK           # ..., nwords+1, 3
 
     def funnel(raw):

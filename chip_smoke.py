@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's single-end and paired-end search paths on
-one CUDA card.
+one CUDA card: on a 10 Mbp random genome with the default configuration,
+and on a 100 Mbp repeat-structured genome with the Gbp-scale configuration.
 
     python3 chip_smoke.py            (from the repository root)
 
 Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
   1. card: name and power limit (nvidia-smi), torch / CUDA versions
-  2. build: the native finalize library (make) and the CUDA kernels (nvcc)
+  2. build: the native finalize library (make) and the CUDA kernels (one
+     nvcc per source), all started together
   3. each kernel vs its plain PyTorch version at the main paths' shapes,
      torch.equal, median CUDA-event times: verify_fused and myers at
      163,840 lanes (m = 96, e = 4); myers_scan at 4,096 lanes (one per
      pair; insert 0-500 -> 605 columns, 19 window words) and at a ragged
-     4,093
+     4,093; gather_rows (before phase 12, on the 100 Mbp index's own
+     tables, which do not fit the 50 MB L2): checkpoint rows W = 17 at
+     327,680 lanes and at the flat buffer's 4,096 x cap lanes, the k-mer
+     table W = 2, SA samples W = 1 at a ragged count, genome planes W = 3
+     with [L, 5] indices; indices below 0 and past the end in every case.
+     Each timed call takes the next of 8 index sets, so rows come from
+     device memory as on the mapping path.  Beside each kernel's time: the
+     least time the card could take (`bound_ms`: bytes moved once over
+     3.35 TB/s, or integer operations over 16.75 T/s, whichever is larger;
+     the INT32 rate is the data sheet's 67 TFLOP/s of FP32 FMA, halved for
+     the FMA and halved again for the INT32 lanes) and, for gather_rows,
+     the time of the one PyTorch call that computes it (index_select)
   4. SE main path: 10 Mbp two-contig genome, 4 x 16,384 reads through
      models.host.map_batch.  The last batch carries 1,024 low-complexity
      (pyrimidine-only, poly-T once converted) reads, as bisulfite libraries
@@ -46,10 +59,29 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
  11. PE throughput: map_batch_pe_device reads/s (2 x pairs) over 8 distinct
      batches (synced by copying pair_sum) and end-to-end map_batch_pe
      reads/s over phase 8's batches
-The launch counts in the kernels' record are phase 8's (this slice's main
-path), with phase 4's beside them.  The second-to-last line is the
-kernels' JSON record; the last line is {"ok": true, "device": {...}}.
-Exits non-zero without a CUDA device.
+ 12. SE, Gbp-scale configuration (what cli.autotune_for_genome sets above
+     512 Mbp: seed extension 20 / occ 4, 128 candidates; batch 4,096) on a
+     100 Mbp two-contig genome with planted human-profile repeats
+     (utils.simulate.repeat_genome_fasta), index at sa_rate 4: 4 x 4,096
+     reads through map_batch; the last batch ends with 2,048 reads from
+     inside mid-copy satellite arrays, which overflow the flat buffer and
+     take the dense re-run at 128 candidates.  SAM of a sample equals the
+     oracle's; recall, mapped share, overflow and gdrop counts; one batch
+     with flat_chunks = 2 gives the same tensors; device reads/s at 4,096
+     and at 16,384 per batch; end to end; the per-stage table (a device
+     sync at each stage boundary); device idle share (torch.profiler's
+     kernel time against unprofiled walls taken before it); peak memory
+ 13. PE, Gbp-scale configuration: 2 x 4,096 pairs through map_batch_pe, SAM
+     of a sample equal to the oracle's, proper-pair rate, how pairs were
+     decided (pair join / rescue / neither), device and end-to-end rates
+ 14. CLI on the saved 100 Mbp artifact with `--seed-ext 20
+     --max-candidates 128` gives phase 12's records
+Launch counts are set to 0 just before each main path (phases 4, 8, 12,
+13) and read just after it.  The kernels' record gives, per kernel, the
+launches of this slice's main paths (phases 12 + 13) with every path's
+beside them.  The second-to-last line is the kernels' JSON record; the
+last line is {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -85,10 +117,33 @@ KILL_POS = (9, 27, 63)             # in seeds 0, 1 and 3 of a 90 bp read
 N_PE_ORACLE, N_PE_ORACLE_RESCUE, N_PE_ORACLE_LOWCX = 64, 16, 8
 N_REPEAT_PAIRS = 64                # phase 8b: one mate inside a repeat
 
+GBP_CONTIGS = (50_000_000, 50_000_000)   # planted-repeat genome, phase 12-14
+GBP_GENOME_BP = 3_080_000_000      # the size autotune_for_genome is asked for
+GBP_BATCH = 4_096
+N_GBP_MAIN_BATCHES = 4
+N_GBP_SAT = 2_048                  # satellite-array reads ending phase 12
+SAT_PERIOD, SAT_WINDOW = 171, 512  # plant_repeats' alpha-satellite-like unit
+SAT_COPIES = (30, 128)             # arrays whose seeds stay under max_seed_occ
+GBP_BIG_BATCH, N_GBP_BIG_BATCHES = 16_384, 4
+N_GBP_ORACLE, N_GBP_ORACLE_SAT = 64, 8
+N_GBP_PE_BATCHES, N_GBP_PE_ORACLE = 2, 48
+GATHER_LANES = 2 * 16_384 * 2 * 5  # 2 endpoints x reads x frames x seeds
+GATHER_SETS = 8                    # index sets rotated through a timing
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+INT32_OPS_PER_S = 67e12 / 4        # FP32 FMA rate / 2 (FMA) / 2 (INT32 lanes)
+MYERS_OPS_PER_WORD_COLUMN = 22     # integer ops of csrc/verify.cu myers_column
+HAMMING_OPS_PER_WORD = 25          # funnel shifts, match, popcount
+
 KERNEL_SOURCES = {
-    "verify_fused": "bitmapperbs_tpu/ops/pallas_kernels.py:212",
-    "myers": "bitmapperbs_tpu/ops/pallas_kernels.py:29",
-    "myers_scan": "bitmapperbs_tpu/ops/pallas_kernels.py:119",
+    "verify_fused": ("bitmapperbs_tpu_torch/csrc/verify.cu",
+                     "bitmapperbs_tpu/ops/pallas_kernels.py:212"),
+    "myers": ("bitmapperbs_tpu_torch/csrc/verify.cu",
+              "bitmapperbs_tpu/ops/pallas_kernels.py:29"),
+    "myers_scan": ("bitmapperbs_tpu_torch/csrc/verify.cu",
+                   "bitmapperbs_tpu/ops/pallas_kernels.py:119"),
+    "gather_rows": ("bitmapperbs_tpu_torch/csrc/gather.cu",
+                    "scripts/pallas_gather_proto.py:28"),
 }
 
 
@@ -122,32 +177,46 @@ def median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes moved once over the
+    memory rate, or integer operations over the INT32 rate."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by, op),
+            "bound_by": "bytes" if by >= op else "operations"}
+
+
 def build_native() -> None:
     from bitmapperbs_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    native = os.path.join(ROOT, "bitmapperbs_tpu", "index", "sais_native")
-    if not os.path.exists(os.path.join(native, "libsais.so")):
-        subprocess.run(["make", "-C", native, "libsais.so"], check=True,
-                       capture_output=True, timeout=600)
+    native = os.path.join(ROOT, "bitmapperbs_tpu_torch", "index",
+                          "sais_native")
+    make = subprocess.Popen(["make", "-C", native, "libsais.so"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    paths = kernels.build()            # one nvcc per source, side by side
     t1 = time.perf_counter()
-    so = kernels.build()
-    t2 = time.perf_counter()
-    log(f"build: libsais.so {t1 - t0:.2f} s, CUDA kernels {t2 - t1:.2f} s "
-        f"({os.path.basename(so)})")
+    out, _ = make.communicate(timeout=600)
+    if make.returncode != 0:
+        raise RuntimeError(f"make libsais.so failed:\n{out[-4000:]}")
+    log(f"build: CUDA kernels {t1 - t0:.2f} s "
+        f"({', '.join(os.path.basename(p) for p in paths.values())}), "
+        f"libsais.so beside them, all done after "
+        f"{time.perf_counter() - t0:.2f} s")
     # ptxas -v: one "Compiling entry function '<name>'" per kernel, then its
     # spill line and its register line
-    name = spill = None
-    with open(so + ".log") as f:
-        for ln in f:
-            if "Compiling entry function" in ln:
-                name = ln.split("'")[1]
-            elif "spill stores" in ln:
-                spill = ln.split(",")[1].strip()
-            elif "Used" in ln and "registers" in ln and name:
-                regs = ln.split("Used")[1].split(",")[0].strip()
-                log(f"ptxas: {name}: {regs}, {spill}")
-                name = None
+    for so in paths.values():
+        name = spill = None
+        with open(so + ".log") as f:
+            for ln in f:
+                if "Compiling entry function" in ln:
+                    name = ln.split("'")[1]
+                elif "spill stores" in ln:
+                    spill = ln.split(",")[1].strip()
+                elif "Used" in ln and "registers" in ln and name:
+                    regs = ln.split("Used")[1].split(",")[0].strip()
+                    log(f"ptxas: {name}: {regs}, {spill}")
+                    name = None
 
 
 def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
@@ -161,7 +230,7 @@ def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
     import numpy as np
     import torch
 
-    from bitmapperbs_tpu import constants as K
+    from bitmapperbs_tpu_torch import constants as K
     from bitmapperbs_tpu_torch.ops import verify
     from bitmapperbs_tpu_torch.ops.u32 import bnot, wrap
 
@@ -206,10 +275,23 @@ def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
 def phase_kernels(idx, dix) -> dict:
     import torch
 
-    from bitmapperbs_tpu_torch.ops import kernels
+    from bitmapperbs_tpu_torch.ops import kernels, verify
 
     m, ncols = BUCKET, BUCKET + 2 * E
+    Wd, Ww = m // 32, -(-ncols // 32)
     wide, rp, lm, peq, pad = kernel_inputs(idx, dix, KERNEL_LANES, seed=7)
+    # lanes whose Hamming count does not decide them run the Myers loop
+    ham = verify.hamming(verify.shift_planes(wide, E, Wd), rp, lm)
+    n_myers = int((ham > E).sum())
+    L = KERNEL_LANES
+    bounds = {
+        "verify_fused": bound(
+            L * 4 * (3 * Ww + 4 * Wd + 1),
+            L * Wd * HAMMING_OPS_PER_WORD
+            + n_myers * ncols * Wd * MYERS_OPS_PER_WORD_COLUMN),
+        "myers": bound(L * 4 * (3 * Ww + 5 * Wd + 1),
+                       L * ncols * Wd * MYERS_OPS_PER_WORD_COLUMN),
+    }
     cases = {
         "verify_fused": (lambda: kernels.verify_fused(wide, rp, lm, m, ncols,
                                                       E),
@@ -234,9 +316,14 @@ def phase_kernels(idx, dix) -> dict:
             extra = f", result <= e on {frac:.3f} of lanes"
         else:
             extra = ""
+        b = bounds[name]
         log(f"kernel {name}: {KERNEL_LANES} lanes equal to plain (max_abs_err"
-            f" {err}{extra}); median {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            f" {err}{extra}); median {ms:.3f} ms vs plain {plain_ms:.3f} ms;"
+            f" bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
+            + (f" ({n_myers} lanes run Myers)" if name == "verify_fused"
+               else ""))
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                     "library_ms": None}
     return out
 
 
@@ -272,8 +359,13 @@ def phase_scan_kernel(idx, dix) -> dict:
         if out is None:
             ms = median_ms(kern)
             plain_ms = median_ms(plain, reps=PLAIN_SCAN_REPS)
-            msg += f"; median {ms:.3f} ms vs plain {plain_ms:.3f} ms"
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            Wd, Ww = m // 32, win[0].shape[-1]
+            b = bound(n * 4 * (3 * Ww + 5 * Wd + ncols),
+                      n * ncols * Wd * MYERS_OPS_PER_WORD_COLUMN)
+            msg += (f"; median {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
+                    f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": None}
         else:
             out["max_abs_err"] = max(out["max_abs_err"], err)
         log(msg)
@@ -286,7 +378,7 @@ def low_complexity_reads(n: int, seed: int, bases=None):
     genome."""
     import numpy as np
 
-    from bitmapperbs_tpu import constants as K
+    from bitmapperbs_tpu_torch import constants as K
 
     lo, hi = bases or (K.C, K.T)
     rng = np.random.default_rng(seed)
@@ -294,7 +386,7 @@ def low_complexity_reads(n: int, seed: int, bases=None):
                          hi).astype(np.uint8))
 
 
-def repeat_genome_fasta(seed: int) -> str:
+def tandem_genome_fasta(seed: int) -> str:
     """chr1 = 3 kb unique + 200 copies of a random 20 bp unit + 3 kb unique;
     chr2 = 2 kb unique.  Every seed of a read inside the repeat occurs ~200
     times, past max_seed_occ (128): such a mate has no SE hit, and only the
@@ -311,12 +403,12 @@ def repeat_genome_fasta(seed: int) -> str:
 
 def straddling_pairs(idx, n: int, seed: int, read_len: int = 80):
     """n OT/OB fragments of read_len * 2 + 0..79 bp across a boundary of
-    repeat_genome_fasta's repeat: one read in the unique flank, the other
+    tandem_genome_fasta's repeat: one read in the unique flank, the other
     wholly inside the repeat."""
     import numpy as np
 
-    from bitmapperbs_tpu import constants as K
-    from bitmapperbs_tpu.utils import dna
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.utils import dna
 
     rng = np.random.default_rng(seed)
     g = np.asarray(idx.genome.codes)
@@ -337,7 +429,7 @@ def straddling_pairs(idx, n: int, seed: int, read_len: int = 80):
 def recall(idx, sims, recs) -> float:
     """Share of the simulated reads placed on the true contig and strand
     within e of the true leftmost coordinate."""
-    from bitmapperbs_tpu import constants as K
+    from bitmapperbs_tpu_torch import constants as K
 
     ok = 0
     for s, r in zip(sims, recs):
@@ -360,10 +452,10 @@ def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
     """SE phases 4-7; returns phase 4's and phase 5's launch counts."""
     import torch
 
-    from bitmapperbs_tpu.config import AlignerConfig
-    from bitmapperbs_tpu.io.fastq import write_fastq
-    from bitmapperbs_tpu.oracle.pipeline import map_batch_se
-    from bitmapperbs_tpu.utils.simulate import simulate_reads
+    from bitmapperbs_tpu_torch.config import AlignerConfig
+    from bitmapperbs_tpu_torch.io.fastq import write_fastq
+    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
+    from bitmapperbs_tpu_torch.utils.simulate import simulate_reads
     from bitmapperbs_tpu_torch.models.aligner import map_batch_device
     from bitmapperbs_tpu_torch.models.host import map_batch, prepare_batch
     from bitmapperbs_tpu_torch.ops import kernels
@@ -478,8 +570,8 @@ def pe_inputs(idx):
     low-complexity groups ending the main path."""
     import numpy as np
 
-    from bitmapperbs_tpu import constants as K
-    from bitmapperbs_tpu.utils.simulate import simulate_pairs
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.utils.simulate import simulate_pairs
 
     sims = [simulate_pairs(idx.genome, PE_PAIRS, read_len=READ_LEN,
                            seed=50 + i, sub_rate=0.01, indel_rate=0.005,
@@ -508,11 +600,11 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
     """PE phases 8-11; returns phase 8's and phase 9's launch counts."""
     import torch
 
-    from bitmapperbs_tpu import constants as K
-    from bitmapperbs_tpu.config import AlignerConfig
-    from bitmapperbs_tpu.index.build import build_index
-    from bitmapperbs_tpu.io.fastq import write_fastq
-    from bitmapperbs_tpu.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.config import AlignerConfig
+    from bitmapperbs_tpu_torch.index.build import build_index
+    from bitmapperbs_tpu_torch.io.fastq import write_fastq
+    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
     from bitmapperbs_tpu_torch.index.device import upload_index
     from bitmapperbs_tpu_torch.models.host import (map_batch_pe,
                                                    prepare_batch, to_host)
@@ -581,7 +673,7 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
             f"{int(gd[sl].sum())})")
 
     # ---- phase 8b: rescue deciding: mates inside a repeat ---------------------
-    rep_idx = build_index(repeat_genome_fasta(31))
+    rep_idx = build_index(tandem_genome_fasta(31))
     rep_dix = upload_index(rep_idx, device)
     rep = straddling_pairs(rep_idx, N_REPEAT_PAIRS, seed=32,
                            read_len=READ_LEN)
@@ -667,14 +759,480 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
     return main_launches, gdrop_launches
 
 
+def phase_gather_kernel(dix, flat_lanes: int) -> dict:
+    """gather_rows vs its plain version and vs torch.index_select on the
+    Gbp-configuration index's own tables, at the mapping path's shapes."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    dev = dix.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = (          # name, table, lane shape
+        ("cp_rows W=17, seed lanes", dix.cp_rows, (GATHER_LANES,)),
+        ("cp_rows W=17, flat lanes", dix.cp_rows, (flat_lanes,)),
+        ("klt W=2", dix.klt, (GBP_BATCH, 2, 5)),
+        ("sa_samples W=1, ragged", dix.sa_samples[:, None], (flat_lanes - 3,)),
+        ("g_planes W=3", dix.g_planes, (flat_lanes, 5)),
+    )
+    out = None
+    for name, table, shape in cases:
+        R, W = table.shape
+        sets = []
+        for _ in range(GATHER_SETS):
+            ix = torch.randint(0, R, shape, device=dev, generator=gen,
+                               dtype=torch.int64)
+            flat = ix.view(-1)
+            flat[::97] = -1 - flat[::97]              # below 0
+            flat[1::89] = R + flat[1::89]             # at / past the end
+            flat[0], flat[-1] = R, -1
+            sets.append(ix)
+        for ix in sets[:2]:
+            got = kernels.gather_rows(table, ix)
+            want = kernels.gather_rows_ref(table, ix)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (*shape, W)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_rows {name}: kernel != plain "
+                                     f"on {int((got != want).sum())} words")
+        turn = [0]
+
+        def rotating(fn):
+            def call():
+                turn[0] += 1
+                return fn(sets[turn[0] % GATHER_SETS])
+            return call
+
+        ms = median_ms(rotating(lambda ix: kernels.gather_rows(table, ix)))
+        plain_ms = median_ms(rotating(
+            lambda ix: kernels.gather_rows_ref(table, ix)))
+        lib_ms = median_ms(rotating(lambda ix: torch.index_select(
+            table, 0, ix.view(-1).clamp(0, R - 1))))
+        L = sets[0].numel()
+        b = bound(L * (8 + 8 * W), 0)      # index, row in, row out
+        log(f"kernel gather_rows, {name}: {L} lanes of a {R} x {W} table "
+            f"({R * W * 4 / 1e6:.1f} MB) equal to plain, out-of-range indices"
+            f" clamped; median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
+            f"index_select {lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}")
+        if out is None:                     # the record carries the first case
+            out = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": lib_ms, "shapes": {}}
+        out["shapes"][name] = {"lanes": L, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, **b}
+    return out
+
+
+def satellite_reads(idx, n: int, seed: int):
+    """n bisulfite reads from inside the genome's mid-copy satellite arrays
+    (tandem tilings of a SAT_PERIOD-bp unit with SAT_COPIES copies): every
+    seed of such a read recurs once per copy, few enough to pass
+    max_seed_occ and too regular for seed extension to thin out, so the
+    read fills hundreds of flat-buffer slots.  The arrays are found from
+    the sequence itself: windows where the text equals itself shifted by
+    the period."""
+    import numpy as np
+
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.utils import dna
+
+    g = np.asarray(idx.genome.codes)
+    p, w = SAT_PERIOD, SAT_WINDOW
+    nwin = (len(g) - p) // w
+    same = (g[:nwin * w] == g[p:p + nwin * w]) & (g[:nwin * w] < 4)
+    hot = same.reshape(nwin, w).mean(axis=1) >= 0.9
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], hot, [0]])))
+    spans = [(a * w, b * w) for a, b in zip(edges[::2], edges[1::2])
+             if SAT_COPIES[0] * p <= (b - a) * w <= SAT_COPIES[1] * p]
+    if not spans:
+        raise RuntimeError("no mid-copy satellite array found in the genome")
+    rng = np.random.default_rng(seed)
+    reads = []
+    for k in rng.integers(0, len(spans), n):
+        a, b = spans[k]
+        s = int(rng.integers(a, b - READ_LEN))
+        frag = g[s:s + READ_LEN].copy()
+        if rng.integers(0, 2):
+            frag = dna.revcomp(frag)                       # OB
+        frag[(frag == K.C) & (rng.random(READ_LEN) < 0.7)] = K.T
+        reads.append(frag)
+    return reads, len(spans)
+
+
+def stage_table(dix, cfg, batches) -> tuple[dict, float]:
+    """Per-stage ms per batch of map_batch_device (median over the
+    batches), a device sync on both sides of each stage (so launch overhead
+    is charged to its stage); `rest` is what runs between them:
+    conversion, seed ordering, the flat expansion, the sort dedup and the
+    scatter back."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models import aligner
+    from bitmapperbs_tpu_torch.ops import fm, kernels, verify
+
+    stages = {"seed (KLT + backward search)": (fm, "search_patterns"),
+              "extend seeds": (fm, "extend_seeds"),
+              "locate": (fm, "locate"),
+              "window gather": (verify, "window_planes"),
+              "verify_fused": (kernels, "verify_fused"),
+              "select": (aligner, "select_se")}
+    spent = {name: [] for name in stages}       # ms, one entry per batch
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name][-1] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+
+    totals = []
+    try:
+        for name, (mod, attr) in stages.items():
+            setattr(mod, attr, timed(name, saved[name]))
+        for a, ln, mn in batches:
+            for per_batch in spent.values():
+                per_batch.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aligner.map_batch_device(dix, cfg, a, ln,
+                                     min_read_len=mn)["best_score"].cpu()
+            totals.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        for name, (mod, attr) in stages.items():
+            setattr(mod, attr, saved[name])
+    table = {name: statistics.median(ms) for name, ms in spent.items()}
+    table["rest (convert, order, expand, dedup, scatter)"] = \
+        statistics.median(t - sum(ms[i] for ms in spent.values())
+                          for i, t in enumerate(totals))
+    return table, statistics.median(totals)
+
+
+def idle_share(run_batches, n_walls: int = 5) -> dict:
+    """Device idle share of run_batches() (which must end synced): walls of
+    n_walls unprofiled runs first, then one run under torch.profiler, whose
+    device-kernel rows give the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(n_walls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_batches()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_batches()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    kernels_n = sum(e.count for e in rows)
+    out = {"walls_ms": walls, "busy_ms": busy, "device_kernels": kernels_n}
+    if busy > 0:
+        out["idle"] = (1 - busy / min(walls), 1 - busy / max(walls))
+    return out
+
+
+def run_gbp(card: str) -> tuple[dict, dict, dict]:
+    """Phases 12-14 on the planted-repeat genome; returns the gather
+    kernel's record and the launch counts of phases 12 and 13."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.cli import autotune_for_genome
+    from bitmapperbs_tpu_torch.config import AlignerConfig
+    from bitmapperbs_tpu_torch.index.build import build_index, save_index
+    from bitmapperbs_tpu_torch.index.device import upload_index
+    from bitmapperbs_tpu_torch.io.fastq import write_fastq
+    from bitmapperbs_tpu_torch.io.stats import MapStats
+    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+    from bitmapperbs_tpu_torch.models.host import (map_batch, map_batch_pe,
+                                                   prepare_batch, to_host)
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+    from bitmapperbs_tpu_torch.ops import kernels
+    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
+    from bitmapperbs_tpu_torch.utils.simulate import (repeat_genome_fasta,
+                                                      simulate_pairs,
+                                                      simulate_reads)
+
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    fasta = repeat_genome_fasta(np.random.default_rng(1), contigs=GBP_CONTIGS)
+    t1 = time.perf_counter()
+    idx = build_index(fasta, jobs=2)
+    del fasta
+    t2 = time.perf_counter()
+    dix = upload_index(idx, device)
+    torch.cuda.synchronize()
+    sizes = ", ".join(
+        f"{name} {getattr(dix, name).numel() * 4 / 1e6:.1f} MB"
+        for name in ("cp_rows", "sa_samples", "klt", "g_planes"))
+    log(f"Gbp-config index: {sum(GBP_CONTIGS)} bp with planted repeats made "
+        f"in {t1 - t0:.2f} s, built in {t2 - t1:.2f} s (2 block workers), "
+        f"uploaded in {time.perf_counter() - t2:.2f} s: {sizes}, "
+        f"{dix.nbytes / 1e6:.1f} MB in all; sa_rate {dix.sa_rate}, klt_k "
+        f"{dix.klt_k}")
+    assert dix.sa_rate == 4
+
+    # the configuration the CLI tunes for a genome over 512 Mbp
+    base = AlignerConfig(max_errors=E, indels=True, read_len_bucket=BUCKET,
+                         batch_size=GBP_BATCH)
+    cfg = autotune_for_genome(base, argparse.Namespace(), GBP_GENOME_BP)
+    assert (cfg.seed_ext_max, cfg.seed_ext_occ, cfg.max_candidates) == \
+        (20, 4, 128), cfg
+    cap = cfg.resolve_flat_cap(dix.genome_len, 2)
+    log(f"Gbp config: seed_ext {cfg.seed_ext_max} / occ {cfg.seed_ext_occ}, "
+        f"max_candidates {cfg.max_candidates}, max_seed_occ "
+        f"{cfg.max_seed_occ}, locate_budget {cfg.locate_budget}, batch "
+        f"{cfg.batch_size}, flat cap {cap} slots per read")
+
+    # ---- phase 3 (gather_rows) on this index's tables ---------------------
+    gstats = phase_gather_kernel(dix, GBP_BATCH * cap)
+
+    # ---- phase 12: SE main path ---------------------------------------------
+    t0 = time.perf_counter()
+    n_sims = GBP_BIG_BATCH * N_GBP_BIG_BATCHES
+    sims = simulate_reads(idx.genome, n_sims, read_len=READ_LEN, seed=110,
+                          sub_rate=0.01, indel_rate=0.005)
+    sat, n_arrays = satellite_reads(idx, N_GBP_SAT, seed=111)
+    log(f"Gbp inputs: {n_sims} simulated reads and {N_GBP_SAT} reads from "
+        f"{n_arrays} satellite arrays in {time.perf_counter() - t0:.2f} s")
+    n_main = N_GBP_MAIN_BATCHES * GBP_BATCH
+    main_sims = sims[:n_main - N_GBP_SAT]
+    reads = [s.codes for s in main_sims] + sat
+    quals = [s.qual for s in main_sims] + ["I" * READ_LEN] * N_GBP_SAT
+    qnames = [f"g{i}" for i in range(n_main)]
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    stats = MapStats()
+    recs = map_batch(idx, dix, cfg, reads, quals, qnames, stats=stats)
+    se_launches = dict(kernels.LAUNCHES)
+    log(f"Gbp SE main path: {n_main} reads mapped in "
+        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{se_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    for name in ("gather_rows", "verify_fused", "myers"):
+        assert se_launches[name] > 0, f"{name} never ran on the Gbp SE path"
+    lines = [r.line() for r in recs]
+    for lo, hi in ((0, N_GBP_ORACLE), (n_main - N_GBP_ORACLE_SAT, n_main)):
+        oracle = [r.line() for r in map_batch_se(idx, cfg, reads[lo:hi],
+                                                 quals[lo:hi], qnames[lo:hi])]
+        bad = [i for i, (a, b) in enumerate(zip(oracle, lines[lo:hi]))
+               if a != b]
+        assert not bad, f"Gbp oracle mismatch at read {lo + bad[0]}:\n" \
+                        f"{oracle[bad[0]]}\n{lines[lo + bad[0]]}"
+
+    def to_dev(chunk, batch):
+        a, ln = prepare_batch(chunk, BUCKET, batch)
+        return (torch.from_numpy(a).to(device),
+                torch.from_numpy(ln).to(device), int(ln.min()))
+
+    main_dev = [to_dev(reads[lo:lo + GBP_BATCH], GBP_BATCH)
+                for lo in range(0, n_main, GBP_BATCH)]
+    outs = [to_host(map_batch_device(dix, cfg, a, ln, min_read_len=mn))
+            for a, ln, mn in main_dev]
+    gdrop = sum(int(o["gdrop"].sum()) for o in outs)
+    assert gdrop > 0
+    mapped = sum(not r.flag & K.FLAG_UNMAPPED for r in recs) / n_main
+    sat_mapped = sum(not r.flag & K.FLAG_UNMAPPED
+                     for r in recs[-N_GBP_SAT:]) / N_GBP_SAT
+    log(f"Gbp SE main path: SAM of reads [0, {N_GBP_ORACLE}) and the last "
+        f"{N_GBP_ORACLE_SAT} (satellite reads, gdrop re-run) equals the "
+        f"oracle; mapped {mapped:.4f} (satellite reads {sat_mapped:.4f}), "
+        f"recall of the simulated reads "
+        f"{recall(idx, main_sims, recs):.4f}; capacity-overflow reads "
+        f"{stats.overflow_reads}, gdrop reads {gdrop} (all in the last "
+        f"batch: {int(outs[-1]['gdrop'].sum())})")
+
+    # flat_chunks = 2 (what --sensitive sets at this scale): same tensors
+    a, ln, mn = main_dev[0]
+    chunked = to_host(map_batch_device(dix, cfg.replace(flat_chunks=2), a, ln,
+                                       min_read_len=mn))
+    for k, v in outs[0].items():
+        assert (chunked[k] == v).all(), f"flat_chunks=2 differs in {k}"
+    log("Gbp SE: flat_chunks=2 gives the first batch's tensors unchanged")
+
+    # ---- throughput, stage table, idle share --------------------------------
+    small = [to_dev([s.codes for s in sims[lo:lo + GBP_BATCH]], GBP_BATCH)
+             for lo in range(0, 8 * GBP_BATCH, GBP_BATCH)]
+    big = [to_dev([s.codes for s in sims[lo:lo + GBP_BIG_BATCH]],
+                  GBP_BIG_BATCH) for lo in range(0, n_sims, GBP_BIG_BATCH)]
+
+    def device_rate(batches, c):
+        def go():
+            res = [map_batch_device(dix, c, a, ln, min_read_len=mn)
+                   for a, ln, mn in batches]
+            for o in res:
+                o["best_score"].cpu()
+        go()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        go()
+        dt = time.perf_counter() - t0
+        return (sum(b[0].shape[0] for b in batches) / dt,
+                torch.cuda.max_memory_allocated(device) / 1e9)
+
+    rps_small, peak_small = device_rate(small, cfg)
+    rps_big, peak_big = device_rate(big, cfg.replace(batch_size=GBP_BIG_BATCH))
+    t0 = time.perf_counter()
+    again = map_batch(idx, dix, cfg, reads, quals, qnames)
+    e2e = n_main / (time.perf_counter() - t0)
+    assert [r.line() for r in again] == lines
+    log(f"Gbp SE throughput: map_batch_device {rps_small:.1f} reads/s over "
+        f"{len(small)} batches of {GBP_BATCH} (peak device memory "
+        f"{peak_small:.2f} GB) and {rps_big:.1f} reads/s over {len(big)} "
+        f"batches of {GBP_BIG_BATCH} (peak {peak_big:.2f} GB); end-to-end "
+        f"map_batch {e2e:.1f} reads/s over phase 12's "
+        f"{N_GBP_MAIN_BATCHES} batches (one gdrop re-run), on {card}")
+    table, total = stage_table(dix, cfg, small)
+    for name, ms in table.items():
+        log(f"Gbp SE stage, synced, ms per {GBP_BATCH}-read batch: {name}: "
+            f"{ms:.3f}")
+    log(f"Gbp SE stage total, synced per stage: {total:.3f} ms per batch "
+        f"(medians over {len(small)} batches)")
+
+    def four_batches():
+        for a, ln, mn in small[:4]:
+            map_batch_device(dix, cfg, a, ln, min_read_len=mn)
+        torch.cuda.synchronize()
+
+    reset_launches()
+    four_batches()
+    per_batch = {k: v / 4 for k, v in kernels.LAUNCHES.items()}
+    idle = idle_share(four_batches)
+    log(f"Gbp SE, 4 batches of {GBP_BATCH} back to back: walls "
+        f"{min(idle['walls_ms']):.2f}-{max(idle['walls_ms']):.2f} ms "
+        f"unprofiled; under torch.profiler {idle['device_kernels']} device "
+        f"kernels, {idle['busy_ms']:.3f} ms of device time; idle share "
+        + ("{:.2f}-{:.2f}".format(*idle["idle"]) if "idle" in idle
+           else "not measured (the profiler reported no device time)")
+        + f"; launches per batch {per_batch}")
+
+    # ---- phase 13: PE main path ------------------------------------------------
+    pcfg = cfg.replace(paired=True, min_insert=MIN_INSERT,
+                       max_insert=MAX_INSERT)
+    t0 = time.perf_counter()
+    psims = simulate_pairs(idx.genome, N_GBP_PE_BATCHES * GBP_BATCH,
+                           read_len=READ_LEN, seed=150, sub_rate=0.01,
+                           indel_rate=0.005, min_insert=150, max_insert=480)
+    pairs = [(a.codes, b.codes) for a, b in psims]
+    pquals = [(a.qual, b.qual) for a, b in psims]
+    pnames = [f"q{i}" for i in range(len(pairs))]
+    log(f"Gbp PE inputs: {len(pairs)} simulated pairs in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    precs = map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames)
+    pe_launches = dict(kernels.LAUNCHES)
+    log(f"Gbp PE main path: {len(pairs)} pairs mapped in "
+        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{pe_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    assert len(precs) == 2 * len(pairs)
+    for name in ("gather_rows", "verify_fused", "myers_scan"):
+        assert pe_launches[name] > 0, f"{name} never ran on the Gbp PE path"
+    plines = [r.line() for r in precs]
+    oracle = [r.line() for r in oracle_pe(idx, pcfg, pairs[:N_GBP_PE_ORACLE],
+                                          pquals[:N_GBP_PE_ORACLE],
+                                          pnames[:N_GBP_PE_ORACLE])]
+    bad = [i for i, (a, b) in enumerate(zip(oracle, plines)) if a != b]
+    assert len(oracle) == 2 * N_GBP_PE_ORACLE and not bad, \
+        f"Gbp PE oracle mismatch at record {bad[0]}:\n{oracle[bad[0]]}\n" \
+        f"{plines[bad[0]]}"
+    proper = sum(bool(r.flag & K.FLAG_PROPER)
+                 for r in precs[::2]) / len(pairs)
+
+    def pe_dev(lo):
+        chunk = pairs[lo:lo + GBP_BATCH]
+        a1, l1, m1 = to_dev([p[0] for p in chunk], GBP_BATCH)
+        a2, l2, m2 = to_dev([p[1] for p in chunk], GBP_BATCH)
+        return (a1, l1, a2, l2), m1, m2
+
+    pe_batches = [pe_dev(lo) for lo in range(0, len(pairs), GBP_BATCH)]
+
+    def pe_run(batch):
+        args, m1, m2 = batch
+        return map_batch_pe_device(dix, pcfg, *args, min_read_len1=m1,
+                                   min_read_len2=m2)
+
+    hosts = [to_host(pe_run(b)) for b in pe_batches]
+    join = sum(int(h["pair_valid"].sum()) for h in hosts)
+    resc = sum(int((h["resc_valid"] & ~h["pair_valid"]).sum()) for h in hosts)
+    neither = len(pairs) - join - resc
+    log(f"Gbp PE main path: SAM of pairs [0, {N_GBP_PE_ORACLE}) equals the "
+        f"oracle; proper-pair rate {proper:.4f}, recall of the simulated "
+        f"mates {recall(idx, [s for p in psims for s in p], precs):.4f}; "
+        f"decided by pair join {join}, by rescue {resc}, by neither "
+        f"{neither} of {len(pairs)} (compact pass; gdrop "
+        f"{sum(int(h['gdrop'].sum()) for h in hosts)})")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = [pe_run(b) for b in pe_batches]
+    for o in res:
+        o["pair_sum"].cpu()
+    pe_rps = 2 * len(pairs) / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    del res
+    t0 = time.perf_counter()
+    again = map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames)
+    pe_e2e = 2 * len(pairs) / (time.perf_counter() - t0)
+    assert [r.line() for r in again] == plines
+    log(f"Gbp PE throughput: map_batch_pe_device {pe_rps:.1f} reads/s over "
+        f"{len(pe_batches)} batches of {GBP_BATCH} pairs (peak device memory "
+        f"{peak:.2f} GB); end-to-end map_batch_pe {pe_e2e:.1f} reads/s, on "
+        f"{card}")
+
+    # ---- phase 14: CLI with the Gbp flags on the saved artifact -----------------
+    with tempfile.TemporaryDirectory(prefix="btbs_smoke_gbp_") as d:
+        prefix = os.path.join(d, "ref")
+        t0 = time.perf_counter()
+        save_index(idx, prefix)
+        t1 = time.perf_counter()
+        fq = os.path.join(d, "reads.fq")
+        write_fastq(fq, reads, qnames, quals)
+        out = os.path.join(d, "out.sam")
+        proc = subprocess.run(
+            [sys.executable, "-m", "bitmapperbs_tpu_torch", "search", prefix,
+             "--seq", fq, "-o", out, "--read-bucket", str(BUCKET),
+             "--batch-size", str(GBP_BATCH), "--seed-ext",
+             str(cfg.seed_ext_max), "--max-candidates",
+             str(cfg.max_candidates), "--platform", "gpu"],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"Gbp CLI failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        with open(out) as f:
+            cli = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
+        assert cli == lines, "Gbp CLI records differ from map_batch's"
+        log(f"Gbp CLI (--seed-ext {cfg.seed_ext_max} --max-candidates "
+            f"{cfg.max_candidates}): artifact saved in {t1 - t0:.2f} s, "
+            f"{len(cli)} records equal to phase 12 "
+            f"({time.perf_counter() - t1:.2f} s incl. start-up, index load "
+            f"and upload)")
+    return gstats, se_launches, pe_launches
+
+
 def run(card: str) -> dict:
-    """Phases 2-11 on cuda:0 (`card` labels the throughput lines); returns
+    """Phases 2-14 on cuda:0 (`card` labels the throughput lines); returns
     the kernels' JSON record."""
     import numpy as np
     import torch
 
-    from bitmapperbs_tpu.index.build import build_index, save_index
-    from bitmapperbs_tpu.utils.simulate import random_genome_fasta
+    from bitmapperbs_tpu_torch.index.build import build_index, save_index
+    from bitmapperbs_tpu_torch.utils.simulate import random_genome_fasta
     from bitmapperbs_tpu_torch.index.device import upload_index
 
     device = torch.device("cuda", 0)
@@ -700,14 +1258,21 @@ def run(card: str) -> dict:
         se_launches, se_gdrop = run_se(idx, dix, card, prefix)
         pe_launches, pe_gdrop = run_pe(idx, dix, card, prefix)
 
+    del idx, dix
+    torch.cuda.empty_cache()
+    kstats["gather_rows"], gbp_se, gbp_pe = run_gbp(card)
+
+    by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches,
+               "se_gbp_config": gbp_se, "pe_gbp_config": gbp_pe}
+    for name in KERNEL_SOURCES:
+        assert gbp_se[name] + gbp_pe[name] > 0, \
+            f"{name} never launched on this slice's main paths"
     return {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "bitmapperbs_tpu_torch/csrc/verify.cu",
-         "replaces": KERNEL_SOURCES[name], "launches": pe_launches[name],
-         **kstats[name],
-         "launches_by_path": {"se": se_launches[name],
-                              "pe": pe_launches[name]}}
-        for name in ("verify_fused", "myers", "myers_scan")],
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
+         "replaces": KERNEL_SOURCES[name][1],
+         "launches": gbp_se[name] + gbp_pe[name], **kstats[name],
+         "launches_by_path": {k: v[name] for k, v in by_path.items()}}
+        for name in KERNEL_SOURCES],
         "forced_gdrop_launches": {"se": se_gdrop, "pe": pe_gdrop}}
 
 

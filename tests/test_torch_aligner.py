@@ -15,6 +15,7 @@ from bitmapperbs_tpu.models import aligner as jal  # noqa: E402
 from bitmapperbs_tpu.models.host import map_batch_tpu  # noqa: E402
 from bitmapperbs_tpu.oracle.pipeline import map_batch_se  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,  # noqa: E402
+                                            repeat_genome_fasta,
                                             simulate_reads)
 from bitmapperbs_tpu_torch.index.device import upload_index  # noqa: E402
 from bitmapperbs_tpu_torch.models import aligner as tal  # noqa: E402
@@ -109,3 +110,79 @@ def test_compact_equals_dense_grids(setup):
     assert not gc["gdrop"].any()
     for k in ("score", "fwd", "frame_a", "bp", "overflow"):
         assert torch.equal(gd[k], gc[k]), k
+
+
+# ---- the Gbp-scale configuration on a repeat-structured genome ---------------
+
+# what cli.autotune_for_genome sets above 512 Mbp: adaptive seed extension
+# and 128 verified anchors per frame
+GBP = BASE.replace(seed_ext_max=20, seed_ext_occ=4, max_candidates=128)
+GBP_CONFIGS = {
+    "gbp": GBP,
+    "gbp_chunks": GBP.replace(flat_chunks=2),
+    "gbp_pbat": GBP.replace(non_directional=True),
+    "gbp_gdrop": GBP.replace(locate_flat_cap=1),
+}
+
+
+@pytest.fixture(scope="module")
+def repeat_setup():
+    """Planted dispersed / LINE-like / tandem repeats (plant_repeats
+    defaults); half of the reads are simulated over the whole genome, so
+    many start inside repeat copies, and a quarter are short."""
+    rng = np.random.default_rng(77)
+    idx = build_index(repeat_genome_fasta(rng, contigs=(40000, 20000)))
+    sims = simulate_reads(idx.genome, B, read_len=90, seed=78, sub_rate=0.01,
+                          indel_rate=0.005)
+    cut = np.random.default_rng(6).integers(50, 91, B)
+    reads = [s.codes[:c] if i % 4 == 0 else s.codes
+             for i, (s, c) in enumerate(zip(sims, cut))]
+    return idx, jupload(idx), upload_index(idx), reads, [s.qual for s in sims]
+
+
+def test_gbp_extension_moves_seeds(repeat_setup):
+    """On this genome the extension is not a no-op: heavy seeds grow, and
+    their starts move left with them."""
+    idx, _, td, reads, _ = repeat_setup
+    arr, lens = prepare_batch(reads, 96, B)
+    a, ln = torch.from_numpy(arr), torch.from_numpy(lens).long()
+    frames = tuple(tal.se_frames(GBP))
+    plain = tal._seed_stage(td, BASE, a, ln, frames)
+    ext = tal._seed_stage(td, GBP, a, ln, frames)
+    moved = ext[3] < plain[3]
+    assert moved.any()
+    shrunk = (ext[5] - ext[4]) < (plain[5] - plain[4])
+    assert (shrunk == moved).all()
+    assert ((ext[5] - ext[4])[moved] > 0).all()    # never extended to empty
+
+
+@pytest.mark.parametrize("name", sorted(GBP_CONFIGS))
+def test_gbp_config_matches_jax(repeat_setup, name):
+    idx, jd, td, reads, _ = repeat_setup
+    cfg = GBP_CONFIGS[name]
+    arr, lens = prepare_batch(reads, 96, B)
+    want = jal.map_batch_device(jd, cfg, jnp.asarray(arr), jnp.asarray(lens))
+    got = tal.map_batch_device(td, cfg, torch.from_numpy(arr),
+                               torch.from_numpy(lens),
+                               min_read_len=int(lens.min()))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy().astype(np.int64),
+                                      np.asarray(want[k]).astype(np.int64),
+                                      err_msg=k)
+    mapped = int((got["best_score"] < (1 << 20)).sum())
+    if name == "gbp_gdrop":      # the host re-runs the dropped reads dense
+        assert got["gdrop"].any()
+    else:
+        assert mapped > B // 2
+
+
+@pytest.mark.parametrize("name", sorted(GBP_CONFIGS))
+def test_gbp_config_sam_matches_reference_and_oracle(repeat_setup, name):
+    idx, jd, td, reads, quals = repeat_setup
+    cfg = GBP_CONFIGS[name]
+    got = [r.line() for r in map_batch(idx, td, cfg, reads, quals)]
+    ref = [r.line() for r in map_batch_tpu(idx, jd, cfg, reads, quals)]
+    oracle = [r.line() for r in map_batch_se(idx, cfg, reads, quals)]
+    assert got == ref
+    assert got == oracle

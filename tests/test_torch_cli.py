@@ -116,6 +116,37 @@ def test_unported_options_exit_2(workdir, capsys, flag):
     assert "not yet ported (ROADMAP.md)" in capsys.readouterr().err
 
 
+def test_resample_matches_reference_cli(workdir, capsys):
+    """`resample` is ported: the same artifact bytes as the reference CLI,
+    in place and with --out, and the resampled index searches to the same
+    SAM as before (locate walks half as far)."""
+    import shutil
+
+    d = workdir
+    src = str(d / "ref.fa.btidx")
+    for name in ("rs_port", "rs_ref"):
+        for ext in (".bin", ".json"):
+            shutil.copy(src + ext, str(d / name) + ext)
+    assert main(["resample", str(d / "rs_port"), "--sa-rate", "2"]) == 0
+    assert "sa_rate 4 -> 2" in capsys.readouterr().err
+    assert jmain(["resample", str(d / "rs_ref"), "--sa-rate", "2"]) == 0
+    for ext in (".bin", ".json"):
+        assert (d / f"rs_port{ext}").read_bytes() == \
+            (d / f"rs_ref{ext}").read_bytes()
+    assert (d / "rs_port.bin").read_bytes() != (d / "ref.fa.btidx.bin"
+                                                ).read_bytes()
+    assert main(["resample", src, "--sa-rate", "2", "--out",
+                 str(d / "rs_out")]) == 0
+    assert (d / "rs_out.bin").read_bytes() == (d / "rs_ref.bin").read_bytes()
+    common = ["search", "--seq", str(d / "reads.fq"), "--batch-size", "16",
+              "--platform", "cpu"]
+    assert main([*common[:1], str(d / "rs_out"), *common[1:], "-o",
+                 str(d / "rs.sam")]) == 0
+    assert main([*common[:1], str(d / "ref.fa"), *common[1:], "-o",
+                 str(d / "base.sam")]) == 0
+    assert records(d / "rs.sam") == records(d / "base.sam")
+
+
 def test_package_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"

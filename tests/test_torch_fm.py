@@ -15,6 +15,7 @@ from bitmapperbs_tpu.utils import dna  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta  # noqa: E402
 from bitmapperbs_tpu_torch.index import device as tdev  # noqa: E402
 from bitmapperbs_tpu_torch.ops import fm as tfm  # noqa: E402
+from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
 
 M = 64
 
@@ -154,3 +155,55 @@ def test_extend_seeds(setup, seeds):
                             jnp.asarray(starts), sp_j, ep_j, 12, 2)
     for g, w in zip(got, want):
         same(g, w)
+
+
+# ---- the table row gather ------------------------------------------------------
+
+@pytest.mark.parametrize("W", [1, 2, 3, 17, 5])
+def test_gather_rows_matches_jax_indexing(W):
+    """gather_rows on CPU tensors (its plain version; no launch) equals the
+    JAX gather table[idx] for every row width the mapping path uses and one
+    it does not, over lane shapes of 1-3 dimensions; indices at and past
+    the table end clamp to the last row as the JAX gather clamps them, and
+    negative ones to row 0."""
+    rng = np.random.default_rng(40 + W)
+    R = 257
+    table = rng.integers(0, 1 << 32, (R, W), dtype=np.uint64).astype(
+        np.uint32)
+    tt = torch.from_numpy(table.view(np.int32))
+    before = dict(kernels.LAUNCHES)
+    for shape in ((301,), (7, 5), (3, 4, 6)):
+        idx = rng.integers(0, R, shape)
+        idx.reshape(-1)[::7] = R + rng.integers(0, 1000, idx.size)[::7]
+        idx.reshape(-1)[0] = R
+        want = np.asarray(jnp.asarray(table)[jnp.asarray(idx)])
+        got = kernels.gather_rows(tt, torch.from_numpy(idx))
+        assert got.dtype == torch.int32 and got.shape == (*shape, W)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        np.testing.assert_array_equal(want.reshape(-1, W)[0], table[R - 1])
+        neg = torch.from_numpy(-1 - idx)
+        assert torch.equal(kernels.gather_rows(tt, neg),
+                           tt[0].expand(*shape, W))
+    assert kernels.LAUNCHES == before                     # no kernel ran
+    with pytest.raises(ValueError):                       # no silent path
+        kernels.gather_rows(tt.to("meta"), torch.zeros(4, dtype=torch.int64))
+
+
+def test_fetchers_clamp_like_the_reference(setup):
+    """fetch_cp_rows / fetch_sa_samples / klt_lookup go through gather_rows:
+    rows past either table end read the last row, as the reference's."""
+    _, jd, td = setup
+    rows = np.array([0, 5, td.cp_rows.shape[0] - 1, td.cp_rows.shape[0] + 9])
+    same(tfm.fetch_cp_rows(td, T(rows)),
+         jfm.fetch_cp_rows(jd, jnp.asarray(rows, dtype=jnp.int32)))
+    flat = np.array([0, 3, 2 * td.samples_max - 1, 2 * td.samples_max + 4])
+    same(tfm.fetch_sa_samples(td, T(flat)),
+         jfm.fetch_sa_samples(jd, jnp.asarray(flat, dtype=jnp.int32)))
+    # an expanded (stride-0) index tensor is made contiguous on the way in
+    blk = torch.tensor([0, 1])[:, None].expand(2, 3)
+    km = torch.tensor([[0, 7, 3 ** td.klt_k - 1]]).expand(2, 3)
+    sp, ep = tfm.klt_lookup(td, blk, km)
+    jsp, jep = jfm.klt_lookup(jd, jnp.asarray(blk.numpy(), dtype=jnp.int32),
+                              jnp.asarray(km.numpy(), dtype=jnp.int32))
+    same(sp, jsp)
+    same(ep, jep)

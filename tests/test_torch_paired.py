@@ -20,6 +20,7 @@ from bitmapperbs_tpu.ops import verify as jv  # noqa: E402
 from bitmapperbs_tpu.oracle.paired import map_batch_pe  # noqa: E402
 from bitmapperbs_tpu.utils import dna  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,  # noqa: E402
+                                            repeat_genome_fasta,
                                             simulate_pairs)
 from bitmapperbs_tpu_torch.index.device import (  # noqa: E402
     _device_layout_planes, upload_index)
@@ -28,7 +29,7 @@ from bitmapperbs_tpu_torch.models.host import (map_batch_pe as tmap_pe,  # noqa:
                                                prepare_batch)
 from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
 from bitmapperbs_tpu_torch.ops import verify as tv  # noqa: E402
-from chip_smoke import repeat_genome_fasta, straddling_pairs  # noqa: E402
+from chip_smoke import straddling_pairs, tandem_genome_fasta  # noqa: E402
 
 B = 48
 
@@ -307,7 +308,7 @@ def test_rescue_branch_in_repeats(indels):
     flank: the pair join finds nothing, the rescue pass (Myers scan with
     indels, per-offset Hamming without) decides them.  Device tensors equal
     the JAX package's; SAM equals map_batch_pe_tpu's and the oracle's."""
-    idx = build_index(repeat_genome_fasta(31))
+    idx = build_index(tandem_genome_fasta(31))
     jd, td = jupload(idx), upload_index(idx)
     pairs = straddling_pairs(idx, 32, seed=32) + [
         (a.codes, b.codes) for a, b in simulate_pairs(
@@ -332,3 +333,66 @@ def test_rescue_branch_in_repeats(indels):
     assert sam == [r.line() for r in orecs]
     proper = np.array([bool(r.flag & K.FLAG_PROPER) for r in orecs[::2]])
     assert proper[:len(decided)][decided].all()
+
+
+# ---- the Gbp-scale configuration on a repeat-structured genome ---------------
+
+GBP = dict(seed_ext_max=20, seed_ext_occ=4, max_candidates=128)
+GBP_CASES = {
+    "gbp": cfg_pe(**GBP),
+    "gbp_chunks": cfg_pe(flat_chunks=2, **GBP),
+    "gbp_pbat": cfg_pe(non_directional=True, min_insert=100, max_insert=450,
+                       **GBP),
+    "gbp_gdrop": cfg_pe(locate_flat_cap=1, **GBP),
+}
+
+
+@pytest.fixture(scope="module")
+def repeat_setup():
+    """Planted-repeat genome (plant_repeats defaults) and pairs simulated
+    over all of it: ordinary pairs, short mates, and mates 2 with three
+    seeds killed."""
+    idx = build_index(repeat_genome_fasta(np.random.default_rng(79),
+                                          contigs=(40000, 20000)))
+    rng = np.random.default_rng(8)
+    pairs = []
+    for i, (s1, s2) in enumerate(simulate_pairs(
+            idx.genome, 40, read_len=80, seed=44, min_insert=150,
+            max_insert=260, sub_rate=0.01, indel_rate=0.01)):
+        r1, r2 = s1.codes, s2.codes
+        if i % 5 == 1:
+            r1, r2 = r1[:int(rng.integers(50, 80))], r2[:64]
+        elif i % 5 == 3:
+            r2 = kill_seeds(r2, rng)
+        pairs.append((r1, r2))
+    return idx, jupload(idx), upload_index(idx), pairs
+
+
+@pytest.mark.parametrize("name", sorted(GBP_CASES))
+def test_gbp_config_pe_device_matches_jax(repeat_setup, name):
+    idx, jd, td, pairs = repeat_setup
+    cfg = GBP_CASES[name]
+    a1, l1 = prepare_batch([p[0] for p in pairs], 96, len(pairs))
+    a2, l2 = prepare_batch([p[1] for p in pairs], 96, len(pairs))
+    want = jpaired.map_batch_pe_device(jd, cfg, jnp.asarray(a1),
+                                       jnp.asarray(l1), jnp.asarray(a2),
+                                       jnp.asarray(l2))
+    got = tpaired.map_batch_pe_device(
+        td, cfg, torch.from_numpy(a1), torch.from_numpy(l1),
+        torch.from_numpy(a2), torch.from_numpy(l2),
+        min_read_len1=int(l1.min()), min_read_len2=int(l2.min()))
+    assert_same_tree(got, want)
+    if name == "gbp_gdrop":
+        assert got["gdrop"].any()
+    else:
+        assert got["pair_valid"].numpy().sum() > len(pairs) // 2
+
+
+@pytest.mark.parametrize("name", sorted(GBP_CASES))
+def test_gbp_config_pe_sam_matches_reference_and_oracle(repeat_setup, name):
+    idx, jd, td, pairs = repeat_setup
+    cfg = GBP_CASES[name]
+    got = [r.line() for r in tmap_pe(idx, td, cfg, pairs)]
+    ref = [r.line() for r in map_batch_pe_tpu(idx, jd, cfg, pairs)]
+    assert got == ref
+    assert got == [r.line() for r in map_batch_pe(idx, cfg, pairs)]
