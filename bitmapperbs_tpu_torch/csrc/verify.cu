@@ -8,6 +8,15 @@
 //   to the read length) and, when ham > e, semi-global multi-word Myers with
 //   the PEQ table built from the read planes in registers.
 //   out = ham if ham <= e else min over the ncols end columns.
+// btbs_verify_fused_gather replaces the same TPU kernel together with the
+//   window gather in front of it (bitmapperbs_tpu/ops/verify.py
+//   window_planes, as bitmapperbs_tpu/models/aligner.py
+//   candidate_grids_compact calls it): it takes what the compact path holds
+//   before any plane exists (the packed genome planes, per lane an
+//   orientation, a u32 window start, a row of the read-plane table and a read
+//   length) and does the window fetch, the start & 31 funnel, the
+//   out-of-range -> N marking (wrapped-negative starts and windows past the
+//   genome end included) and the length mask in registers.
 // btbs_myers replaces pallas_kernels.py _myers_kernel (wrapper myers_pallas):
 //   the same Myers recurrence from a precomputed PEQ table and pad rows
 //   (N columns take the pad row); out = min over the ncols end columns.
@@ -32,9 +41,27 @@
 // by instantiating the word count WD = 1..8 at compile time (reads up to
 // 256 bp) so every word loop unrolls; a runtime-Wd instantiation with local
 // arrays covers buckets up to 1024 bp.  The fused kernel skips the Myers
-// loop for lanes whose Hamming count already decides the result.  Loads are
-// uncoalesced (lane-major rows); feature-major layouts, fusing the window
-// gather, and cp.async staging are later work.
+// loop for lanes whose Hamming count already decides the result.  The three
+// entries that take planes read lane-major rows, one thread per row, so
+// their loads do not coalesce.
+//
+// The gathering entry is bound the same way (operations: the Myers columns
+// of the lanes whose Hamming count does not decide them) and removes what
+// stood between it and that bound on the compact path: ~20 MB of int64
+// plane intermediates per 163,840-lane batch written and re-read through
+// device memory by some thirty small tensor ops, three concatenate /
+// narrow / copy passes to build the lane-major rows, and warps that ran all
+// ncols columns with most of their threads idle because the lanes with
+// ham > e are scattered.  A lane needs 12 (Wd + 2) contiguous bytes of genome
+// planes: each thread fetches them as whole words into registers.  After the
+// Hamming pass the block compacts the lanes that need Myers (warp ballot,
+// popcount prefix over the block's warps) into a shared-memory staging
+// area, one padded row per lane so rows fall on different banks; the first
+// `count` threads then run the column loop on full warps and the other
+// warps leave.  The staging area holds 7 Wd + 3 words per thread, which is
+// why this entry exists for the compile-time word counts (reads up to 256
+// bp) only; longer buckets gather with ops/verify.window_planes and take
+// btbs_verify_fused.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -185,6 +212,149 @@ __global__ void __launch_bounds__(kThreads) verify_fused_kernel(
   out[lane] = myers_min<NW>(w0, w1, wn, peq, pad, wd, m, ncols);
 }
 
+// bits [0, nb) for nb in [0, 32]
+__device__ __forceinline__ uint32_t mask_lt(uint32_t nb) {
+  return nb >= 32u ? 0xFFFFFFFFu : ((1u << nb) - 1u);
+}
+
+// The gathering entry: one thread per lane through the window fetch and the
+// Hamming pass, then the block's ham > e lanes compacted onto its first
+// threads for the Myers loop.  WD: compile-time word count; the window is
+// WD + 1 words.
+template <int WD>
+__global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
+    const uint32_t* __restrict__ gp, const int64_t* __restrict__ orient,
+    const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
+    const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
+    int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
+    int64_t genome_len, int m, int ncols, int e) {
+  constexpr int WW = WD + 1;
+  constexpr int NS = (3 * WW + 4 * WD) | 1;    // odd row stride: no bank clash
+  __shared__ uint32_t stage[kThreads][NS];
+  __shared__ int slot_thread[kThreads];
+  __shared__ int warp_count[kThreads / 32];
+  const int64_t lane = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+
+  uint32_t w0[WW], w1[WW], wn[WW], d0[WD], d1[WD], dn[WD], lmask[WD];
+  bool need = false;
+  if (lane < L) {
+    // window planes at `start` (ops/verify.window_planes): rows
+    // (start + 32) >> 5 .. + WW of the orientation's plane block, funnelled
+    // by start & 31, positions outside [0, genome_len) turned into N
+    const uint32_t st = uint32_t(start[lane]);
+    const uint32_t sh = st & 31u;
+    const int64_t wi = int64_t((st + 32u) >> 5);         // u32 add: wraps below 0
+    const int64_t base = orient[lane] * gwords;
+    uint32_t raw[3][WW + 1];
+#pragma unroll
+    for (int k = 0; k <= WW; ++k) {
+      int64_t r = wi + k;
+      r = base + (r >= gwords ? gwords - 1 : r);
+      r = r < 0 ? 0 : (r >= 2 * gwords ? 2 * gwords - 1 : r);
+      const uint32_t* q = gp + r * 3;
+      raw[0][k] = q[0];
+      raw[1][k] = q[1];
+      raw[2][k] = q[2];
+    }
+#pragma unroll
+    for (int k = 0; k < WW; ++k) {
+      uint32_t a0 = raw[0][k], a1 = raw[1][k], an = raw[2][k];
+      if (sh != 0u) {
+        a0 = (a0 >> sh) | (raw[0][k + 1] << (32u - sh));
+        a1 = (a1 >> sh) | (raw[1][k + 1] << (32u - sh));
+        an = (an >> sh) | (raw[2][k + 1] << (32u - sh));
+      }
+      const uint32_t ws = st + 32u * uint32_t(k);          // word's first position
+      uint32_t oob;
+      if (ws >= 0xFFFFF000u) {                             // wrapped below 0
+        const uint32_t neg = 0u - ws;
+        oob = mask_lt(neg < 32u ? neg : 32u);
+      } else if (int64_t(ws) >= genome_len) {
+        oob = 0xFFFFFFFFu;
+      } else {
+        const int64_t left = genome_len - int64_t(ws);
+        oob = ~mask_lt(left < 32 ? uint32_t(left) : 32u);
+      }
+      w0[k] = a0 & ~oob;
+      w1[k] = a1 & ~oob;
+      wn[k] = an | oob;
+    }
+    // the lane's read planes and length mask
+    int64_t rr = rrow[lane];
+    rr = rr < 0 ? 0 : (rr >= R ? R - 1 : rr);
+    const int64_t* rp = rtab + rr * 3 * WD;
+    const int64_t len = rlen[lane];
+    int ham = 0;
+#pragma unroll
+    for (int k = 0; k < WD; ++k) {
+      d0[k] = uint32_t(rp[k]);
+      d1[k] = uint32_t(rp[WD + k]);
+      dn[k] = uint32_t(rp[2 * WD + k]);
+      const int64_t nb = len - 32 * k;
+      lmask[k] = mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
+      // anchored Hamming from the e-shifted window
+      const uint32_t a0 = funnel(w0, k, e), a1 = funnel(w1, k, e),
+                     an = funnel(wn, k, e);
+      const uint32_t eqb = ~(a0 ^ d0[k]) & ~(a1 ^ d1[k]);
+      const uint32_t match =
+          (eqb | ((a0 & ~a1) & (d0[k] & d1[k]))) & ~an & ~dn[k];
+      ham += __popc(~match & lmask[k]);
+    }
+    need = ham > e;
+    if (!need) out[lane] = ham;
+  }
+
+  // compact the lanes that need Myers onto the block's first threads
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, need);
+  const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31;
+  if (lid == 0) warp_count[wid] = __popc(ballot);
+  __syncthreads();
+  int before = 0, count = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < wid) before += warp_count[w];
+    count += warp_count[w];
+  }
+  if (need) {
+    const int slot = before + __popc(ballot & ((1u << lid) - 1u));
+    uint32_t* s = stage[slot];
+#pragma unroll
+    for (int k = 0; k < WW; ++k) {
+      s[k] = w0[k];
+      s[WW + k] = w1[k];
+      s[2 * WW + k] = wn[k];
+    }
+#pragma unroll
+    for (int k = 0; k < WD; ++k) {
+      s[3 * WW + k] = d0[k];
+      s[3 * WW + WD + k] = d1[k];
+      s[3 * WW + 2 * WD + k] = dn[k];
+      s[3 * WW + 3 * WD + k] = lmask[k];
+    }
+    slot_thread[slot] = threadIdx.x;
+  }
+  __syncthreads();
+  if (int(threadIdx.x) >= count) return;
+
+  // PEQ from the staged read planes (asymmetric match; pad rows always
+  // match), window words read from the staging row as the columns advance
+  const uint32_t* s = stage[threadIdx.x];
+  uint32_t peq[4][WD], pad[WD];
+#pragma unroll
+  for (int k = 0; k < WD; ++k) {
+    const uint32_t r0 = s[3 * WW + k], r1 = s[3 * WW + WD + k],
+                   rn = s[3 * WW + 2 * WD + k];
+    const uint32_t p = ~s[3 * WW + 3 * WD + k];
+    pad[k] = p;
+    peq[0][k] = (~r0 & ~r1 & ~rn) | p;
+    peq[1][k] = ((r0 & ~r1 & ~rn) | (r0 & r1 & ~rn)) | p;
+    peq[2][k] = (~r0 & r1 & ~rn) | p;
+    peq[3][k] = (r0 & r1 & ~rn) | p;
+  }
+  out[int64_t(blockIdx.x) * kThreads + slot_thread[threadIdx.x]] =
+      myers_min<WD>(s, s + WW, s + 2 * WW, peq, pad, WD, m, ncols);
+}
+
 template <int WD>
 __global__ void __launch_bounds__(kThreads) myers_kernel(
     const uint32_t* __restrict__ win, const uint32_t* __restrict__ peq_g,
@@ -225,6 +395,19 @@ void launch_fused(const uint32_t* win, const uint32_t* rd, const uint32_t* lm,
   const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
   verify_fused_kernel<WD><<<grid, kThreads, 0, st>>>(win, rd, lm, out, L, wd,
                                                      ww, m, ncols, e);
+}
+
+template <int WD>
+void launch_fused_gather(const uint32_t* gp, const int64_t* orient,
+                         const int64_t* start, const int64_t* rtab,
+                         const int64_t* rrow, const int64_t* rlen, int32_t* out,
+                         int64_t L, int64_t R, int64_t gwords,
+                         int64_t genome_len, int m, int ncols, int e,
+                         cudaStream_t st) {
+  const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
+  verify_fused_gather_kernel<WD><<<grid, kThreads, 0, st>>>(
+      gp, orient, start, rtab, rrow, rlen, out, L, R, gwords, genome_len, m,
+      ncols, e);
 }
 
 template <int WD>
@@ -277,6 +460,45 @@ int btbs_verify_fused(const void* win, const void* rd, const void* lm,
     case 8: launch_fused<8>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
     default: launch_fused<0>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
   }
+  return int(cudaGetLastError());
+}
+
+// gp uint32 [2 * gwords][3] genome planes; orient, start (u32 value), rrow,
+// rlen int64 [L]; rtab int64 [R][3 * wd] read planes (u32 values); out int32
+// [L].  wd in 1..8 and a window of exactly wd + 1 words.
+int btbs_verify_fused_gather(const void* gp, const void* orient,
+                             const void* start, const void* rtab,
+                             const void* rrow, const void* rlen, void* out,
+                             int64_t L, int64_t R, int64_t gwords,
+                             int64_t genome_len, int wd, int m, int ncols,
+                             int e, void* stream) {
+  if (!shapes_ok(L, wd, wd + 1, ncols) || wd > 8 || ncols <= 32 * wd ||
+      e < 0 || e > 31 || R < 1 || gwords < 1 || genome_len < 0)
+    return int(cudaErrorInvalidValue);
+  auto g = static_cast<const uint32_t*>(gp);
+  auto a = static_cast<const int64_t*>(orient);
+  auto s = static_cast<const int64_t*>(start);
+  auto t = static_cast<const int64_t*>(rtab);
+  auto r = static_cast<const int64_t*>(rrow);
+  auto n = static_cast<const int64_t*>(rlen);
+  auto o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+#define BTBS_FUSED_GATHER(WD)                                             \
+  case WD:                                                                \
+    launch_fused_gather<WD>(g, a, s, t, r, n, o, L, R, gwords, genome_len, \
+                            m, ncols, e, st);                             \
+    break;
+  switch (wd) {
+    BTBS_FUSED_GATHER(1)
+    BTBS_FUSED_GATHER(2)
+    BTBS_FUSED_GATHER(3)
+    BTBS_FUSED_GATHER(4)
+    BTBS_FUSED_GATHER(5)
+    BTBS_FUSED_GATHER(6)
+    BTBS_FUSED_GATHER(7)
+    BTBS_FUSED_GATHER(8)
+  }
+#undef BTBS_FUSED_GATHER
   return int(cudaGetLastError());
 }
 

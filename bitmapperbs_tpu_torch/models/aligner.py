@@ -342,25 +342,33 @@ def candidate_grids_compact(dix: DeviceIndex, cfg: AlignerConfig, reads,
     rowC = torch.clamp(rowS, max=R - 1)
     blkS = blocks[rowC % F]
     cand = torch.where(keep, anchS, 0)
-    planes3 = torch.stack(verify.pack_codes(frame_reads), dim=2)  # B,F,3,Wd
-    rp = planes3.reshape(R, 3 * Wd)[rowC]                         # CAP,3*Wd
-    d0, d1, dn = rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:]
-    lenmask = verify.length_mask(lenS, m)                         # CAP,Wd
+    read_tab = torch.stack(verify.pack_codes(frame_reads), dim=2).reshape(
+        R, 3 * Wd)                                # per frame: b0 | b1 | nmask
 
-    def _verify_lanes(blk_, cand_, d0_, d1_, dn_, lm_):
+    def _verify_lanes(blk_, cand_, row_, len_):
         if cfg.indels and e > 0:
             ncols = m + 2 * e
-            Ww = -(-ncols // 32)                                  # == Wd + 1
-            wide = verify.window_planes(dix.g_planes, blk_, wrap(cand_ - e),
-                                        Ww, L, dix.g_words)
-            # one kernel: funnel shift + Hamming + in-register PEQ + Myers
-            return (kernels.verify_fused(wide, (d0_, d1_, dn_), lm_, m,
-                                         ncols, e),)
+            start = wrap(cand_ - e)
+            if kernels.verify_fused_gather_fits(m, ncols):
+                # one kernel: window gather + funnel shifts + Hamming +
+                # in-register PEQ + Myers
+                return (kernels.verify_fused_gather(
+                    dix.g_planes, blk_, start, read_tab, row_, len_, L,
+                    dix.g_words, m, ncols, e),)
+        rp = read_tab[row_]                                       # lanes,3*Wd
+        planes = (rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:])
+        lm_ = verify.length_mask(len_, m)
+        if cfg.indels and e > 0:
+            # widths the gathering kernel is not built for (reads over 256
+            # bp, e over 16): plain window gather, then the fused kernel
+            wide = verify.window_planes(dix.g_planes, blk_, start,
+                                        -(-ncols // 32), L, dix.g_words)
+            return (kernels.verify_fused(wide, planes, lm_, m, ncols, e),)
         ref = verify.window_planes(dix.g_planes, blk_, cand_, Wd, L,
                                    dix.g_words)
-        return (verify.hamming(ref, (d0_, d1_, dn_), lm_),)
+        return (verify.hamming(ref, planes, lm_),)
 
-    v_args = (blkS, cand, d0, d1, dn, lenmask)
+    v_args = (blkS, cand, rowC, lenS)
     if chunks > 1:
         # valid (sorted-front) lanes only; skipped lanes keep INF and are
         # masked by `keep` below anyway

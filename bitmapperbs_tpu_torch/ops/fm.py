@@ -2,14 +2,22 @@
 backward search with the k-mer lookup table, adaptive seed extension,
 bounded-LF locate.
 
-Every op is elementwise over an arbitrary lane shape with no data-dependent
-control flow and no host sync.  Positions and counts are u32 lanes carried
-as int64 (ops/u32.py); each checkpoint row, SA sample and k-mer table row
-is one row gather of int32 bits (ops/kernels.gather_rows: the CUDA kernel
-on the card, plain indexing on CPU tensors), widened right after.  The
-gather clamps its row index into the table, as the reference's gathers do.
-Where the reference used where-chains to dodge its device's gather costs
-on SMALL tables (cbase, n), plain indexing gives the same values.
+Every op is elementwise over an arbitrary lane shape with no host sync.
+Positions and counts are u32 lanes carried as int64 (ops/u32.py).
+
+The three step loops run as ONE kernel launch each on the card, every lane
+in its own loop (ops/kernels.py, csrc/fm.cu): `search_patterns` ->
+kernels.fm_search (after the k-mer table lookup, which stays a
+kernels.gather_rows call), `extend_seeds` -> kernels.fm_extend, `locate` ->
+kernels.fm_locate (LF walk and SA-sample lookup).  Their plain versions are
+the lockstep loops below (`search_lockstep`, `extend_lockstep`,
+`locate_lockstep`): masked steps over all lanes with no data-dependent
+control flow, each checkpoint row, SA sample and k-mer table row one row
+gather of int32 bits widened right after, the row index clamped into the
+table as the reference's gathers clamp.  The wrappers run them on CPU
+tensors, and the kernels are held to them.  Where the reference used
+where-chains to dodge its device's gather costs on SMALL tables (cbase, n),
+plain indexing gives the same values.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import torch
 
 from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
-from bitmapperbs_tpu_torch.ops.kernels import gather_rows
+from bitmapperbs_tpu_torch.ops import kernels   # mutual import: used in calls
 from bitmapperbs_tpu_torch.ops.u32 import (MASK, bnot, mask_lt, popcount,
                                            widen, wrap)
 
@@ -38,11 +46,11 @@ def _popcount_sum(words):
 def fetch_cp_rows(dix: DeviceIndex, row):
     """Checkpoint rows by flat row index, widened to u32 lanes.  Rows are
     clamped into the table, as the reference's gathers clamp."""
-    return widen(gather_rows(dix.cp_rows, row.contiguous()))
+    return widen(kernels.gather_rows(dix.cp_rows, row.contiguous()))
 
 
 def fetch_sa_samples(dix: DeviceIndex, flat_idx):
-    return widen(gather_rows(dix.sa_samples[:, None],
+    return widen(kernels.gather_rows(dix.sa_samples[:, None],
                              flat_idx.contiguous())[..., 0])
 
 
@@ -82,10 +90,15 @@ def extend_backward(dix: DeviceIndex, block, sp, ep, c):
 
 
 def locate(dix: DeviceIndex, block, i, valid):
-    """SA_block[i] per lane via <= dix.sa_rate lockstep LF steps.  Each step
-    is one checkpoint-row gather (occ counts, BWT planes and SA-mark bits
-    share the row); the SA-sample lookup happens once after the loop.
-    Invalid lanes walk garbage safely.  Returns u32 lanes."""
+    """SA_block[i] per lane via <= dix.sa_rate LF steps; invalid lanes walk
+    garbage safely.  Returns u32 lanes.  One kernel on the card."""
+    return kernels.fm_locate(dix, block, i, valid)
+
+
+def locate_lockstep(dix: DeviceIndex, block, i, valid):
+    """`locate`, lockstep over lanes.  Each step is one checkpoint-row
+    gather (occ counts, BWT planes and SA-mark bits share the row); the
+    SA-sample lookup happens once after the loop."""
     blk = block.to(torch.int64)
     nmax = block_n(dix, blk)
     cur = torch.minimum(torch.where(valid, i, 0), nmax - 1)
@@ -126,10 +139,18 @@ def locate(dix: DeviceIndex, block, i, valid):
 
 def extend_seeds(dix: DeviceIndex, block, patterns, starts, sp, ep,
                  ext_max: int, ext_occ: int):
-    """Adaptive seed extension, lockstep over lanes: a lane whose interval
-    holds more than ext_occ rows prepends the read character left of its
-    start, up to ext_max characters, stopping at the read start or when a
-    step would empty the interval.  Returns (sp, ep, starts)."""
+    """Adaptive seed extension: a lane whose interval holds more than
+    ext_occ rows prepends the read character left of its start, up to
+    ext_max characters, stopping at the read start or when a step would
+    empty the interval.  Returns (sp, ep, starts).  One kernel on the
+    card."""
+    return kernels.fm_extend(dix, block, patterns, starts, sp, ep, ext_max,
+                             ext_occ)
+
+
+def extend_lockstep(dix: DeviceIndex, block, patterns, starts, sp, ep,
+                    ext_max: int, ext_occ: int):
+    """`extend_seeds`, lockstep over lanes."""
     m = patterns.shape[-1]
     ts = torch.arange(ext_max, dtype=torch.int64, device=starts.device)
     j = (starts[..., None] - 1 - ts).clamp(0, m - 1)
@@ -168,31 +189,45 @@ def rolling_kmers(patterns, k: int):
 def klt_lookup(dix: DeviceIndex, block, kmer_idx):
     """(sp, ep) after klt_k backward steps: one row gather per lane."""
     row = block.to(torch.int64) * (3 ** dix.klt_k) + kmer_idx
-    rows = widen(gather_rows(dix.klt, row.contiguous()))
+    rows = widen(kernels.gather_rows(dix.klt, row.contiguous()))
     return rows[..., 0], rows[..., 1]
 
 
 def search_patterns(dix: DeviceIndex, block, patterns, starts, ends,
                     max_len: int | None = None, end_kmers=None,
                     min_len: int = 0):
-    """Batched backward search of seed slices [start, end), lockstep over
-    lanes.  end_kmers (rolling_kmers at end-1 per lane), when given and the
-    index has a KLT, replaces the first klt_k steps of every slice at least
-    klt_k long with one table lookup (bit-identical).  Returns (sp, ep).
+    """Batched backward search of seed slices [start, end).  end_kmers
+    (rolling_kmers at end-1 per lane), when given and the index has a KLT,
+    replaces the first klt_k steps of every slice at least klt_k long with
+    one table lookup (bit-identical).  Returns (sp, ep).  One gather (the
+    table lookup) and one kernel on the card.
 
-    Lanes shorter than klt_k walk their characters in a masked phase A.
     min_len is a lower bound on every slice length that the caller knows
-    without a device sync (the host holds the read lengths); when it is at
-    least klt_k no lane is short and phase A is skipped, as the reference's
-    lax.cond skips it.  The default 0 (unknown) always runs phase A.
+    without a device sync (the host holds the read lengths); the lockstep
+    version skips its short-slice phase when it is at least klt_k.  The
+    default 0 (unknown) always runs that phase.
     """
-    m = patterns.shape[-1]
-    lens = ends - starts
     if max_len is None:
-        max_len = m
+        max_len = patterns.shape[-1]
     k = dix.klt_k if end_kmers is not None else 0
     if k >= max_len:   # table deeper than any slice: plain path
         k = 0
+    sp0 = ep0 = None
+    if k:
+        sp0, ep0 = klt_lookup(dix, block, end_kmers)
+    return kernels.fm_search(dix, block, patterns, starts, ends, sp0, ep0, k,
+                             max_len, min_len)
+
+
+def search_lockstep(dix: DeviceIndex, block, patterns, starts, ends, sp0,
+                    ep0, k: int, max_len: int, min_len: int = 0):
+    """`search_patterns` after the table lookup, lockstep over lanes: lanes
+    at least k long start from (sp0, ep0) at step k; lanes shorter than k
+    walk their characters from (0, n) in a masked phase A, which is skipped
+    when min_len >= k says that no lane is short (as the reference's
+    lax.cond skips it)."""
+    m = patterns.shape[-1]
+    lens = ends - starts
     sp = torch.zeros(starts.shape, dtype=torch.int64, device=starts.device)
     ep = torch.broadcast_to(block_n(dix, block), starts.shape).clone()
 
@@ -215,12 +250,11 @@ def search_patterns(dix: DeviceIndex, block, patterns, starts, ends,
     if k == 0:
         return run(sp, ep, 0, max_len)
 
-    sp_t, ep_t = klt_lookup(dix, block, end_kmers)
     if min_len >= k:
-        sp, ep = sp_t, ep_t
+        sp, ep = sp0, ep0
     else:
         short = lens < k
         sp_a, ep_a = run(sp, ep, 0, k, short)   # phase A: short lanes only
-        sp = torch.where(short, sp_a, sp_t)
-        ep = torch.where(short, ep_a, ep_t)
+        sp = torch.where(short, sp_a, sp0)
+        ep = torch.where(short, ep_a, ep0)
     return run(sp, ep, k, max_len)               # phase B

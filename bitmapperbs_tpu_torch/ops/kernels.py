@@ -1,16 +1,23 @@
 """CUDA kernels and their plain PyTorch versions (counterpart of
 bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
 
-    verify_fused  <- verify_fused_pallas / _fused_verify_kernel
-    myers         <- myers_pallas / _myers_kernel
-    myers_scan    <- myers_scan_pallas / _myers_scan_kernel
-    gather_rows   <- make_pallas_gather.gather
+    verify_fused         <- verify_fused_pallas / _fused_verify_kernel
+    verify_fused_gather  <- the same kernel with ops/verify.window_planes
+                            in front of it, as the compact path runs them
+    myers                <- myers_pallas / _myers_kernel
+    myers_scan           <- myers_scan_pallas / _myers_scan_kernel
+    gather_rows          <- make_pallas_gather.gather
+    fm_search, fm_extend, fm_locate
+                         <- that row gather fused with the FM-index step it
+                            feeds, the step loops of ops/fm.search_patterns,
+                            extend_seeds and locate inside one launch each
 
 The verify wrappers take u32 plane lanes as int64 tensors (ops/u32.py);
-gather_rows takes an int32 table and int64 row indices.  On CPU tensors a
-wrapper runs its plain version (`*_ref`); on CUDA tensors it checks dtype,
-shape and device and launches its kernel from csrc/verify.cu or
-csrc/gather.cu, or raises.  `LAUNCHES` counts the kernel launches.
+gather_rows takes an int32 table and int64 row indices; the FM wrappers take
+the device index and int64 lanes.  On CPU tensors a wrapper runs its plain
+version (`*_ref`); on CUDA tensors it checks dtype, shape and device and
+launches its kernel from csrc/verify.cu, csrc/gather.cu or csrc/fm.cu, or
+raises.  `LAUNCHES` counts the kernel launches.
 
 The kernels are built on first use with nvcc for sm_90a into _build/, one
 shared library per source (compiled side by side), each named by the hash
@@ -26,14 +33,19 @@ import subprocess
 
 import torch
 
-from bitmapperbs_tpu_torch.ops import verify
+from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.ops import fm, verify   # mutual: used in calls
 from bitmapperbs_tpu_torch.ops.u32 import bnot, to_i32
 
-LAUNCHES = {"verify_fused": 0, "myers": 0, "myers_scan": 0, "gather_rows": 0}
+LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
+            "myers_scan": 0, "gather_rows": 0, "fm_search": 0,
+            "fm_extend": 0, "fm_locate": 0}
+
+FUSED_GATHER_MAX_WORDS = 8      # compile-time word counts of the gathering verify
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
-           for name in ("verify", "gather")}
+           for name in ("verify", "gather", "fm")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -87,7 +99,7 @@ def build() -> dict[str, str]:
 
 
 def _lib():
-    """The bound entry points of both libraries, on one namespace."""
+    """The bound entry points of the three libraries, on one namespace."""
     global _LIB
     if _LIB is None:
         paths = build()
@@ -96,6 +108,10 @@ def _lib():
         lib.btbs_verify_fused.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                           i32, i32, vp]
         lib.btbs_verify_fused.restype = ctypes.c_int
+        lib.btbs_verify_fused_gather.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32,
+            i32, vp]
+        lib.btbs_verify_fused_gather.restype = ctypes.c_int
         lib.btbs_myers.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                    vp]
         lib.btbs_myers.restype = ctypes.c_int
@@ -104,6 +120,24 @@ def _lib():
         lib.btbs_gather_rows = ctypes.CDLL(paths["gather"]).btbs_gather_rows
         lib.btbs_gather_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
         lib.btbs_gather_rows.restype = ctypes.c_int
+        fmlib = ctypes.CDLL(paths["fm"])
+        index = [vp, i64, i64, vp, vp]          # cp, R, rows_max, cbase, n
+        pat = [vp, i64, i64, i64, i64, i64, i32]
+        lib.btbs_fm_search = fmlib.btbs_fm_search
+        lib.btbs_fm_search.argtypes = index + pat + [
+            vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, i64, vp]
+        lib.btbs_fm_extend = fmlib.btbs_fm_extend
+        lib.btbs_fm_extend.argtypes = index + pat + [
+            vp, vp, vp, vp, i32, i64, vp, vp, vp, vp, i64, vp]
+        lib.btbs_fm_locate = fmlib.btbs_fm_locate
+        lib.btbs_fm_locate.argtypes = index + [
+            vp, i64, i64, i32, vp, vp, vp, vp, vp, i64, vp]
+        lib.btbs_dependent_load_chain = fmlib.btbs_dependent_load_chain
+        lib.btbs_dependent_load_chain.argtypes = [vp, i64, i32,
+                                                  ctypes.c_uint32, vp, vp]
+        for fn in (lib.btbs_fm_search, lib.btbs_fm_extend, lib.btbs_fm_locate,
+                   lib.btbs_dependent_load_chain):
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -128,6 +162,21 @@ def _rows_i32(planes, lanes, width: int) -> torch.Tensor:
     rows = torch.cat([p.expand(*lanes, width).reshape(-1, width)
                       for p in planes], dim=-1)
     return to_i32(rows).contiguous()
+
+
+def _require(dtype, **tensors) -> None:
+    """Raise unless every named tensor has `dtype` (on any device: the
+    plain versions take the same types as the kernels)."""
+    for name, t in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"expected {dtype} {name}, got {t.dtype}")
+
+
+def _lanes_i64(t, lanes) -> torch.Tensor:
+    """An int64 lane tensor broadcast to `lanes`, flat and contiguous."""
+    if t.shape == lanes and t.is_contiguous():
+        return t.view(-1)
+    return t.expand(lanes).contiguous().view(-1)
 
 
 def _check_rc(rc: int, name: str) -> None:
@@ -167,6 +216,76 @@ def verify_fused(win, read_planes, lenmask, m: int, ncols: int, e: int):
             w.data_ptr(), r.data_ptr(), lm.data_ptr(), out.data_ptr(), L, Wd,
             Ww, m, ncols, e, stream), "btbs_verify_fused")
         LAUNCHES["verify_fused"] += 1
+    return out.reshape(lanes)
+
+
+# ---- fused verify with the window gather inside ------------------------------
+
+def verify_fused_gather_fits(m: int, ncols: int) -> bool:
+    """Whether the gathering entry takes these widths: at most
+    FUSED_GATHER_MAX_WORDS read words (its shared-memory staging is sized at
+    compile time) and a window of exactly one word more."""
+    Wd = m // 32
+    return 1 <= Wd <= FUSED_GATHER_MAX_WORDS and -(-ncols // 32) == Wd + 1
+
+
+def verify_fused_gather_ref(g_planes, orient, start, read_tab, row, lens,
+                            genome_len: int, g_words: int, m: int,
+                            ncols: int, e: int):
+    """Plain version: ops/verify.window_planes at `start`, the read planes
+    picked from their table, the length mask, then verify_fused_ref."""
+    Wd = m // 32
+    wide = verify.window_planes(g_planes, orient, start, -(-ncols // 32),
+                                genome_len, g_words)
+    rp = read_tab[row]
+    return verify_fused_ref(
+        wide, (rp[..., :Wd], rp[..., Wd:2 * Wd], rp[..., 2 * Wd:]),
+        verify.length_mask(lens, m), m, ncols, e)
+
+
+def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
+                        genome_len: int, g_words: int, m: int, ncols: int,
+                        e: int):
+    """verify_fused on windows it fetches itself.  g_planes: int32 bits
+    [2 * g_words, 3] (index/device.py); per lane (int64, one shape): orient
+    (0 fwd / 1 rc), start (u32 window start, anchor - e, possibly wrapped
+    below 0), row (into read_tab) and lens (read length); read_tab: int64
+    u32 [R, 3 * Wd] read planes (b0 | b1 | nmask words).  Returns int32
+    lanes: ham if ham <= e else the semi-global Myers distance."""
+    lane_t = (orient, start, row, lens)
+    _require(torch.int64, orient=orient, start=start, row=row, lens=lens,
+             read_tab=read_tab)
+    if not _on_cuda(g_planes, read_tab, *lane_t):
+        return verify_fused_gather_ref(g_planes, orient, start, read_tab, row,
+                                       lens, genome_len, g_words, m, ncols, e)
+    Wd = m // 32
+    if not verify_fused_gather_fits(m, ncols) or not 0 <= e <= 31:
+        raise ValueError(f"verify_fused_gather takes 1..{FUSED_GATHER_MAX_WORDS}"
+                         f" read words, a window of one more and e <= 31; got "
+                         f"m {m}, ncols {ncols}, e {e}")
+    if g_planes.dtype != torch.int32 or not g_planes.is_contiguous() \
+            or tuple(g_planes.shape) != (2 * g_words, 3):
+        raise ValueError(f"expected contiguous int32 [{2 * g_words}, 3] "
+                         f"genome planes, got {g_planes.dtype} "
+                         f"{tuple(g_planes.shape)}")
+    if read_tab.dim() != 2 \
+            or read_tab.shape[1] != 3 * Wd or read_tab.shape[0] < 1 \
+            or not read_tab.is_contiguous():
+        raise ValueError(f"expected a contiguous int64 [R, {3 * Wd}] read-"
+                         f"plane table, got {read_tab.dtype} "
+                         f"{tuple(read_tab.shape)}")
+    lanes = torch.broadcast_shapes(*(t.shape for t in lane_t))
+    o, s, r, n = (_lanes_i64(t, lanes) for t in lane_t)
+    L = o.numel()
+    out = torch.empty(L, dtype=torch.int32, device=g_planes.device)
+    if L:
+        stream = torch.cuda.current_stream(g_planes.device).cuda_stream
+        _check_rc(_lib().btbs_verify_fused_gather(
+            g_planes.data_ptr(), o.data_ptr(), s.data_ptr(),
+            read_tab.data_ptr(), r.data_ptr(), n.data_ptr(), out.data_ptr(),
+            L, read_tab.shape[0], g_words, genome_len, Wd, m, ncols, e,
+            stream), "btbs_verify_fused_gather")
+        LAUNCHES["verify_fused_gather"] += 1
     return out.reshape(lanes)
 
 
@@ -263,7 +382,196 @@ def gather_rows(table, idx):
     if L:
         stream = torch.cuda.current_stream(table.device).cuda_stream
         _check_rc(_lib().btbs_gather_rows(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L, W,
-            stream), "btbs_gather_rows")
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L, W, stream),
+            "btbs_gather_rows")
         LAUNCHES["gather_rows"] += 1
+    return out
+
+
+# ---- FM-index step loops -------------------------------------------------------
+
+def _index_args(dix):
+    """The device index's tables as the FM kernels take them, checked."""
+    cp, cbase, n = dix.cp_rows, dix.cbase, dix.n
+    if cp.dtype != torch.int32 or cp.dim() != 2 \
+            or cp.shape[1] != K.CP_ROW_U32 or cp.shape[0] < 1 \
+            or not cp.is_contiguous():
+        raise ValueError(f"expected contiguous int32 [R, {K.CP_ROW_U32}] "
+                         f"checkpoint rows, got {cp.dtype} {tuple(cp.shape)}")
+    if cbase.dtype != torch.int64 or tuple(cbase.shape) != (2, K.CONV_ALPHA) \
+            or not cbase.is_contiguous() or n.dtype != torch.int64 \
+            or tuple(n.shape) != (2,) or not n.is_contiguous():
+        raise ValueError("expected int64 cbase [2, 4] and n [2]")
+    return [cp.data_ptr(), cp.shape[0], dix.rows_max, cbase.data_ptr(),
+            n.data_ptr()]
+
+
+def _pattern_args(patterns, lanes):
+    """The (possibly broadcast) uint8 [..., m] patterns as the FM kernels
+    address them: base pointer, the two inner lane sizes, the three lane
+    strides and m.  No copy: a lane's row is found from the strides."""
+    m = patterns.shape[-1]
+    if len(lanes) > 3:
+        raise ValueError(f"expected at most 3 lane dimensions, got {lanes}")
+    p = patterns.expand(*lanes, m)
+    if m > 1 and p.stride(-1) != 1:
+        p = p.contiguous()
+    size = [1] * (3 - len(lanes)) + list(lanes)
+    stride = [0] * (3 - len(lanes)) + list(p.stride()[:-1])
+    # the caller holds p until its launch is queued (it may be a copy)
+    return p, [p.data_ptr(), size[1], size[2], *stride, m]
+
+
+def _rows_ptr(rows_out, lanes, on_cuda: bool):
+    """Pointer of the optional int32 [lanes] tensor that receives the number
+    of checkpoint rows each lane fetched.  Only the kernels count rows."""
+    if rows_out is None:
+        return None
+    if not on_cuda:
+        raise ValueError("rows_out is filled by the CUDA kernels only")
+    if rows_out.dtype != torch.int32 or rows_out.shape != lanes \
+            or not rows_out.is_contiguous() or rows_out.device.type != "cuda":
+        raise ValueError(f"expected a contiguous int32 CUDA {tuple(lanes)} "
+                         f"rows_out, got {rows_out.dtype} "
+                         f"{tuple(rows_out.shape)}")
+    return rows_out.data_ptr()
+
+
+def fm_search_ref(dix, block, patterns, starts, ends, sp0, ep0, k: int,
+                  max_len: int, min_len: int = 0):
+    """Plain version: the lockstep loops of ops/fm.search_lockstep."""
+    return fm.search_lockstep(dix, block, patterns, starts, ends, sp0, ep0, k,
+                              max_len, min_len)
+
+
+def fm_search(dix, block, patterns, starts, ends, sp0, ep0, k: int,
+              max_len: int, min_len: int = 0, rows_out=None):
+    """Backward search of the pattern slices [start, end), one lane each:
+    lanes at least k long start from (sp0, ep0) (the k-mer table's interval
+    of their last k characters) at step k, shorter ones and every lane when
+    k == 0 from (0, n) at step 0; a lane walks until min(length, max_len) or
+    until its interval is empty.  block, starts, ends, sp0, ep0: int64 lanes
+    (sp0 / ep0 None when k == 0); patterns uint8 [..., m] broadcastable over
+    the lanes.  min_len is a hint for the plain version only; rows_out
+    (here and in fm_extend / fm_locate): an int32 lane tensor that the kernel
+    fills with the checkpoint rows each lane fetched, for measuring.
+    Returns (sp, ep) u32 lanes as int64."""
+    tensors = [dix.cp_rows, block, patterns, starts, ends] \
+        + ([sp0, ep0] if k else [])
+    _require(torch.int64, block=block, starts=starts, ends=ends,
+             **({"sp0": sp0, "ep0": ep0} if k else {}))
+    _require(torch.uint8, patterns=patterns)
+    if not _on_cuda(*tensors):
+        _rows_ptr(rows_out, None, False)
+        return fm_search_ref(dix, block, patterns, starts, ends, sp0, ep0, k,
+                             max_len, min_len)
+    lanes = torch.broadcast_shapes(block.shape, starts.shape, ends.shape,
+                                   patterns.shape[:-1])
+    b, s, e = (_lanes_i64(t, lanes) for t in (block, starts, ends))
+    a0 = a1 = None
+    if k:
+        a0, a1 = _lanes_i64(sp0, lanes), _lanes_i64(ep0, lanes)
+    pat, pat_args = _pattern_args(patterns, lanes)
+    sp = torch.empty(lanes, dtype=torch.int64, device=b.device)
+    ep = torch.empty(lanes, dtype=torch.int64, device=b.device)
+    if b.numel():
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        _check_rc(_lib().btbs_fm_search(
+            *_index_args(dix), *pat_args, b.data_ptr(), s.data_ptr(),
+            e.data_ptr(), a0.data_ptr() if k else None,
+            a1.data_ptr() if k else None, k, max_len, sp.data_ptr(),
+            ep.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
+            stream), "btbs_fm_search")
+        LAUNCHES["fm_search"] += 1
+    return sp, ep
+
+
+def fm_extend_ref(dix, block, patterns, starts, sp, ep, ext_max: int,
+                  ext_occ: int):
+    """Plain version: the lockstep loop of ops/fm.extend_lockstep."""
+    return fm.extend_lockstep(dix, block, patterns, starts, sp, ep, ext_max,
+                              ext_occ)
+
+
+def fm_extend(dix, block, patterns, starts, sp, ep, ext_max: int,
+              ext_occ: int, rows_out=None):
+    """Adaptive seed extension, one lane each: while the interval holds more
+    than ext_occ rows and starts > 0, prepend patterns[starts - 1], at most
+    ext_max times, stopping before a step that would empty the interval.
+    Returns (sp, ep, starts) as int64 lanes."""
+    _require(torch.int64, block=block, starts=starts, sp=sp, ep=ep)
+    _require(torch.uint8, patterns=patterns)
+    if not _on_cuda(dix.cp_rows, block, patterns, starts, sp, ep):
+        _rows_ptr(rows_out, None, False)
+        return fm_extend_ref(dix, block, patterns, starts, sp, ep, ext_max,
+                             ext_occ)
+    if not 0 <= ext_occ <= 0xFFFFFFFF or ext_max < 0:
+        raise ValueError(f"ext_max {ext_max} / ext_occ {ext_occ} out of range")
+    lanes = torch.broadcast_shapes(block.shape, starts.shape, sp.shape,
+                                   ep.shape, patterns.shape[:-1])
+    b, s, a0, a1 = (_lanes_i64(t, lanes) for t in (block, starts, sp, ep))
+    pat, pat_args = _pattern_args(patterns, lanes)
+    outs = [torch.empty(lanes, dtype=torch.int64, device=b.device)
+            for _ in range(3)]
+    if b.numel():
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        _check_rc(_lib().btbs_fm_extend(
+            *_index_args(dix), *pat_args, b.data_ptr(), s.data_ptr(),
+            a0.data_ptr(), a1.data_ptr(), ext_max, ext_occ,
+            *(o.data_ptr() for o in outs), _rows_ptr(rows_out, lanes, True),
+            b.numel(), stream), "btbs_fm_extend")
+        LAUNCHES["fm_extend"] += 1
+    return tuple(outs)
+
+
+def fm_locate_ref(dix, block, i, valid):
+    """Plain version: the lockstep loop of ops/fm.locate_lockstep."""
+    return fm.locate_lockstep(dix, block, i, valid)
+
+
+def fm_locate(dix, block, i, valid, rows_out=None):
+    """SA_block[i] per lane: at most dix.sa_rate LF steps to the next sampled
+    suffix, then the sample plus the steps taken (u32).  block, i: int64
+    lanes; valid: bool lanes (invalid lanes walk from position 0)."""
+    _require(torch.int64, block=block, i=i)
+    _require(torch.bool, valid=valid)
+    if not _on_cuda(dix.cp_rows, dix.sa_samples, block, i, valid):
+        _rows_ptr(rows_out, None, False)
+        return fm_locate_ref(dix, block, i, valid)
+    sa = dix.sa_samples
+    if sa.dtype != torch.int32 or sa.dim() != 1 or sa.numel() < 1 \
+            or not sa.is_contiguous():
+        raise ValueError(f"expected contiguous int32 [N] SA samples, got "
+                         f"{sa.dtype} {tuple(sa.shape)}")
+    lanes = torch.broadcast_shapes(block.shape, i.shape, valid.shape)
+    b, pos = _lanes_i64(block, lanes), _lanes_i64(i, lanes)
+    ok = valid.expand(lanes).contiguous()
+    out = torch.empty(lanes, dtype=torch.int64, device=b.device)
+    if b.numel():
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        _check_rc(_lib().btbs_fm_locate(
+            *_index_args(dix), sa.data_ptr(), sa.numel(), dix.samples_max,
+            dix.sa_rate, b.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+            out.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
+            stream), "btbs_fm_locate")
+        LAUNCHES["fm_locate"] += 1
+    return out
+
+
+def dependent_load_chain(table, steps: int, seed: int = 1):
+    """Measuring probe (not on the mapping path, not counted): one CUDA
+    thread makes `steps` loads from the int32 table, each address computed
+    from the word loaded before, the first from `seed` (a new seed walks
+    other addresses, so a repeat does not find its words in the L2).  Its
+    time over `steps` is the card's dependent-load latency on that table.
+    Returns the int32 [1] result."""
+    if table.device.type != "cuda" or table.dtype != torch.int32 \
+            or not table.is_contiguous():
+        raise ValueError("expected a contiguous int32 CUDA table")
+    out = torch.empty(1, dtype=torch.int32, device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    _check_rc(_lib().btbs_dependent_load_chain(
+        table.data_ptr(), table.numel(), steps, seed & 0xFFFFFFFF,
+        out.data_ptr(), stream),
+        "btbs_dependent_load_chain")
     return out

@@ -10,21 +10,41 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
   2. build: the native finalize library (make) and the CUDA kernels (one
      nvcc per source), all started together
   3. each kernel vs its plain PyTorch version at the main paths' shapes,
-     torch.equal, median CUDA-event times: verify_fused and myers at
-     163,840 lanes (m = 96, e = 4); myers_scan at 4,096 lanes (one per
-     pair; insert 0-500 -> 605 columns, 19 window words) and at a ragged
-     4,093; gather_rows (before phase 12, on the 100 Mbp index's own
-     tables, which do not fit the 50 MB L2): checkpoint rows W = 17 at
-     327,680 lanes and at the flat buffer's 4,096 x cap lanes, the k-mer
-     table W = 2, SA samples W = 1 at a ragged count, genome planes W = 3
-     with [L, 5] indices; indices below 0 and past the end in every case.
-     Each timed call takes the next of 8 index sets, so rows come from
-     device memory as on the mapping path.  Beside each kernel's time: the
-     least time the card could take (`bound_ms`: bytes moved once over
-     3.35 TB/s, or integer operations over 16.75 T/s, whichever is larger;
-     the INT32 rate is the data sheet's 67 TFLOP/s of FP32 FMA, halved for
-     the FMA and halved again for the INT32 lanes) and, for gather_rows,
-     the time of the one PyTorch call that computes it (index_select)
+     torch.equal, median CUDA-event times: verify_fused, verify_fused_gather
+     (the same lanes, fetching its own windows from the genome planes) and
+     myers at 163,840 lanes (m = 96, e = 4); verify_fused again at the one
+     shape the main paths still give it (before phase 12: the 288 bucket of
+     reads over 256 bp, 9 read words, 296 columns, 1,024 reads x flat cap
+     lanes); myers_scan at 4,096 lanes (one per pair; insert 0-500 -> 605
+     columns, 19 window words) and at a ragged 4,093; gather_rows (before
+     phase 12, on the 100 Mbp index's own tables, which do not fit the 50 MB
+     L2): the k-mer table W = 2 at 4,096 x 2 x 5 lanes (the lookup the
+     compact path launches; the record's headline), checkpoint rows W = 17
+     at 327,680 lanes and at the flat buffer's 4,096 x cap lanes, SA samples
+     W = 1 at a ragged count, genome planes W = 3 with [L, 5] indices;
+     indices below 0 and past the end in every case.  Each timed call takes
+     the next of 8 index sets, so rows come from device memory as on the
+     mapping path.  fm_search, fm_extend and fm_locate (same place, same
+     index) on the arguments that real batches hand them (captured from
+     map_batch_device: 40,960 seed lanes and 172,032 flat lanes per
+     4,096-read batch, 163,840 and 688,128 at 16,384) with edge lanes
+     planted (empty and short slices, empty intervals, starts at 0,
+     positions past the text, invalid lanes); the timed calls rotate through
+     the batches.  Their bound counts the rows this data makes them fetch
+     (the kernels report it) at 68 bytes each, with the same rows counted in
+     whole 32-byte sectors beside it; and the latency floor: the longest
+     chain of dependent loads of any lane times the card's dependent-load
+     latency, measured by a one-thread probe on the checkpoint table with
+     the L2 overwritten before each chain (and, for comparison, on a slice
+     of it that stays in the L2).  Beside each kernel's time: the least time
+     the card could take (`bound_ms`: bytes moved once over 3.35 TB/s, or
+     integer operations over 16.75 T/s, whichever is larger; the INT32 rate
+     is the data sheet's 67 TFLOP/s of FP32 FMA, halved for the FMA and
+     halved again for the INT32 lanes; the operations are INT32-pipe
+     instructions counted in the machine code that phase 2 dumps with
+     cuobjdump) and, for gather_rows, the time of the one PyTorch call that
+     computes it (index_select); no single PyTorch call computes any of the
+     others
   4. SE main path: 10 Mbp two-contig genome, 4 x 16,384 reads through
      models.host.map_batch.  The last batch carries 1,024 low-complexity
      (pyrimidine-only, poly-T once converted) reads, as bisulfite libraries
@@ -38,7 +58,8 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      finalize pool) in a subprocess gives the same records as phase 4
   7. SE throughput: map_batch_device reads/s over 8 distinct simulated
      batches (each synced by copying best_score to the host) and end-to-end
-     map_batch reads/s over phase 4's 4 batches
+     map_batch reads/s over phase 4's 4 batches (every end-to-end rate
+     here and below: median and range of three runs)
   8. PE main path: 4 x 4,096 pairs (simulate_pairs, 90 bp, insert
      150-480; cfg insert 0-500 as bench.py) through models.host.map_batch_pe.
      The last batch ends with 256 pairs whose mate 2 carries one
@@ -65,8 +86,11 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      (utils.simulate.repeat_genome_fasta), index at sa_rate 4: 4 x 4,096
      reads through map_batch; the last batch ends with 2,048 reads from
      inside mid-copy satellite arrays, which overflow the flat buffer and
-     take the dense re-run at 128 candidates.  SAM of a sample equals the
-     oracle's; recall, mapped share, overflow and gdrop counts; one batch
+     take the dense re-run at 128 candidates; then 1,024 reads of 280 bp in
+     a 288 bucket, whose 9 plane words are past the gathering verify's
+     compile-time widths, so they take window_planes + verify_fused.  SAM
+     of a sample equals the oracle's; recall, mapped share, overflow and
+     gdrop counts; one batch
      with flat_chunks = 2 gives the same tensors; device reads/s at 4,096
      and at 16,384 per batch; end to end; the per-stage table (a device
      sync at each stage boundary); device idle share (torch.profiler's
@@ -78,10 +102,10 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      --max-candidates 128` gives phase 12's records
 Launch counts are set to 0 just before each main path (phases 4, 8, 12,
 13) and read just after it.  The kernels' record gives, per kernel, the
-launches of this slice's main paths (phases 12 + 13) with every path's
-beside them.  The second-to-last line is the kernels' JSON record; the
-last line is {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
-device.
+launches of this slice's main paths (phase 12's 96 bp batches, its 280 bp
+batch, counted on its own, and phase 13) with every path's beside them.
+The second-to-last line is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -129,11 +153,47 @@ N_GBP_ORACLE, N_GBP_ORACLE_SAT = 64, 8
 N_GBP_PE_BATCHES, N_GBP_PE_ORACLE = 2, 48
 GATHER_LANES = 2 * 16_384 * 2 * 5  # 2 endpoints x reads x frames x seeds
 GATHER_SETS = 8                    # index sets rotated through a timing
+LONG_BUCKET, LONG_READ_LEN, N_LONG = 288, 280, 1_024   # ending phase 12
+N_LONG_ORACLE = 8
+PLAIN_LONG_REPS = 5                # the plain verify at 296 columns
+FM_KERNELS = ("fm_search", "fm_extend", "fm_locate")
+PLAIN_FM_REPS = 5                  # the lockstep loops are tens of ms
+E2E_REPS = 3                       # runs of each end-to-end timing
+CHASE_STEPS = 20_000               # dependent loads of the latency probe
+L2_EVICT_BYTES = 400_000_000       # written to push a table out of the 50 MB L2
+L2_RESIDENT_BYTES = 8_000_000      # a slice of a table that stays in the L2
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12 / 4        # FP32 FMA rate / 2 (FMA) / 2 (INT32 lanes)
-MYERS_OPS_PER_WORD_COLUMN = 22     # integer ops of csrc/verify.cu myers_column
-HAMMING_OPS_PER_WORD = 25          # funnel shifts, match, popcount
+# The operation counts of the bounds are read from the machine code of the
+# libraries this run built (cuobjdump -sass, kept as <library>.sass beside
+# each): per kernel, the instructions of the INT32 pipe in its innermost loop
+# (one Myers column, one FM step of one thread) and outside its loops (run at
+# most once per thread).  Left out: IMAD (the FMA pipe), the uniform data
+# path (U*), loads, stores, shuffles, votes and branches.  The verify
+# kernels are read at their BUCKET // 32 = 3-word build; another word count
+# scales both numbers in proportion.
+INT32_PIPE = frozenset(
+    "IADD3 LOP3 PLOP3 SHF ISETP SEL LEA IMNMX VIMNMX VIADD VIADDMNMX PRMT "
+    "IABS POPC FLO BREV MOV SGXT BMSK".split())
+SASS_KERNELS = {        # kernel -> (library, what its mangled name contains)
+    "verify_fused": ("verify", "verify_fused_kernelILi3E"),
+    "verify_fused_gather": ("verify", "verify_fused_gather_kernelILi3E"),
+    "myers": ("verify", "12myers_kernelILi3E"),
+    "myers_scan": ("verify", "myers_scan_kernelILi3E"),
+    "fm_search": ("fm", "fm_search_kernel"),
+    "fm_extend": ("fm", "fm_extend_kernel"),
+    "fm_locate": ("fm", "fm_locate_kernel"),
+}
+SASS_OPS: dict = {}     # kernel -> {"loop": n, "once": n}, set by build_native
+FM_THREADS_PER_ROW = 2  # csrc/fm.cu kTpr
+CP_ROW_BYTES = 68
+# 32-byte sectors under the words a kernel reads of a 68-byte row at a
+# 68-byte stride (a row starts 0, 4, .. 28 bytes into a sector, each equally
+# often): all 17 words span 3 sectors wherever the row starts; the 12 count
+# and BWT-plane words of search and extend span 2 in five of the eight
+# cases and 3 in the others
+CP_ROW_SECTORS = {"fm_search": 2.375, "fm_extend": 2.375, "fm_locate": 3}
 
 KERNEL_SOURCES = {
     "verify_fused": ("bitmapperbs_tpu_torch/csrc/verify.cu",
@@ -144,6 +204,14 @@ KERNEL_SOURCES = {
                    "bitmapperbs_tpu/ops/pallas_kernels.py:119"),
     "gather_rows": ("bitmapperbs_tpu_torch/csrc/gather.cu",
                     "scripts/pallas_gather_proto.py:28"),
+    "verify_fused_gather": ("bitmapperbs_tpu_torch/csrc/verify.cu",
+                            "bitmapperbs_tpu/ops/pallas_kernels.py:212"),
+    "fm_search": ("bitmapperbs_tpu_torch/csrc/fm.cu",
+                  "scripts/pallas_gather_proto.py:28"),
+    "fm_extend": ("bitmapperbs_tpu_torch/csrc/fm.cu",
+                  "scripts/pallas_gather_proto.py:28"),
+    "fm_locate": ("bitmapperbs_tpu_torch/csrc/fm.cu",
+                  "scripts/pallas_gather_proto.py:28"),
 }
 
 
@@ -177,12 +245,95 @@ def median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def host_rates(fn, n_reads: int, reps: int = E2E_REPS):
+    """reads/s of fn() (n_reads per call) on the host's clock, reps runs:
+    (median, lowest, highest, the last call's result).  One run of a few
+    batches moves with whatever else the host is doing, so the range is
+    reported beside the median."""
+    rates = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        rates.append(n_reads / (time.perf_counter() - t0))
+    return statistics.median(rates), min(rates), max(rates), out
+
+
+def device_ms(fn, kernel: str = "", reps: int = 10, tries: int = 3):
+    """Device time in ms per call of fn() spent in the CUDA kernels whose
+    name contains `kernel` (all of fn's kernels by default), from
+    torch.profiler's kernel rows over reps calls: what the card spends
+    inside the kernels, without the host's launch cost.  The profiler may
+    lose events, so the total is divided by the calls it saw (the count of
+    the least frequent kernel, which runs once per call), not by reps, and
+    a pass that saw no kernel is repeated.  None if no pass saw one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if kernel in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in rows)
+        seen = min((e.count for e in rows), default=0)
+        if total and seen:
+            return total / seen / 1e3
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: bytes moved once over the
     memory rate, or integer operations over the INT32 rate."""
     by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(by, op),
             "bound_by": "bytes" if by >= op else "operations"}
+
+
+def sass_int32_ops(sass: str, function: str) -> dict:
+    """INT32-pipe instructions of the kernel whose mangled name contains
+    `function`, from cuobjdump's listing: {"loop": in its innermost loop (the
+    span of the first backward branch), "once": outside every loop}."""
+    import re
+
+    body = [part for part in sass.split("Function : ")[1:]
+            if function in part.split("\n", 1)[0]]
+    assert len(body) == 1, (function, len(body))
+    code = []                           # (address, opcode, branch target)
+    for m in re.finditer(r"^\s+/\*([0-9a-f]{4,6})\*/\s+([^;]+);", body[0],
+                         re.M):
+        text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+        to = re.search(r"^BRA\b.*\b0x([0-9a-f]+)$", text)
+        code.append((int(m.group(1), 16), text.split()[0].split(".")[0],
+                     int(to.group(1), 16) if to else None))
+    loops = [(to, at) for at, _, to in code if to is not None and to < at]
+    assert loops, f"{function}: no loop in the machine code"
+    lo, hi = loops[0]
+    first, last = min(a for a, _ in loops), max(b for _, b in loops)
+    out = {"loop": sum(op in INT32_PIPE for at, op, _ in code
+                       if lo <= at <= hi),
+           "once": sum(op in INT32_PIPE for at, op, _ in code
+                       if not first <= at <= last)}
+    assert out["loop"] > 0, (function, out)
+    return out
+
+
+def verify_ops(kernel: str, lanes: int, myers_lanes: int, ncols: int,
+               words: int) -> float:
+    """INT32-pipe operations of a verify kernel: its once-per-lane part on
+    every lane, its column loop on the lanes that run Myers."""
+    c = SASS_OPS[kernel]
+    return (lanes * c["once"] + myers_lanes * ncols * c["loop"]) \
+        * words / (BUCKET // 32)
 
 
 def build_native() -> None:
@@ -217,16 +368,35 @@ def build_native() -> None:
                     regs = ln.split("Used")[1].split(",")[0].strip()
                     log(f"ptxas: {name}: {regs}, {spill}")
                     name = None
+    # the machine code beside each library (<library>.sass), and from it the
+    # instruction counts of the operation bounds
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = {}
+    for lib, so in paths.items():
+        sass[lib] = subprocess.run([cuobjdump, "-sass", so],
+                                   capture_output=True, text=True, check=True,
+                                   timeout=300).stdout
+        with open(so + ".sass", "w") as f:
+            f.write(sass[lib])
+    for name, (lib, function) in SASS_KERNELS.items():
+        SASS_OPS[name] = sass_int32_ops(sass[lib], function)
+        log(f"sass: {name} ({function}): {SASS_OPS[name]['loop']} INT32-pipe "
+            f"instructions in its innermost loop, {SASS_OPS[name]['once']} "
+            f"outside its loops")
 
 
-def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
-    """Candidate lanes at the main path's widths: reads cut from either
+def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0,
+                  m: int = BUCKET, read_len: int = READ_LEN):
+    """Candidate lanes at the main path's widths (bucket m, reads of
+    read_len): reads cut from either
     genome orientation with bisulfite conversion, per-lane substitution
     rates and indel-like offsets (ham <= e and ham > e both occur), N codes,
     reads shorter than the bucket, window starts that wrap below 0 and
     windows that run past the genome end.  span > 0 (the rescue scan):
     windows cover m + 2e + span columns and each read starts up to
-    span - 1 columns further in."""
+    span - 1 columns further in.  The last item is what the gathering
+    verify takes instead of planes: per lane the orientation, the window
+    start, a row of the read-plane table and the read length."""
     import numpy as np
     import torch
 
@@ -235,7 +405,6 @@ def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
     from bitmapperbs_tpu_torch.ops.u32 import bnot, wrap
 
     rng = np.random.default_rng(seed)
-    m = BUCKET
     L = idx.genome.length
     ref = np.stack([idx.genome.codes, idx.genome.rc_codes()])
     orient = rng.integers(0, 2, n)
@@ -244,7 +413,7 @@ def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
     anchor[:k] = rng.integers(0, E, k)                     # anchor - e < 0
     anchor[k:2 * k] = L - rng.integers(1, m, k)            # past the end
     lens = np.where(rng.random(n) < 0.2, rng.integers(m // 2, m + 1, n),
-                    READ_LEN)
+                    read_len)
     shift = np.where(rng.random(n) < 0.3, rng.integers(-2, 3, n), 0)
     if span:
         shift = shift + rng.integers(0, span, n)
@@ -269,28 +438,44 @@ def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0):
                                 wrap(t(anchor) - E), -(-ncols // 32), L,
                                 dix.g_words)
     peq, pad = verify.peq_from_planes(*rp, bnot(lm))
-    return wide, rp, lm, peq, pad
+    lanes = {"orient": t(orient), "start": wrap(t(anchor) - E),
+             "read_tab": torch.cat(rp, dim=-1).contiguous(),
+             "row": torch.arange(n, dtype=torch.int64, device=dev),
+             "lens": t(lens)}
+    return wide, rp, lm, peq, pad, lanes
 
 
-def phase_kernels(idx, dix) -> dict:
+def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
+                  m: int = BUCKET, read_len: int = READ_LEN,
+                  plain_reps: int = REPS) -> dict:
+    """The verify kernels in `names` vs their plain versions on n_lanes
+    candidate lanes of bucket m."""
     import torch
 
     from bitmapperbs_tpu_torch.ops import kernels, verify
 
-    m, ncols = BUCKET, BUCKET + 2 * E
+    ncols = m + 2 * E
     Wd, Ww = m // 32, -(-ncols // 32)
-    wide, rp, lm, peq, pad = kernel_inputs(idx, dix, KERNEL_LANES, seed=7)
+    wide, rp, lm, peq, pad, lanes = kernel_inputs(idx, dix, n_lanes, seed=7,
+                                                  m=m, read_len=read_len)
+    g_args = (dix.g_planes, lanes["orient"], lanes["start"],
+              lanes["read_tab"], lanes["row"], lanes["lens"], dix.genome_len,
+              dix.g_words, m, ncols, E)
     # lanes whose Hamming count does not decide them run the Myers loop
     ham = verify.hamming(verify.shift_planes(wide, E, Wd), rp, lm)
     n_myers = int((ham > E).sum())
-    L = KERNEL_LANES
+    L = n_lanes
     bounds = {
         "verify_fused": bound(
             L * 4 * (3 * Ww + 4 * Wd + 1),
-            L * Wd * HAMMING_OPS_PER_WORD
-            + n_myers * ncols * Wd * MYERS_OPS_PER_WORD_COLUMN),
+            verify_ops("verify_fused", L, n_myers, ncols, Wd)),
         "myers": bound(L * 4 * (3 * Ww + 5 * Wd + 1),
-                       L * ncols * Wd * MYERS_OPS_PER_WORD_COLUMN),
+                       verify_ops("myers", L, L, ncols, Wd)),
+        # Ww + 1 plane rows of 12 bytes, four int64 lane inputs, one int64
+        # read-plane row, one int32 out
+        "verify_fused_gather": bound(
+            L * (12 * (Ww + 1) + 4 * 8 + 8 * 3 * Wd + 4),
+            verify_ops("verify_fused_gather", L, n_myers, ncols, Wd)),
     }
     cases = {
         "verify_fused": (lambda: kernels.verify_fused(wide, rp, lm, m, ncols,
@@ -299,31 +484,38 @@ def phase_kernels(idx, dix) -> dict:
                                                           ncols, E)),
         "myers": (lambda: kernels.myers(wide, peq, pad, m, ncols),
                   lambda: kernels.myers_ref(wide, peq, pad, m, ncols)),
+        "verify_fused_gather": (
+            lambda: kernels.verify_fused_gather(*g_args),
+            lambda: kernels.verify_fused_gather_ref(*g_args)),
     }
     out = {}
-    for name, (kern, plain) in cases.items():
+    for name in names:
+        kern, plain = cases[name]
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        assert got.shape == want.shape == (KERNEL_LANES,), (got.shape,
-                                                            want.shape)
+        assert got.shape == want.shape == (L,), (got.shape, want.shape)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if not torch.equal(got, want):
-            raise AssertionError(f"{name}: kernel != plain on "
+            raise AssertionError(f"{name} (m {m}): kernel != plain on "
                                  f"{int((got != want).sum())} lanes")
-        ms, plain_ms = median_ms(kern), median_ms(plain)
-        if name == "verify_fused":
+        ms, plain_ms = median_ms(kern), median_ms(plain, reps=plain_reps)
+        inside = device_ms(kern, name + "_kernel")
+        if name.startswith("verify_fused"):
             frac = float((want <= E).float().mean())
             extra = f", result <= e on {frac:.3f} of lanes"
         else:
             extra = ""
         b = bounds[name]
-        log(f"kernel {name}: {KERNEL_LANES} lanes equal to plain (max_abs_err"
-            f" {err}{extra}); median {ms:.3f} ms vs plain {plain_ms:.3f} ms;"
+        log(f"kernel {name}: {L} lanes (m {m}: {Wd} read words, {Ww} window "
+            f"words, {ncols} columns) equal to plain (max_abs_err {err}"
+            f"{extra}); median {ms:.3f} ms ({fmt_ms(inside)} inside the"
+            f" kernel) vs plain {plain_ms:.3f} ms;"
             f" bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
-            + (f" ({n_myers} lanes run Myers)" if name == "verify_fused"
-               else ""))
+            + (f" ({n_myers} lanes run Myers)"
+               if name.startswith("verify_fused") else ""))
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                     "library_ms": None}
+                     "library_ms": None, "device_ms": inside, "lanes": L,
+                     "read_words": Wd}
     return out
 
 
@@ -337,7 +529,8 @@ def phase_scan_kernel(idx, dix) -> dict:
     ncols = span + m + 2 * E
     out = None
     for n in SCAN_LANES:
-        win, _, _, peq, pad = kernel_inputs(idx, dix, n, seed=11, span=span)
+        win, _, _, peq, pad, _ = kernel_inputs(idx, dix, n, seed=11,
+                                               span=span)
         def kern():
             return kernels.myers_scan(win, peq, pad, m, ncols)
 
@@ -361,7 +554,7 @@ def phase_scan_kernel(idx, dix) -> dict:
             plain_ms = median_ms(plain, reps=PLAIN_SCAN_REPS)
             Wd, Ww = m // 32, win[0].shape[-1]
             b = bound(n * 4 * (3 * Ww + 5 * Wd + ncols),
-                      n * ncols * Wd * MYERS_OPS_PER_WORD_COLUMN)
+                      verify_ops("myers_scan", n, n, ncols, Wd))
             msg += (f"; median {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
                     f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
             out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
@@ -482,7 +675,9 @@ def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"{time.perf_counter() - t0:.2f} s (first call), launches "
         f"{main_launches}")
     assert len(recs) == len(reads)
-    assert main_launches["verify_fused"] > 0, "fused kernel never ran"
+    # no seed extension below 512 Mbp: fm_extend belongs to phases 12-13
+    for name in ("verify_fused_gather", "fm_search", "fm_locate"):
+        assert main_launches[name] > 0, f"{name} never ran on the SE path"
     assert main_launches["myers"] > 0, \
         "Myers kernel never ran: no batch took the gdrop dense re-run"
     lines = [r.line() for r in recs]
@@ -551,13 +746,13 @@ def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
     dev_rps = len(dev_batches) * BATCH / (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     del outs
-    t0 = time.perf_counter()
-    recs = map_batch(idx, dix, cfg, reads, quals, qnames)
-    e2e_rps = len(reads) / (time.perf_counter() - t0)
+    e2e_rps, e2e_lo, e2e_hi, recs = host_rates(
+        lambda: map_batch(idx, dix, cfg, reads, quals, qnames), len(reads))
     assert [r.line() for r in recs] == lines
     log(f"throughput: map_batch_device {dev_rps:.1f} reads/s over "
         f"{len(dev_batches)} simulated batches of {BATCH} (peak device "
         f"memory {peak:.2f} GB); end-to-end map_batch {e2e_rps:.1f} reads/s "
+        f"(median of {E2E_REPS} runs, {e2e_lo:.1f}-{e2e_hi:.1f}) "
         f"over phase 4's {N_MAIN_BATCHES} batches (one gdrop re-run), on "
         f"{card}")
 
@@ -637,7 +832,8 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"{main_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(recs) == 2 * len(pairs)
-    for name in ("verify_fused", "myers_scan", "myers"):
+    for name in ("verify_fused_gather", "myers_scan", "myers", "fm_search",
+                 "fm_locate"):
         assert main_launches[name] > 0, f"{name} never ran on the PE path"
     lines = [r.line() for r in recs]
     n = len(pairs)
@@ -747,21 +943,26 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
     dev_rps = 2 * len(dev_batches) * PE_PAIRS / (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     del outs
-    t0 = time.perf_counter()
-    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
-    e2e_rps = 2 * len(pairs) / (time.perf_counter() - t0)
+    e2e_rps, e2e_lo, e2e_hi, recs = host_rates(
+        lambda: map_batch_pe(idx, dix, cfg, pairs, quals, qnames),
+        2 * len(pairs))
     assert [r.line() for r in recs] == lines
     log(f"PE throughput: map_batch_pe_device {dev_rps:.1f} reads/s "
         f"({dev_rps / 2:.1f} pairs/s) over {len(dev_batches)} simulated "
         f"batches of {PE_PAIRS} pairs (peak device memory {peak:.2f} GB); "
-        f"end-to-end map_batch_pe {e2e_rps:.1f} reads/s over phase 8's "
+        f"end-to-end map_batch_pe {e2e_rps:.1f} reads/s (median of "
+        f"{E2E_REPS} runs, {e2e_lo:.1f}-{e2e_hi:.1f}) over phase 8's "
         f"{N_PE_MAIN_BATCHES} batches (one gdrop re-run), on {card}")
     return main_launches, gdrop_launches
 
 
 def phase_gather_kernel(dix, flat_lanes: int) -> dict:
     """gather_rows vs its plain version and vs torch.index_select on the
-    Gbp-configuration index's own tables, at the mapping path's shapes."""
+    Gbp-configuration index's own tables.  The record carries the k-mer
+    table lookup, the shape the compact path launches once per candidate
+    stage; the other shapes (the window gather of the dense and paired-end
+    paths, and the checkpoint-row and SA-sample fetches that the FM kernels
+    now make themselves) are checked and timed beside it."""
     import torch
 
     from bitmapperbs_tpu_torch.ops import kernels
@@ -769,10 +970,11 @@ def phase_gather_kernel(dix, flat_lanes: int) -> dict:
     dev = dix.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
+    headline = "klt W=2"
     cases = (          # name, table, lane shape
+        (headline, dix.klt, (GBP_BATCH, 2, 5)),
         ("cp_rows W=17, seed lanes", dix.cp_rows, (GATHER_LANES,)),
         ("cp_rows W=17, flat lanes", dix.cp_rows, (flat_lanes,)),
-        ("klt W=2", dix.klt, (GBP_BATCH, 2, 5)),
         ("sa_samples W=1, ragged", dix.sa_samples[:, None], (flat_lanes - 3,)),
         ("g_planes W=3", dix.g_planes, (flat_lanes, 5)),
     )
@@ -789,13 +991,14 @@ def phase_gather_kernel(dix, flat_lanes: int) -> dict:
             flat[0], flat[-1] = R, -1
             sets.append(ix)
         for ix in sets[:2]:
-            got = kernels.gather_rows(table, ix)
             want = kernels.gather_rows_ref(table, ix)
+            got = kernels.gather_rows(table, ix)
             torch.cuda.synchronize()
             assert got.shape == want.shape == (*shape, W)
             if not torch.equal(got, want):
-                raise AssertionError(f"gather_rows {name}: kernel != plain "
-                                     f"on {int((got != want).sum())} words")
+                raise AssertionError(
+                    f"gather_rows {name}: kernel != plain on "
+                    f"{int((got != want).sum())} words")
         turn = [0]
 
         def rotating(fn):
@@ -804,23 +1007,228 @@ def phase_gather_kernel(dix, flat_lanes: int) -> dict:
                 return fn(sets[turn[0] % GATHER_SETS])
             return call
 
-        ms = median_ms(rotating(lambda ix: kernels.gather_rows(table, ix)))
-        plain_ms = median_ms(rotating(
-            lambda ix: kernels.gather_rows_ref(table, ix)))
-        lib_ms = median_ms(rotating(lambda ix: torch.index_select(
-            table, 0, ix.view(-1).clamp(0, R - 1))))
+        def kern(ix):
+            return kernels.gather_rows(table, ix)
+
+        def plain(ix):
+            return kernels.gather_rows_ref(table, ix)
+
+        def library(ix):
+            return torch.index_select(table, 0, ix.view(-1).clamp(0, R - 1))
+
+        ms, plain_ms, lib_ms = (median_ms(rotating(f))
+                                for f in (kern, plain, library))
+        inside = device_ms(rotating(kern), "gather_rows")
+        plain_dev = device_ms(rotating(plain))
+        lib_dev = device_ms(rotating(library))
         L = sets[0].numel()
         b = bound(L * (8 + 8 * W), 0)      # index, row in, row out
         log(f"kernel gather_rows, {name}: {L} lanes of a {R} x {W} table "
             f"({R * W * 4 / 1e6:.1f} MB) equal to plain, out-of-range indices"
-            f" clamped; median {ms:.4f} ms vs plain {plain_ms:.4f} ms vs "
-            f"index_select {lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
-            f"{b['bound_by']}")
-        if out is None:                     # the record carries the first case
-            out = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
-                   "library_ms": lib_ms, "shapes": {}}
-        out["shapes"][name] = {"lanes": L, "ms": ms, "plain_ms": plain_ms,
-                               "library_ms": lib_ms, **b}
+            f" clamped; median {ms:.4f} ms ({fmt_ms(inside)} inside the "
+            f"kernel) vs plain {plain_ms:.4f} ms ({fmt_ms(plain_dev)} inside "
+            f"its kernels) vs index_select {lib_ms:.4f} ms ({fmt_ms(lib_dev)} "
+            f"inside its kernels, the clamp included); bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+        shape_rec = {"lanes": L, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, **b, "device_ms": inside,
+                     "plain_device_ms": plain_dev,
+                     "library_device_ms": lib_dev}
+        if name == headline:
+            out = {"max_abs_err": 0, **shape_rec, "shapes": {}}
+        out["shapes"][name] = shape_rec
+    return out
+
+
+def capture_fm_calls(dix, cfg, batch) -> dict:
+    """The arguments that one map_batch_device call hands to fm_search,
+    fm_extend and fm_locate."""
+    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    saved = {name: getattr(kernels, name) for name in FM_KERNELS}
+    calls = {}
+
+    def recording(name):
+        def call(*args):
+            calls[name] = args
+            return saved[name](*args)
+        return call
+
+    try:
+        for name in FM_KERNELS:
+            setattr(kernels, name, recording(name))
+        a, ln, mn = batch
+        map_batch_device(dix, cfg, a, ln, min_read_len=mn)["best_score"].cpu()
+    finally:
+        for name in FM_KERNELS:
+            setattr(kernels, name, saved[name])
+    assert set(calls) == set(FM_KERNELS), set(calls)
+    return calls
+
+
+def plant_fm_edges(dix, name: str, args: tuple) -> tuple:
+    """Copies of a captured call's lane tensors with edge lanes planted."""
+    import torch
+
+    def own(x):
+        return x.contiguous().clone()
+
+    if name == "fm_search":
+        d, blk, pat, st, en, sp0, ep0, k, max_len = args[:9]
+        st, en, sp0, ep0 = own(st), own(en), own(sp0), own(ep0)
+        en.view(-1)[3::101] = st.view(-1)[3::101]          # empty slices
+        en.view(-1)[5::103] = st.view(-1)[5::103] + 3      # shorter than klt_k
+        ep0.view(-1)[7::107] = sp0.view(-1)[7::107]        # empty from the table
+        st.view(-1)[11::109] = 0                           # longer than max_len
+        # min_len 0: the plain version must walk the short slices
+        return (d, blk, pat, st, en, sp0, ep0, k, max_len, 0)
+    if name == "fm_extend":
+        d, blk, pat, st, sp, ep, ext_max, ext_occ = args
+        st, sp, ep = own(st), own(sp), own(ep)
+        st.view(-1)[3::101] = 0                            # at the read start
+        ep.view(-1)[5::103] = sp.view(-1)[5::103]          # empty interval
+        ep.view(-1)[7::107] = (sp.view(-1)[7::107] - 1).clamp(min=0)  # ep < sp
+        return (d, blk, pat, st, sp, ep, ext_max, ext_occ)
+    d, blk, i, valid = args
+    blk, i, valid = own(blk), own(i), own(valid)
+    i.view(-1)[3::101] = d.n[blk.view(-1)[3::101]] + 5     # past the text
+    i.view(-1)[5::103] = 0xFFFFFFFF
+    valid.view(-1)[3::101] = True
+    valid.view(-1)[5::103] = True
+    valid.view(-1)[7::107] = False
+    return (d, blk, i, valid)
+
+
+def phase_fm_kernels(dix, cfg, small, big) -> dict:
+    """fm_search / fm_extend / fm_locate vs their lockstep plain versions on
+    the arguments real batches give them (`small`: batches of 4,096 reads,
+    `big`: of 16,384), edge lanes planted; times with the calls rotating
+    through the batches."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    seed = [0]
+
+    def chase_ms(table, evict: bool) -> float:
+        """ms per dependent load on `table`, median of 5 chains, a new chain
+        each time; evict: overwrite the L2 before each chain, so that its
+        loads come from device memory."""
+        times = []
+        for _ in range(5):
+            seed[0] += 1
+            if evict:
+                torch.empty(L2_EVICT_BYTES, dtype=torch.int8,
+                            device=dix.device).fill_(1)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            kernels.dependent_load_chain(table, CHASE_STEPS, seed[0] * 7919)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times) / CHASE_STEPS
+
+    words = dix.cp_rows.view(-1)
+    probe = chase_ms(words, evict=True)
+    in_l2 = words[:L2_RESIDENT_BYTES // 4]
+    in_l2.sum()                                    # brings the slice in
+    probe_l2 = chase_ms(in_l2, evict=False)
+    log(f"dependent-load latency on the {words.numel() * 4 / 1e6:.1f} MB "
+        f"checkpoint table: {probe * 1e6:.1f} ns with the L2 overwritten "
+        f"before each chain, {probe_l2 * 1e6:.1f} ns on its first "
+        f"{L2_RESIDENT_BYTES / 1e6:.0f} MB kept in the L2 (one thread, "
+        f"{CHASE_STEPS} loads, each address from the word before)")
+    refs = {"fm_search": kernels.fm_search_ref,
+            "fm_extend": kernels.fm_extend_ref,
+            "fm_locate": kernels.fm_locate_ref}
+    # bytes per lane beside the rows: int64 inputs, outputs (and the bool
+    # and the SA sample in locate); one pattern byte per step
+    lane_bytes = {"fm_search": 5 * 8 + 2 * 8, "fm_extend": 4 * 8 + 3 * 8,
+                  "fm_locate": 2 * 8 + 1 + 4 + 8}
+    rows_per_step = {"fm_search": 2, "fm_extend": 2, "fm_locate": 1}
+    out = {}
+    for label, batches in (("4,096", small), ("16,384", big)):
+        calls = [capture_fm_calls(
+            dix, cfg.replace(batch_size=b[0].shape[0]), b) for b in batches]
+        for name in FM_KERNELS:
+            kern = getattr(kernels, name)
+            sets = [c[name] for c in calls]
+            planted = plant_fm_edges(dix, name, sets[0])
+            lanes = planted[1].shape
+            as_tuple = (lambda r: r if isinstance(r, tuple) else (r,))
+            err = 0
+            for args in (planted, sets[-1]):
+                want = as_tuple(refs[name](*args))
+                rows = torch.full(lanes, -1, dtype=torch.int32,
+                                  device=dix.device)
+                got = as_tuple(kern(*args, rows_out=rows))
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert g.shape == w.shape == lanes, (g.shape, w.shape)
+                    err = max(err, int((g - w).abs().max()))
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"{name} ({label} per batch): kernel != plain on "
+                            f"{int((g != w).sum())} lanes")
+                assert int(rows.min()) >= 0
+            # the rows this data makes the kernel fetch, over the rotation
+            n_rows, longest = 0, 0
+            for args in sets:
+                rows = torch.zeros(lanes, dtype=torch.int32,
+                                   device=dix.device)
+                kern(*args, rows_out=rows)
+                n_rows += int(rows.sum())
+                longest = max(longest, int(rows.max()))
+            n_rows /= len(sets)
+            L = rows.numel()
+            steps = n_rows / rows_per_step[name]
+            other = L * lane_bytes[name] \
+                + (steps if name != "fm_locate" else 0)
+            b = bound(n_rows * CP_ROW_BYTES + other,
+                      n_rows * FM_THREADS_PER_ROW * SASS_OPS[name]["loop"])
+            # what the card moves for those rows: whole 32-byte sectors
+            sector_ms = (n_rows * CP_ROW_SECTORS[name] * 32 + other) \
+                / HBM_BYTES_PER_S * 1e3
+            # dependent loads of the slowest lane: its inputs, one row per
+            # step, and in locate the SA sample
+            chain = 1 + longest // rows_per_step[name] \
+                + (name == "fm_locate")
+            turn = [0]
+
+            def rotating(fn):
+                def call():
+                    turn[0] += 1
+                    return fn(*sets[turn[0] % len(sets)])
+                return call
+
+            ms = median_ms(rotating(kern))      # as the main path calls it
+            plain_ms = median_ms(rotating(refs[name]), reps=PLAIN_FM_REPS)
+            inside = device_ms(rotating(kern), name + "_kernel")
+            log(f"kernel {name}, {label} reads per batch: {L} lanes equal to "
+                f"plain, planted edge lanes included (max_abs_err {err}); "
+                f"median {ms:.4f} ms on the main path's arguments "
+                f"({fmt_ms(inside)} inside the kernel) vs plain "
+                f"{plain_ms:.3f} ms; {n_rows:.0f} rows fetched per call "
+                f"({n_rows / L:.2f} per lane, at most {longest}); bound "
+                f"{b['bound_ms']:.4f} ms by {b['bound_by']} at "
+                f"{CP_ROW_BYTES} bytes per row ({sector_ms:.4f} ms counting "
+                f"the {CP_ROW_SECTORS[name]} sectors of 32 bytes a row's "
+                f"words span); latency floor {chain * probe:.4f} ms "
+                f"({chain} dependent loads)")
+            shape = {"lanes": L, "ms": ms, "plain_ms": plain_ms, **b,
+                     "device_ms": inside, "rows_fetched": n_rows,
+                     "sector_bytes_ms": sector_ms,
+                     "latency_floor_ms": chain * probe}
+            if name not in out:             # the record carries the 4,096 shape
+                out[name] = {"max_abs_err": err, **shape, "library_ms": None,
+                             "dependent_load_ns": probe * 1e6,
+                             "dependent_load_in_l2_ns": probe_l2 * 1e6,
+                             "shapes": {}}
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            out[name]["shapes"][f"{label} reads per batch"] = shape
+        del calls
     return out
 
 
@@ -869,13 +1277,13 @@ def stage_table(dix, cfg, batches) -> tuple[dict, float]:
     import torch
 
     from bitmapperbs_tpu_torch.models import aligner
-    from bitmapperbs_tpu_torch.ops import fm, kernels, verify
+    from bitmapperbs_tpu_torch.ops import fm, kernels
 
     stages = {"seed (KLT + backward search)": (fm, "search_patterns"),
               "extend seeds": (fm, "extend_seeds"),
               "locate": (fm, "locate"),
-              "window gather": (verify, "window_planes"),
-              "verify_fused": (kernels, "verify_fused"),
+              "window gather + verify (one kernel)":
+                  (kernels, "verify_fused_gather"),
               "select": (aligner, "select_se")}
     spent = {name: [] for name in stages}       # ms, one entry per batch
     saved = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
@@ -939,9 +1347,11 @@ def idle_share(run_batches, n_walls: int = 5) -> dict:
     return out
 
 
-def run_gbp(card: str) -> tuple[dict, dict, dict]:
-    """Phases 12-14 on the planted-repeat genome; returns the gather
-    kernel's record and the launch counts of phases 12 and 13."""
+def run_gbp(card: str) -> tuple[dict, dict]:
+    """Phases 12-14 on the planted-repeat genome; returns the records of
+    the kernels checked on its index (gather_rows, the FM kernels,
+    verify_fused at the 288 bucket) and the launch counts of its main paths
+    (phase 12's 96 bp batches, its 280 bp batch, phase 13)."""
     import argparse
 
     import numpy as np
@@ -996,17 +1406,38 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
         f"{cfg.max_seed_occ}, locate_budget {cfg.locate_budget}, batch "
         f"{cfg.batch_size}, flat cap {cap} slots per read")
 
-    # ---- phase 3 (gather_rows) on this index's tables ---------------------
-    gstats = phase_gather_kernel(dix, GBP_BATCH * cap)
+    # ---- phase 3 (gather_rows, the FM kernels, verify_fused at the shape
+    # of its one caller left, the 288 bucket) on this index's tables --------
+    kstats = {"gather_rows": phase_gather_kernel(dix, GBP_BATCH * cap)}
+    long_cfg = cfg.replace(read_len_bucket=LONG_BUCKET, batch_size=N_LONG)
+    kstats.update(phase_kernels(
+        idx, dix, ("verify_fused",),
+        n_lanes=N_LONG * long_cfg.resolve_flat_cap(dix.genome_len, 2),
+        m=LONG_BUCKET, read_len=LONG_READ_LEN, plain_reps=PLAIN_LONG_REPS))
 
-    # ---- phase 12: SE main path ---------------------------------------------
     t0 = time.perf_counter()
     n_sims = GBP_BIG_BATCH * N_GBP_BIG_BATCHES
     sims = simulate_reads(idx.genome, n_sims, read_len=READ_LEN, seed=110,
                           sub_rate=0.01, indel_rate=0.005)
     sat, n_arrays = satellite_reads(idx, N_GBP_SAT, seed=111)
-    log(f"Gbp inputs: {n_sims} simulated reads and {N_GBP_SAT} reads from "
-        f"{n_arrays} satellite arrays in {time.perf_counter() - t0:.2f} s")
+    long_sims = simulate_reads(idx.genome, N_LONG, read_len=LONG_READ_LEN,
+                               seed=112, sub_rate=0.004, indel_rate=0.001)
+    log(f"Gbp inputs: {n_sims} simulated reads, {N_GBP_SAT} reads from "
+        f"{n_arrays} satellite arrays and {N_LONG} reads of {LONG_READ_LEN} "
+        f"bp in {time.perf_counter() - t0:.2f} s")
+
+    def to_dev(chunk, batch):
+        a, ln = prepare_batch(chunk, BUCKET, batch)
+        return (torch.from_numpy(a).to(device),
+                torch.from_numpy(ln).to(device), int(ln.min()))
+
+    small = [to_dev([s.codes for s in sims[lo:lo + GBP_BATCH]], GBP_BATCH)
+             for lo in range(0, 8 * GBP_BATCH, GBP_BATCH)]
+    big = [to_dev([s.codes for s in sims[lo:lo + GBP_BIG_BATCH]],
+                  GBP_BIG_BATCH) for lo in range(0, n_sims, GBP_BIG_BATCH)]
+    kstats.update(phase_fm_kernels(dix, cfg, small, big))
+
+    # ---- phase 12: SE main path ---------------------------------------------
     n_main = N_GBP_MAIN_BATCHES * GBP_BATCH
     main_sims = sims[:n_main - N_GBP_SAT]
     reads = [s.codes for s in main_sims] + sat
@@ -1023,8 +1454,34 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
         f"{time.perf_counter() - t0:.2f} s (first call), launches "
         f"{se_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
-    for name in ("gather_rows", "verify_fused", "myers"):
+    for name in ("gather_rows", "verify_fused_gather", "myers", *FM_KERNELS):
         assert se_launches[name] > 0, f"{name} never ran on the Gbp SE path"
+    # a main path of its own: reads over 256 bp, whose 9 plane words are past
+    # the gathering verify's widths
+    long_reads = [s.codes for s in long_sims]
+    long_quals = [s.qual for s in long_sims]
+    long_names = [f"l{i}" for i in range(N_LONG)]
+    reset_launches()
+    t0 = time.perf_counter()
+    long_recs = map_batch(idx, dix, long_cfg, long_reads, long_quals,
+                          long_names)
+    long_launches = dict(kernels.LAUNCHES)
+    log(f"Gbp SE main path, {LONG_READ_LEN} bp: {N_LONG} reads mapped in "
+        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{long_launches}")
+    for name in ("gather_rows", "verify_fused", *FM_KERNELS):
+        assert long_launches[name] > 0, \
+            f"{name} never ran on the Gbp SE path at {LONG_READ_LEN} bp"
+    assert long_launches["verify_fused_gather"] == 0
+    oracle = [r.line() for r in map_batch_se(
+        idx, long_cfg, long_reads[:N_LONG_ORACLE], long_quals[:N_LONG_ORACLE],
+        long_names[:N_LONG_ORACLE])]
+    assert oracle == [r.line() for r in long_recs[:N_LONG_ORACLE]], \
+        "Gbp oracle mismatch on the 280 bp reads"
+    log(f"Gbp SE main path: SAM of the first {N_LONG_ORACLE} reads of "
+        f"{LONG_READ_LEN} bp equals the oracle; mapped "
+        f"{sum(not r.flag & K.FLAG_UNMAPPED for r in long_recs) / N_LONG:.4f}"
+        f", recall {recall(idx, long_sims, long_recs):.4f}")
     lines = [r.line() for r in recs]
     for lo, hi in ((0, N_GBP_ORACLE), (n_main - N_GBP_ORACLE_SAT, n_main)):
         oracle = [r.line() for r in map_batch_se(idx, cfg, reads[lo:hi],
@@ -1033,11 +1490,6 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
                if a != b]
         assert not bad, f"Gbp oracle mismatch at read {lo + bad[0]}:\n" \
                         f"{oracle[bad[0]]}\n{lines[lo + bad[0]]}"
-
-    def to_dev(chunk, batch):
-        a, ln = prepare_batch(chunk, BUCKET, batch)
-        return (torch.from_numpy(a).to(device),
-                torch.from_numpy(ln).to(device), int(ln.min()))
 
     main_dev = [to_dev(reads[lo:lo + GBP_BATCH], GBP_BATCH)
                 for lo in range(0, n_main, GBP_BATCH)]
@@ -1065,11 +1517,6 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
     log("Gbp SE: flat_chunks=2 gives the first batch's tensors unchanged")
 
     # ---- throughput, stage table, idle share --------------------------------
-    small = [to_dev([s.codes for s in sims[lo:lo + GBP_BATCH]], GBP_BATCH)
-             for lo in range(0, 8 * GBP_BATCH, GBP_BATCH)]
-    big = [to_dev([s.codes for s in sims[lo:lo + GBP_BIG_BATCH]],
-                  GBP_BIG_BATCH) for lo in range(0, n_sims, GBP_BIG_BATCH)]
-
     def device_rate(batches, c):
         def go():
             res = [map_batch_device(dix, c, a, ln, min_read_len=mn)
@@ -1086,15 +1533,15 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
 
     rps_small, peak_small = device_rate(small, cfg)
     rps_big, peak_big = device_rate(big, cfg.replace(batch_size=GBP_BIG_BATCH))
-    t0 = time.perf_counter()
-    again = map_batch(idx, dix, cfg, reads, quals, qnames)
-    e2e = n_main / (time.perf_counter() - t0)
+    e2e, e2e_lo, e2e_hi, again = host_rates(
+        lambda: map_batch(idx, dix, cfg, reads, quals, qnames), n_main)
     assert [r.line() for r in again] == lines
     log(f"Gbp SE throughput: map_batch_device {rps_small:.1f} reads/s over "
         f"{len(small)} batches of {GBP_BATCH} (peak device memory "
         f"{peak_small:.2f} GB) and {rps_big:.1f} reads/s over {len(big)} "
         f"batches of {GBP_BIG_BATCH} (peak {peak_big:.2f} GB); end-to-end "
-        f"map_batch {e2e:.1f} reads/s over phase 12's "
+        f"map_batch {e2e:.1f} reads/s (median of {E2E_REPS} runs, "
+        f"{e2e_lo:.1f}-{e2e_hi:.1f}) over phase 12's "
         f"{N_GBP_MAIN_BATCHES} batches (one gdrop re-run), on {card}")
     table, total = stage_table(dix, cfg, small)
     for name, ms in table.items():
@@ -1142,7 +1589,8 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
         f"{pe_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(precs) == 2 * len(pairs)
-    for name in ("gather_rows", "verify_fused", "myers_scan"):
+    for name in ("gather_rows", "verify_fused_gather", "myers_scan",
+                 *FM_KERNELS):
         assert pe_launches[name] > 0, f"{name} never ran on the Gbp PE path"
     plines = [r.line() for r in precs]
     oracle = [r.line() for r in oracle_pe(idx, pcfg, pairs[:N_GBP_PE_ORACLE],
@@ -1186,13 +1634,14 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
     pe_rps = 2 * len(pairs) / (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     del res
-    t0 = time.perf_counter()
-    again = map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames)
-    pe_e2e = 2 * len(pairs) / (time.perf_counter() - t0)
+    pe_e2e, pe_lo, pe_hi, again = host_rates(
+        lambda: map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames),
+        2 * len(pairs))
     assert [r.line() for r in again] == plines
     log(f"Gbp PE throughput: map_batch_pe_device {pe_rps:.1f} reads/s over "
         f"{len(pe_batches)} batches of {GBP_BATCH} pairs (peak device memory "
-        f"{peak:.2f} GB); end-to-end map_batch_pe {pe_e2e:.1f} reads/s, on "
+        f"{peak:.2f} GB); end-to-end map_batch_pe {pe_e2e:.1f} reads/s "
+        f"(median of {E2E_REPS} runs, {pe_lo:.1f}-{pe_hi:.1f}), on "
         f"{card}")
 
     # ---- phase 14: CLI with the Gbp flags on the saved artifact -----------------
@@ -1222,7 +1671,9 @@ def run_gbp(card: str) -> tuple[dict, dict, dict]:
             f"{len(cli)} records equal to phase 12 "
             f"({time.perf_counter() - t1:.2f} s incl. start-up, index load "
             f"and upload)")
-    return gstats, se_launches, pe_launches
+    return kstats, {"se_gbp_config": se_launches,
+                    "se_gbp_config_280bp": long_launches,
+                    "pe_gbp_config": pe_launches}
 
 
 def run(card: str) -> dict:
@@ -1249,7 +1700,9 @@ def run(card: str) -> dict:
         f" MB of tables; sa_rate {dix.sa_rate}, klt_k {dix.klt_k})")
 
     # ---- phase 3: kernels vs plain ------------------------------------------
-    kstats = phase_kernels(idx, dix)
+    kstats = phase_kernels(idx, dix, ("verify_fused", "myers",
+                                      "verify_fused_gather"))
+    fused_96 = kstats["verify_fused"]
     kstats["myers_scan"] = phase_scan_kernel(idx, dix)
 
     with tempfile.TemporaryDirectory(prefix="btbs_smoke_idx_") as d:
@@ -1260,17 +1713,22 @@ def run(card: str) -> dict:
 
     del idx, dix
     torch.cuda.empty_cache()
-    kstats["gather_rows"], gbp_se, gbp_pe = run_gbp(card)
+    gbp_kstats, gbp_paths = run_gbp(card)
+    kstats.update(gbp_kstats)         # verify_fused: the 288-bucket shape
+    kstats["verify_fused"]["shapes"] = {
+        f"m {LONG_BUCKET}": dict(kstats["verify_fused"]),
+        f"m {BUCKET}": fused_96}
 
-    by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches,
-               "se_gbp_config": gbp_se, "pe_gbp_config": gbp_pe}
+    by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches, **gbp_paths}
+    launches = {name: sum(p[name] for p in gbp_paths.values())
+                for name in KERNEL_SOURCES}
     for name in KERNEL_SOURCES:
-        assert gbp_se[name] + gbp_pe[name] > 0, \
+        assert launches[name] > 0, \
             f"{name} never launched on this slice's main paths"
     return {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],
-         "launches": gbp_se[name] + gbp_pe[name], **kstats[name],
+         "launches": launches[name], **kstats[name],
          "launches_by_path": {k: v[name] for k, v in by_path.items()}}
         for name in KERNEL_SOURCES],
         "forced_gdrop_launches": {"se": se_gdrop, "pe": pe_gdrop}}

@@ -1,0 +1,99 @@
+"""chip_smoke.py's bounds: the INT32-pipe instruction counts it reads from a
+cuobjdump listing of the built kernels, and the roofline it makes of them.
+
+The listing below is synthetic and has the shapes the real ones have: two
+kernels, a column loop inside an outer loop, predicated instructions, the
+second (encoding) line of an instruction, a kernel's closing self-branch."""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+
+LISTING = """
+Fatbin elf code:
+================
+	code for sm_90a
+		Function : _ZN37_GLOBAL__N__0_9_verify_cu_012myers_kernelILi3EEEvPKj
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                    /* 0x00000a00ff017b82 */
+                                                                             /* 0x000fe20000000800 */
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;                   /* 0x0000000102027810 */
+                                                                             /* 0x000fe20007ffe0ff */
+        /*0020*/                   LOP3.LUT R3, R3, R4, RZ, 0xc0, !PT ;      /* 0x0 */
+        /*0030*/                   SHF.L.U32 R5, R5, 0x1, RZ ;               /* 0x0 */
+        /*0040*/                   IMAD R6, R6, R7, R8 ;                     /* 0x0 */
+        /*0050*/                   @P0 SEL R9, R9, R10, P0 ;                 /* 0x0 */
+        /*0060*/                   @!P1 BRA 0x30 ;                           /* 0x0 */
+        /*0070*/                   POPC R2, R3 ;                             /* 0x0 */
+        /*0080*/                   LDG.E R4, desc[UR4][R2.64] ;              /* 0x0 */
+        /*0090*/                   @P2 BRA 0x20 ;                            /* 0x0 */
+        /*00a0*/                   ISETP.GE.AND P0, PT, R0, R1, PT ;         /* 0x0 */
+        /*00b0*/                   UIADD3 UR4, UR4, 0x1, URZ ;               /* 0x0 */
+        /*00c0*/                   EXIT ;                                    /* 0x0 */
+        /*00d0*/                   BRA 0xd0;                                 /* 0x0 */
+        /*00e0*/                   NOP;                                      /* 0x0 */
+		..........
+		Function : _ZN37_GLOBAL__N__0_9_verify_cu_017myers_scan_kernelILi3EEEvPKj
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   VIMNMX R1, R1, R2, PT ;                   /* 0x0 */
+        /*0010*/                   LEA R2, R2, R3, 0x2 ;                     /* 0x0 */
+        /*0020*/                   STG.E desc[UR4][R2.64], R1 ;              /* 0x0 */
+        /*0030*/                   @P0 BRA 0x10 ;                            /* 0x0 */
+        /*0040*/                   EXIT ;                                    /* 0x0 */
+		..........
+		Function : _ZN37_GLOBAL__N__0_9_verify_cu_08straightEv
+        /*0000*/                   IADD3 R2, R2, 0x1, RZ ;                   /* 0x0 */
+        /*0010*/                   EXIT ;                                    /* 0x0 */
+        /*0020*/                   BRA 0x20;                                 /* 0x0 */
+"""
+
+
+@pytest.mark.parametrize("function, want", [
+    # innermost loop 0x30-0x60: SHF and the predicated SEL (IMAD goes to the
+    # FMA pipe); outside 0x20-0x90: IADD3 and ISETP (LDC, UIADD3 are not of
+    # the INT32 pipe)
+    ("12myers_kernelILi3E", {"loop": 2, "once": 2}),
+    ("myers_scan_kernelILi3E", {"loop": 1, "once": 1}),
+])
+def test_counts_of_a_listing(function, want):
+    assert chip_smoke.sass_int32_ops(LISTING, function) == want
+
+
+@pytest.mark.parametrize("function", [
+    "fm_search_kernel",        # not in the listing
+    "kernelILi3E",             # two kernels carry it
+    "8straightEv",             # no loop: the closing self-branch is none
+])
+def test_counter_refuses(function):
+    with pytest.raises(AssertionError):
+        chip_smoke.sass_int32_ops(LISTING, function)
+
+
+def test_every_kernel_has_a_listing_name():
+    assert set(chip_smoke.SASS_KERNELS) == \
+        set(chip_smoke.KERNEL_SOURCES) - {"gather_rows"}
+    assert all(lib in ("verify", "fm")
+               for lib, _ in chip_smoke.SASS_KERNELS.values())
+
+
+@pytest.mark.parametrize("nbytes, ops, by", [
+    (3.35e9, 16.75e9 / 2, "bytes"),          # 1 ms against 0.5 ms
+    (3.35e9 / 2, 16.75e9, "operations"),
+])
+def test_bound_takes_the_larger(nbytes, ops, by):
+    b = chip_smoke.bound(nbytes, ops)
+    assert b["bound_by"] == by
+    assert b["bound_ms"] == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("words, scale", [(3, 1.0), (9, 3.0)])
+def test_verify_ops_scale_with_the_words(monkeypatch, words, scale):
+    monkeypatch.setitem(chip_smoke.SASS_OPS, "verify_fused",
+                        {"loop": 48, "once": 93})
+    got = chip_smoke.verify_ops("verify_fused", lanes=1000, myers_lanes=400,
+                                ncols=104, words=words)
+    assert got == pytest.approx((1000 * 93 + 400 * 104 * 48) * scale)
