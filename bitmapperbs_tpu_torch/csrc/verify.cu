@@ -24,6 +24,13 @@
 //   myers_scan_pallas): the recurrence of btbs_myers, with the running
 //   score written after EVERY column (paired-end mate rescue scans the
 //   whole insert window of a pair in one lane: ncols = R + m + 2e).
+// btbs_rescue_scan replaces the same TPU kernel together with what stands
+//   around it in paired-end mate rescue (bitmapperbs_tpu/models/paired.py
+//   lines 206-238: the window gather before the scan, and after it the
+//   selection of the best score, its lowest frame position and the best
+//   score more than e away).  It takes what the path holds before any
+//   plane exists and returns the three lanes the path needs; see the note
+//   above rescue_scan_kernel.
 //
 // Layout: one thread per lane; each lane's words are contiguous int32 bits
 // (lane-major, as the port's tensors come): win [L][3][Ww], read planes
@@ -58,10 +65,19 @@
 // popcount prefix over the block's warps) into a shared-memory staging
 // area, one padded row per lane so rows fall on different banks; the first
 // `count` threads then run the column loop on full warps and the other
-// warps leave.  The staging area holds 7 Wd + 3 words per thread, which is
-// why this entry exists for the compile-time word counts (reads up to 256
-// bp) only; longer buckets gather with ops/verify.window_planes and take
-// btbs_verify_fused.
+// warps leave.  The staging area holds 7 Wd + 3 words per thread, so it
+// serves the compile-time word counts 1..8 (reads up to 256 bp).  Longer
+// buckets (9..32 read words) take verify_fused_gather_wide_kernel: there a
+// lane's state would be 7 * 32 words, so the PEQ table and the pad row
+// (5 Wd words) live in shared memory, one column of a [5][NW][threads]
+// table per thread (conflict-free: a warp's threads read neighbouring
+// words), indexed by the column's symbol; only VP and VN stay in registers,
+// in compile-time capacities NW = 12, 16, 24, 32 so the word loops unroll.
+// Window words are fetched from the genome planes as the Hamming words and
+// the Myers columns advance (WindowReader), never held whole, and the
+// compaction moves lane indices only: a compacted thread fetches its lane's
+// 12 (Wd + 2) bytes of planes and its read planes again (they are in the
+// L2) and builds the PEQ column in shared memory.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -217,6 +233,19 @@ __device__ __forceinline__ uint32_t mask_lt(uint32_t nb) {
   return nb >= 32u ? 0xFFFFFFFFu : ((1u << nb) - 1u);
 }
 
+// Bits of the window word whose first position is u32 `ws` that lie outside
+// [0, genome_len): below 0 when ws has wrapped, at or past the genome end.
+__device__ __forceinline__ uint32_t out_of_genome(uint32_t ws,
+                                                  int64_t genome_len) {
+  if (ws >= 0xFFFFF000u) {                               // wrapped below 0
+    const uint32_t neg = 0u - ws;
+    return mask_lt(neg < 32u ? neg : 32u);
+  }
+  if (int64_t(ws) >= genome_len) return 0xFFFFFFFFu;
+  const int64_t left = genome_len - int64_t(ws);
+  return ~mask_lt(left < 32 ? uint32_t(left) : 32u);
+}
+
 // The gathering entry: one thread per lane through the window fetch and the
 // Hamming pass, then the block's ham > e lanes compacted onto its first
 // threads for the Myers loop.  WD: compile-time word count; the window is
@@ -264,17 +293,7 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
         a1 = (a1 >> sh) | (raw[1][k + 1] << (32u - sh));
         an = (an >> sh) | (raw[2][k + 1] << (32u - sh));
       }
-      const uint32_t ws = st + 32u * uint32_t(k);          // word's first position
-      uint32_t oob;
-      if (ws >= 0xFFFFF000u) {                             // wrapped below 0
-        const uint32_t neg = 0u - ws;
-        oob = mask_lt(neg < 32u ? neg : 32u);
-      } else if (int64_t(ws) >= genome_len) {
-        oob = 0xFFFFFFFFu;
-      } else {
-        const int64_t left = genome_len - int64_t(ws);
-        oob = ~mask_lt(left < 32 ? uint32_t(left) : 32u);
-      }
+      const uint32_t oob = out_of_genome(st + 32u * uint32_t(k), genome_len);
       w0[k] = a0 & ~oob;
       w1[k] = a1 & ~oob;
       wn[k] = an | oob;
@@ -355,6 +374,401 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
       myers_min<WD>(s, s + WW, s + 2 * WW, peq, pad, WD, m, ncols);
 }
 
+// Window words fetched as they are needed: word k covers the positions
+// [start + 32 k, start + 32 k + 32) of one orientation, with the semantics of
+// ops/verify.window_planes (rows ((start + 32) >> 5) + k and + k + 1 of the
+// orientation's plane block, clamped into it; funnel by start & 31;
+// positions outside [0, genome_len) and wrapped-negative starts marked N).
+// Keeps the upper raw row of a word as the lower row of the next.
+struct WindowReader {
+  const uint32_t* gp;
+  int64_t base, gwords, genome_len, wi;
+  uint32_t st, sh;
+  int k;
+  uint32_t r0, r1, rn;                       // raw row wi + k
+
+  __device__ __forceinline__ void load_row(int64_t r, uint32_t& x0,
+                                           uint32_t& x1, uint32_t& xn) const {
+    r = base + (r >= gwords ? gwords - 1 : r);
+    r = r < 0 ? 0 : (r >= 2 * gwords ? 2 * gwords - 1 : r);
+    const uint32_t* q = gp + r * 3;
+    x0 = q[0];
+    x1 = q[1];
+    xn = q[2];
+  }
+
+  // the next call of next() returns word k0
+  __device__ __forceinline__ void init(const uint32_t* planes, int64_t orient,
+                                       uint32_t start, int64_t gw,
+                                       int64_t glen, int k0) {
+    gp = planes;
+    gwords = gw;
+    genome_len = glen;
+    base = orient * gw;
+    st = start;
+    sh = start & 31u;
+    wi = int64_t((start + 32u) >> 5);        // u32 add: wraps below 0
+    k = k0;
+    load_row(wi + k0, r0, r1, rn);
+  }
+
+  __device__ __forceinline__ void next(uint32_t& a0, uint32_t& a1,
+                                       uint32_t& an) {
+    uint32_t h0, h1, hn;
+    load_row(wi + k + 1, h0, h1, hn);
+    a0 = r0;
+    a1 = r1;
+    an = rn;
+    if (sh != 0u) {
+      a0 = (a0 >> sh) | (h0 << (32u - sh));
+      a1 = (a1 >> sh) | (h1 << (32u - sh));
+      an = (an >> sh) | (hn << (32u - sh));
+    }
+    const uint32_t oob = out_of_genome(st + 32u * uint32_t(k), genome_len);
+    a0 &= ~oob;
+    a1 &= ~oob;
+    an |= oob;
+    r0 = h0;
+    r1 = h1;
+    rn = hn;
+    ++k;
+  }
+};
+
+// myers_column with the column's match row read from shared memory: eqrow
+// points at word 0 of the row the column's symbol selects (PEQ rows 0..3, the
+// pad row 4 for an N column) in this thread's column of a [5][NW][kThreads]
+// table, so word k is eqrow[k * kThreads].
+template <int NW>
+__device__ __forceinline__ int myers_column_shared(
+    uint32_t (&vp)[NW], uint32_t (&vn)[NW], const uint32_t* eqrow, int wd) {
+  uint32_t carry = 0u, hp_prev = 0u, hn_prev = 0u, hp_top = 0u, hn_top = 0u;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    if (k < wd) {
+      const uint32_t eq = eqrow[k * kThreads];
+      const uint32_t v = vp[k];
+      const uint64_t s = uint64_t(eq & v) + v + carry;
+      carry = uint32_t(s >> 32);
+      const uint32_t d0 = (uint32_t(s) ^ v) | eq | vn[k];
+      const uint32_t hp = vn[k] | ~(d0 | v);
+      const uint32_t hn = v & d0;
+      const uint32_t x = (hp << 1) | (hp_prev >> 31);
+      vp[k] = ((hn << 1) | (hn_prev >> 31)) | ~(d0 | x);
+      vn[k] = d0 & x;
+      hp_prev = hp;
+      hn_prev = hn;
+      hp_top = hp;
+      hn_top = hn;
+    }
+  }
+  return int(hp_top >> 31) - int(hn_top >> 31);
+}
+
+// This thread's column of the shared [5][NW][kThreads] match table from one
+// set of read-plane words (PEQ rows 0..3) and the pad row (4).
+__device__ __forceinline__ void store_eq_column(
+    uint32_t* col, int nw, int k, uint32_t a, uint32_t c, uint32_t g,
+    uint32_t t, uint32_t pad) {
+  col[k * kThreads] = a;
+  col[(nw + k) * kThreads] = c;
+  col[(2 * nw + k) * kThreads] = g;
+  col[(3 * nw + k) * kThreads] = t;
+  col[(4 * nw + k) * kThreads] = pad;
+}
+
+// The gathering entry for 9..32 read words (see the note at the top): NW is
+// the register capacity of VP / VN, wd <= NW the bucket's word count.  The
+// second launch bound (one block per SM is enough) lets ptxas take the
+// registers it wants: without it it held these kernels to 56-96 registers
+// and spilled 16-24 bytes around the column loop.
+template <int NW>
+__global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
+    const uint32_t* __restrict__ gp, const int64_t* __restrict__ orient,
+    const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
+    const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
+    int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
+    int64_t genome_len, int wd, int m, int ncols, int e) {
+  extern __shared__ uint32_t eq_table[];     // [5][NW][kThreads]
+  __shared__ int slot_thread[kThreads];
+  __shared__ int warp_count[kThreads / 32];
+  const int64_t first = int64_t(blockIdx.x) * kThreads;
+  int64_t lane = first + threadIdx.x;
+
+  bool need = false;
+  if (lane < L) {
+    // anchored Hamming from the e-shifted window, one word at a time
+    WindowReader win;
+    win.init(gp, orient[lane], uint32_t(start[lane]), gwords, genome_len, 0);
+    int64_t rr = rrow[lane];
+    rr = rr < 0 ? 0 : (rr >= R ? R - 1 : rr);
+    const int64_t* rp = rtab + rr * 3 * wd;
+    const int64_t len = rlen[lane];
+    uint32_t c0, c1, cn, n0, n1, nn;
+    win.next(c0, c1, cn);
+    int ham = 0;
+    for (int k = 0; k < wd; ++k) {
+      win.next(n0, n1, nn);
+      const uint32_t a0 = e == 0 ? c0 : (c0 >> e) | (n0 << (32 - e));
+      const uint32_t a1 = e == 0 ? c1 : (c1 >> e) | (n1 << (32 - e));
+      const uint32_t an = e == 0 ? cn : (cn >> e) | (nn << (32 - e));
+      const uint32_t d0 = uint32_t(rp[k]), d1 = uint32_t(rp[wd + k]),
+                     dn = uint32_t(rp[2 * wd + k]);
+      const int64_t nb = len - 32 * k;
+      const uint32_t lmask =
+          mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
+      const uint32_t eqb = ~(a0 ^ d0) & ~(a1 ^ d1);
+      const uint32_t match = (eqb | ((a0 & ~a1) & (d0 & d1))) & ~an & ~dn;
+      ham += __popc(~match & lmask);
+      c0 = n0;
+      c1 = n1;
+      cn = nn;
+    }
+    need = ham > e;
+    if (!need) out[lane] = ham;
+  }
+
+  // compact the indices of the lanes that need Myers onto the first threads
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, need);
+  const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31;
+  if (lid == 0) warp_count[wid] = __popc(ballot);
+  __syncthreads();
+  int before = 0, count = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < wid) before += warp_count[w];
+    count += warp_count[w];
+  }
+  if (need)
+    slot_thread[before + __popc(ballot & ((1u << lid) - 1u))] = threadIdx.x;
+  __syncthreads();
+  if (int(threadIdx.x) >= count) return;
+  lane = first + slot_thread[threadIdx.x];
+
+  // the lane's match table: PEQ from its read planes (asymmetric match; pad
+  // rows always match) and the pad row, into this thread's shared column
+  uint32_t* col = eq_table + threadIdx.x;
+  {
+    int64_t rr = rrow[lane];
+    rr = rr < 0 ? 0 : (rr >= R ? R - 1 : rr);
+    const int64_t* rp = rtab + rr * 3 * wd;
+    const int64_t len = rlen[lane];
+    for (int k = 0; k < wd; ++k) {
+      const uint32_t r0 = uint32_t(rp[k]), r1 = uint32_t(rp[wd + k]),
+                     rn = uint32_t(rp[2 * wd + k]);
+      const int64_t nb = len - 32 * k;
+      const uint32_t p =
+          ~mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
+      store_eq_column(col, NW, k, (~r0 & ~r1 & ~rn) | p,
+                      ((r0 & ~r1 & ~rn) | (r0 & r1 & ~rn)) | p,
+                      (~r0 & r1 & ~rn) | p, (r0 & r1 & ~rn) | p, p);
+    }
+  }
+  uint32_t vp[NW], vn[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    vp[k] = 0xFFFFFFFFu;
+    vn[k] = 0u;
+  }
+  WindowReader win;
+  win.init(gp, orient[lane], uint32_t(start[lane]), gwords, genome_len, 0);
+  int score = m, best = m;
+  for (int j0 = 0; j0 < ncols; j0 += 32) {
+    uint32_t a0, a1, an;
+    win.next(a0, a1, an);
+    const int nb = min(32, ncols - j0);
+#pragma unroll 1
+    for (int b = 0; b < nb; ++b) {
+      const uint32_t sym =
+          ((an >> b) & 1u) ? 4u : (((a0 >> b) & 1u) | (((a1 >> b) & 1u) << 1));
+      score += myers_column_shared<NW>(vp, vn, col + sym * NW * kThreads, wd);
+      best = min(best, score);
+    }
+  }
+  out[lane] = best;
+}
+
+// ---- paired-end mate rescue: window fetch + Myers scan + selection ---------
+//
+// Per pair the path holds: the anchored mate's block, the scan window's u32
+// start (a_lo - e, wrapped below 0 by up to e), whether a rescue window
+// exists (r_ok), the window's first frame anchor a_lo and its span, the
+// missing mate's length and its PEQ / pad words.  Column j of the window is
+// valid iff r_ok, q = j - (e + m - 1) >= 0, q <= span (read as int32) and its
+// score S[j] <= e; its anchor is A = a_lo + q and its frame position P = A on
+// block 0, genome_len - A - ms_len on block 1 (all u32).  Out: rs_best = min S
+// over the valid columns (INF if none), rp_best = min P over the valid columns
+// with S = rs_best (0xFFFFFFFF if none), rs_second = min S over the valid
+// columns with |A - A_best| > e (INF if none).
+//
+// What bounds it on the H100: operations.  A pair reads ~19 window words and
+// 15 PEQ words and writes three lanes, but runs R + m + 2e dependent Myers
+// columns.  One thread per pair (btbs_myers_scan) is 4,096 threads on 132
+// SMs, each a serial chain of 605 columns, storing a score matrix that is
+// only reduced again.  Here a pair's output columns are split over `chunks`
+// neighbouring threads of a warp, and no score leaves the block.
+//
+// Lemma (why a chunk may start fresh).  Let D[j] be the semi-global score
+// after column j of the whole window and D'[j] the score of a scan that
+// starts with VP all ones and score m at column s <= j - (m + e) + 1, i.e. of
+// the same pattern against the text from column s on.  D'[j] >= D[j], since
+// fewer start positions compete.  If D[j] <= e, an optimal alignment ending
+// at j uses m - deletions + insertions <= m + e text columns (each extra
+// column costs one edit, whatever the match rule: pad rows and N columns
+// change which cells match, not what a gap costs), so it starts at or after
+// s and D'[j] = D[j].  Hence min(D', e + 1) = min(D, e + 1) on a chunk's
+// output columns when it runs m + e - 1 warm-up columns before them (the
+// kernel runs m + e, clipped at column 0), and only S <= e ever enters the
+// selection.  tests/test_torch_rescue_scan.py checks the lemma on random
+// texts and holds a scalar model of this kernel to the plain version.
+//
+// Selection without the matrix: each thread keeps (best S, its lowest P) over
+// its own output columns as it goes and writes min(S, e + 1) as one byte per
+// output column into shared memory; the pair's threads combine (best, P) with
+// warp shuffles, every thread then knows A_best and re-reads its own bytes
+// for the best score more than e away, and a second shuffle round combines
+// those.  Columns past `span` and pairs without r_ok run no column at all.
+struct RescueArgs {
+  const uint32_t* gp;
+  const int64_t *block, *win_start, *a_lo, *span, *ms_len, *peq, *pad;
+  const uint8_t* r_ok;
+  // element strides: of the per-pair lanes, of peq [B][4][wd], of pad [B][wd]
+  int64_t s_block, s_start, s_alo, s_span, s_len, s_ok;
+  int64_t pq_l, pq_c, pq_w, pd_l, pd_w;
+  int32_t *rs_best, *rs_second;
+  int64_t* rp_best;
+  int64_t B, gwords, genome_len;
+  int wd, m, e, R, chunks, qstride;
+};
+
+constexpr int kInfScore = 1 << 20;           // constants.INF_SCORE
+
+// NW: compile-time word count when !SHARED (PEQ in registers, wd == NW);
+// register capacity of VP / VN when SHARED (PEQ in shared memory, wd <= NW).
+template <int NW, bool SHARED>
+__global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
+    const RescueArgs a) {
+  extern __shared__ uint32_t rescue_smem[];
+  const int C = a.chunks;                    // a power of two <= 32
+  const int pl = threadIdx.x / C, chunk = threadIdx.x % C;
+  const int64_t pair = int64_t(blockIdx.x) * (kThreads / C) + pl;
+  uint8_t* sc = reinterpret_cast<uint8_t*>(
+                    rescue_smem + (SHARED ? 5 * NW * kThreads : 0)) +
+                size_t(pl) * a.qstride;
+
+  // this thread's output columns q in [q0, q1), q = j - (e + m - 1)
+  int nout = 0;
+  if (pair < a.B && a.r_ok[pair * a.s_ok]) {
+    const int32_t span = int32_t(uint32_t(a.span[pair * a.s_span]));
+    if (span >= 0) nout = min(span, a.R + a.e) + 1;
+  }
+  const int ch = (nout + C - 1) / C;
+  const int q0 = min(chunk * ch, nout), q1 = min(q0 + ch, nout);
+  int best = kInfScore;
+  uint32_t best_p = 0xFFFFFFFFu, alo = 0u, mlen = 0u;
+  const uint32_t glen = uint32_t(a.genome_len);
+  bool fwd = true;
+
+  if (q0 < q1) {
+    const int64_t blk = a.block[pair * a.s_block];
+    fwd = blk == 0;
+    alo = uint32_t(a.a_lo[pair * a.s_alo]);
+    mlen = uint32_t(a.ms_len[pair * a.s_len]);
+    const int64_t* pq = a.peq + pair * a.pq_l;
+    const int64_t* pd = a.pad + pair * a.pd_l;
+    uint32_t peq[SHARED ? 1 : 4][SHARED ? 1 : NW], pad[SHARED ? 1 : NW];
+    uint32_t* col = rescue_smem + threadIdx.x;
+    if constexpr (SHARED) {
+      for (int k = 0; k < a.wd; ++k) {
+        const int64_t* w = pq + k * a.pq_w;
+        store_eq_column(col, NW, k, uint32_t(w[0]), uint32_t(w[a.pq_c]),
+                        uint32_t(w[2 * a.pq_c]), uint32_t(w[3 * a.pq_c]),
+                        uint32_t(pd[k * a.pd_w]));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        pad[k] = uint32_t(pd[k * a.pd_w]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          peq[c][k] = uint32_t(pq[c * a.pq_c + k * a.pq_w]);
+      }
+    }
+    uint32_t vp[NW], vn[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      vp[k] = 0xFFFFFFFFu;
+      vn[k] = 0u;
+    }
+    const int jo = a.e + a.m - 1;            // column of q = 0
+    const int j_first = max(0, jo + q0 - (a.m + a.e));
+    const int j_last = jo + q1 - 1;
+    WindowReader win;
+    win.init(a.gp, blk, uint32_t(a.win_start[pair * a.s_start]), a.gwords,
+             a.genome_len, j_first >> 5);
+    int score = a.m;
+    for (int w = j_first >> 5; w <= (j_last >> 5); ++w) {
+      uint32_t a0, a1, an;
+      win.next(a0, a1, an);
+      const int b_lo = max(j_first - 32 * w, 0);
+      const int b_hi = min(j_last - 32 * w, 31);
+#pragma unroll 1
+      for (int b = b_lo; b <= b_hi; ++b) {
+        const bool c0 = (a0 >> b) & 1u, c1 = (a1 >> b) & 1u,
+                   isn = (an >> b) & 1u;
+        if constexpr (SHARED) {
+          const uint32_t sym = isn ? 4u : (uint32_t(c0) | (uint32_t(c1) << 1));
+          score += myers_column_shared<NW>(vp, vn, col + sym * NW * kThreads,
+                                           a.wd);
+        } else {
+          score += myers_column<NW>(vp, vn, peq, pad, NW, c0, c1, isn);
+        }
+        const int q = 32 * w + b - jo;
+        if (q >= q0) {
+          sc[q] = uint8_t(min(score, a.e + 1));
+          if (score <= a.e) {
+            const uint32_t A = alo + uint32_t(q);
+            const uint32_t P = fwd ? A : glen - A - mlen;
+            if (score < best || (score == best && P < best_p)) {
+              best = score;
+              best_p = P;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // the pair's (best, lowest P): its threads are neighbours within one warp
+  for (int off = C >> 1; off > 0; off >>= 1) {
+    const int ob = __shfl_xor_sync(0xFFFFFFFFu, best, off);
+    const uint32_t op = __shfl_xor_sync(0xFFFFFFFFu, best_p, off);
+    if (ob < best || (ob == best && op < best_p)) {
+      best = ob;
+      best_p = op;
+    }
+  }
+  // best score more than e anchors away from the best: own bytes again
+  int second = kInfScore;
+  if (q0 < q1 && best <= a.e) {
+    const int64_t a_best = int64_t(fwd ? best_p : glen - best_p - mlen);
+    for (int q = q0; q < q1; ++q) {
+      const int s = sc[q];
+      if (s <= a.e) {
+        const int64_t d = int64_t(alo + uint32_t(q)) - a_best;
+        if ((d < 0 ? -d : d) > a.e) second = min(second, s);
+      }
+    }
+  }
+  for (int off = C >> 1; off > 0; off >>= 1)
+    second = min(second, __shfl_xor_sync(0xFFFFFFFFu, second, off));
+  if (chunk == 0 && pair < a.B) {
+    a.rs_best[pair] = best;
+    a.rp_best[pair] = int64_t(best_p);
+    a.rs_second[pair] = second;
+  }
+}
+
 template <int WD>
 __global__ void __launch_bounds__(kThreads) myers_kernel(
     const uint32_t* __restrict__ win, const uint32_t* __restrict__ peq_g,
@@ -428,6 +842,48 @@ void launch_myers_scan(const uint32_t* win, const uint32_t* peq,
                                                    ww, m, ncols);
 }
 
+constexpr size_t kStaticSharedLimit = 48 * 1024;
+constexpr size_t kSharedLimit = 227 * 1024;   // a block's most on sm_90
+
+// Dynamic shared memory above 48 KB is an opt-in per kernel instance.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes > kSharedLimit) return cudaErrorInvalidValue;
+  if (bytes <= kStaticSharedLimit) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+template <int NW>
+cudaError_t launch_fused_gather_wide(
+    const uint32_t* gp, const int64_t* orient, const int64_t* start,
+    const int64_t* rtab, const int64_t* rrow, const int64_t* rlen,
+    int32_t* out, int64_t L, int64_t R, int64_t gwords, int64_t genome_len,
+    int wd, int m, int ncols, int e, cudaStream_t st) {
+  const size_t smem = size_t(5) * NW * kThreads * sizeof(uint32_t);
+  const cudaError_t rc =
+      allow_shared(verify_fused_gather_wide_kernel<NW>, smem);
+  if (rc != cudaSuccess) return rc;
+  const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
+  verify_fused_gather_wide_kernel<NW><<<grid, kThreads, smem, st>>>(
+      gp, orient, start, rtab, rrow, rlen, out, L, R, gwords, genome_len, wd,
+      m, ncols, e);
+  return cudaGetLastError();
+}
+
+template <int NW, bool SHARED>
+cudaError_t launch_rescue_scan(const RescueArgs& a, cudaStream_t st) {
+  const int pairs = kThreads / a.chunks;     // per block
+  const size_t smem =
+      (SHARED ? size_t(5) * NW * kThreads * sizeof(uint32_t) : 0) +
+      size_t(pairs) * a.qstride;
+  const cudaError_t rc = allow_shared(rescue_scan_kernel<NW, SHARED>, smem);
+  if (rc != cudaSuccess) return rc;
+  const unsigned grid = unsigned((a.B + pairs - 1) / pairs);
+  rescue_scan_kernel<NW, SHARED><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 bool shapes_ok(int64_t L, int wd, int ww, int ncols) {
   return L > 0 && L <= int64_t(kThreads) * 0x7FFFFFFF && wd >= 1 &&
          wd <= kMaxWords && ww >= 1 && ncols >= 1 && ncols <= 32 * ww;
@@ -465,14 +921,14 @@ int btbs_verify_fused(const void* win, const void* rd, const void* lm,
 
 // gp uint32 [2 * gwords][3] genome planes; orient, start (u32 value), rrow,
 // rlen int64 [L]; rtab int64 [R][3 * wd] read planes (u32 values); out int32
-// [L].  wd in 1..8 and a window of exactly wd + 1 words.
+// [L].  wd in 1..32 and a window of exactly wd + 1 words.
 int btbs_verify_fused_gather(const void* gp, const void* orient,
                              const void* start, const void* rtab,
                              const void* rrow, const void* rlen, void* out,
                              int64_t L, int64_t R, int64_t gwords,
                              int64_t genome_len, int wd, int m, int ncols,
                              int e, void* stream) {
-  if (!shapes_ok(L, wd, wd + 1, ncols) || wd > 8 || ncols <= 32 * wd ||
+  if (!shapes_ok(L, wd, wd + 1, ncols) || ncols <= 32 * wd ||
       e < 0 || e > 31 || R < 1 || gwords < 1 || genome_len < 0)
     return int(cudaErrorInvalidValue);
   auto g = static_cast<const uint32_t*>(gp);
@@ -497,9 +953,95 @@ int btbs_verify_fused_gather(const void* gp, const void* orient,
     BTBS_FUSED_GATHER(6)
     BTBS_FUSED_GATHER(7)
     BTBS_FUSED_GATHER(8)
+    default: break;
   }
 #undef BTBS_FUSED_GATHER
-  return int(cudaGetLastError());
+  if (wd <= 8) return int(cudaGetLastError());
+#define BTBS_FUSED_GATHER_WIDE(NW)                                           \
+  if (wd <= NW)                                                              \
+    return int(launch_fused_gather_wide<NW>(g, a, s, t, r, n, o, L, R,       \
+                                            gwords, genome_len, wd, m,       \
+                                            ncols, e, st));
+  BTBS_FUSED_GATHER_WIDE(12)
+  BTBS_FUSED_GATHER_WIDE(16)
+  BTBS_FUSED_GATHER_WIDE(24)
+#undef BTBS_FUSED_GATHER_WIDE
+  return int(launch_fused_gather_wide<32>(g, a, s, t, r, n, o, L, R, gwords,
+                                          genome_len, wd, m, ncols, e, st));
+}
+
+// Mate rescue for B pairs (see the note above rescue_scan_kernel).  gp as
+// above; block, win_start (u32 value), a_lo (u32), span (u32), ms_len int64
+// and r_ok bool (one byte) lanes, peq int64 [B][4][wd] and pad int64 [B][wd]
+// (u32 values), each with its element strides; rs_best, rs_second int32 [B],
+// rp_best int64 [B], contiguous.  chunks: threads per pair, a power of two up
+// to 32; a block of 128 / chunks pairs keeps R + e + 1 bytes per pair (and
+// above 8 read words its PEQ table) in shared memory, so the caller raises
+// chunks where the insert range is wide (ops/kernels.rescue_scan_chunks); a
+// block that does not fit is refused with cudaErrorInvalidValue.
+int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
+                     const void* win_start, int64_t s_start, const void* r_ok,
+                     int64_t s_ok, const void* a_lo, int64_t s_alo,
+                     const void* span, int64_t s_span, const void* ms_len,
+                     int64_t s_len, const void* peq, int64_t pq_l,
+                     int64_t pq_c, int64_t pq_w, const void* pad, int64_t pd_l,
+                     int64_t pd_w, void* rs_best, void* rp_best,
+                     void* rs_second, int64_t B, int64_t gwords,
+                     int64_t genome_len, int wd, int m, int e, int R,
+                     int chunks, void* stream) {
+  if (B < 1 || wd < 1 || wd > kMaxWords || m != 32 * wd || e < 0 || e > 31 ||
+      R < 1 || R > (1 << 24) || chunks < 1 || chunks > 32 ||
+      (chunks & (chunks - 1)) != 0 || gwords < 1 || genome_len < 0)
+    return int(cudaErrorInvalidValue);
+  RescueArgs a;
+  a.gp = static_cast<const uint32_t*>(gp);
+  a.block = static_cast<const int64_t*>(block);
+  a.win_start = static_cast<const int64_t*>(win_start);
+  a.a_lo = static_cast<const int64_t*>(a_lo);
+  a.span = static_cast<const int64_t*>(span);
+  a.ms_len = static_cast<const int64_t*>(ms_len);
+  a.peq = static_cast<const int64_t*>(peq);
+  a.pad = static_cast<const int64_t*>(pad);
+  a.r_ok = static_cast<const uint8_t*>(r_ok);
+  a.s_block = s_block;
+  a.s_start = s_start;
+  a.s_alo = s_alo;
+  a.s_span = s_span;
+  a.s_len = s_len;
+  a.s_ok = s_ok;
+  a.pq_l = pq_l;
+  a.pq_c = pq_c;
+  a.pq_w = pq_w;
+  a.pd_l = pd_l;
+  a.pd_w = pd_w;
+  a.rs_best = static_cast<int32_t*>(rs_best);
+  a.rs_second = static_cast<int32_t*>(rs_second);
+  a.rp_best = static_cast<int64_t*>(rp_best);
+  a.B = B;
+  a.gwords = gwords;
+  a.genome_len = genome_len;
+  a.wd = wd;
+  a.m = m;
+  a.e = e;
+  a.R = R;
+  a.chunks = chunks;
+  a.qstride = (R + e + 1 + 3) & ~3;          // one byte per output column
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (wd) {
+    case 1: return int(launch_rescue_scan<1, false>(a, st));
+    case 2: return int(launch_rescue_scan<2, false>(a, st));
+    case 3: return int(launch_rescue_scan<3, false>(a, st));
+    case 4: return int(launch_rescue_scan<4, false>(a, st));
+    case 5: return int(launch_rescue_scan<5, false>(a, st));
+    case 6: return int(launch_rescue_scan<6, false>(a, st));
+    case 7: return int(launch_rescue_scan<7, false>(a, st));
+    case 8: return int(launch_rescue_scan<8, false>(a, st));
+    default: break;
+  }
+  if (wd <= 12) return int(launch_rescue_scan<12, true>(a, st));
+  if (wd <= 16) return int(launch_rescue_scan<16, true>(a, st));
+  if (wd <= 24) return int(launch_rescue_scan<24, true>(a, st));
+  return int(launch_rescue_scan<32, true>(a, st));
 }
 
 int btbs_myers(const void* win, const void* peq, const void* pad, void* out,

@@ -347,26 +347,17 @@ def candidate_grids_compact(dix: DeviceIndex, cfg: AlignerConfig, reads,
 
     def _verify_lanes(blk_, cand_, row_, len_):
         if cfg.indels and e > 0:
-            ncols = m + 2 * e
-            start = wrap(cand_ - e)
-            if kernels.verify_fused_gather_fits(m, ncols):
-                # one kernel: window gather + funnel shifts + Hamming +
-                # in-register PEQ + Myers
-                return (kernels.verify_fused_gather(
-                    dix.g_planes, blk_, start, read_tab, row_, len_, L,
-                    dix.g_words, m, ncols, e),)
+            # one kernel at every bucket width: window gather + funnel
+            # shifts + Hamming + PEQ + Myers
+            return (kernels.verify_fused_gather(
+                dix.g_planes, blk_, wrap(cand_ - e), read_tab, row_, len_, L,
+                dix.g_words, m, m + 2 * e, e),)
         rp = read_tab[row_]                                       # lanes,3*Wd
-        planes = (rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:])
-        lm_ = verify.length_mask(len_, m)
-        if cfg.indels and e > 0:
-            # widths the gathering kernel is not built for (reads over 256
-            # bp, e over 16): plain window gather, then the fused kernel
-            wide = verify.window_planes(dix.g_planes, blk_, start,
-                                        -(-ncols // 32), L, dix.g_words)
-            return (kernels.verify_fused(wide, planes, lm_, m, ncols, e),)
         ref = verify.window_planes(dix.g_planes, blk_, cand_, Wd, L,
                                    dix.g_words)
-        return (verify.hamming(ref, planes, lm_),)
+        return (verify.hamming(
+            ref, (rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:]),
+            verify.length_mask(len_, m)),)
 
     v_args = (blkS, cand, rowC, lenS)
     if chunks > 1:

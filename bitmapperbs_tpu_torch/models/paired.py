@@ -4,7 +4,8 @@ Runs the SE candidate stages for both mates (mate 2 with the opposite
 conversion, oracle.pipeline.se_frames), then: proper-pair join over the
 compatible frame pairs, lexicographic pair selection, pair second-best,
 per-mate SE selection, and one windowed mate-rescue pass per pair (a Myers
-scan over the whole insert window with indels, per-offset Hamming without).
+scan over the whole insert window with indels: kernels.rescue_scan, one
+launch on the card; per-offset Hamming without).
 The host (models/host.map_batch_pe) applies oracle/paired.map_pair's
 decision order through models/pool, so SAM equality again
 reduces to equality of these tensors.
@@ -34,13 +35,7 @@ _I64 = torch.int64
 _REV_BY_BP = [K.IS_REVERSE[(bp >> 1, bp & 1)] for bp in range(4)]
 
 
-def _frame_anchor(fwd, block, m, L):
-    """fwd-genome anchor <-> frame anchor (the map is its own inverse;
-    block: int or int lanes)."""
-    rc = wrap(L - fwd - m)
-    if isinstance(block, int):
-        return fwd if block == K.BLOCK_FWD else rc
-    return torch.where(block == K.BLOCK_FWD, fwd, rc)
+_frame_anchor = verify.frame_anchor
 
 
 def _lex_lt(a: tuple, b: tuple):
@@ -161,29 +156,12 @@ def _rescue_scan(dix: DeviceIndex, cfg: AlignerConfig, block, lo, hi, r_ok,
     R = cfg.max_insert - cfg.min_insert + 1
     a_lo = torch.where(block == 0, lo, wrap(L - hi - ms_len))
     span = wrap(hi - lo)                                  # == a_hi - a_lo
-    ncols = R + m + 2 * e
-    Ww = -(-ncols // 32)
     win_start = torch.where(r_ok, wrap(a_lo - e), 0)      # wrap >= -e legal
-    win = verify.window_planes(dix.g_planes, block, win_start, Ww, L,
-                               dix.g_words)
-    S = kernels.myers_scan(win, ms_peq, ms_pad, m, ncols)  # B, ncols
-    # real frame anchor of column j: a_lo + (j - (e + m - 1)); valid iff
-    # j >= e+m-1 and j - (e+m-1) <= span, span read as int32 (as the
-    # reference casts it)
-    joff = torch.arange(ncols, dtype=_I64, device=S.device) - (e + m - 1)
-    span_i32 = (span ^ 0x80000000) - 0x80000000
-    in_range = (joff >= 0) & (joff <= span_i32[:, None])
-    A_raw = wrap(a_lo[:, None] + joff.clamp(min=0))
-    valid = r_ok[:, None] & in_range & (S <= e)
-    P = _frame_anchor(A_raw, block[:, None], ms_len[:, None], L)
-    rs_best = torch.where(valid, S, INF).amin(dim=-1)
-    rm1 = valid & (S == rs_best[:, None])
-    rp_best = torch.where(rm1, P, INVALID).amin(dim=-1)
-    A_best = _frame_anchor(rp_best, block, ms_len, L)
-    rdiff = torch.maximum(A_raw, A_best[:, None]) - torch.minimum(
-        A_raw, A_best[:, None])
-    rs_second = torch.where(valid & (rdiff > e), S, INF).amin(dim=-1)
-    return rs_best, rp_best, rs_second
+    # one launch on the card: the window fetch, the scan over R + m + 2e
+    # columns and the (best, lowest position, second) selection
+    return kernels.rescue_scan(dix.g_planes, block, win_start, r_ok, a_lo,
+                               span, ms_len, ms_peq, ms_pad, L, dix.g_words,
+                               m, e, R)
 
 
 def _rescue_hamming(dix: DeviceIndex, cfg: AlignerConfig, block, lo, hi,

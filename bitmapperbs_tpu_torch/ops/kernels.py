@@ -6,6 +6,9 @@ bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
                             in front of it, as the compact path runs them
     myers                <- myers_pallas / _myers_kernel
     myers_scan           <- myers_scan_pallas / _myers_scan_kernel
+    rescue_scan          <- the same kernel with what paired-end mate rescue
+                            runs around it: the window gather in front, the
+                            best / position / second-best selection behind
     gather_rows          <- make_pallas_gather.gather
     fm_search, fm_extend, fm_locate
                          <- that row gather fused with the FM-index step it
@@ -35,13 +38,18 @@ import torch
 
 from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.ops import fm, verify   # mutual: used in calls
-from bitmapperbs_tpu_torch.ops.u32 import bnot, to_i32
+from bitmapperbs_tpu_torch.ops.u32 import INVALID, bnot, to_i32, wrap
 
 LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
-            "myers_scan": 0, "gather_rows": 0, "fm_search": 0,
-            "fm_extend": 0, "fm_locate": 0}
+            "myers_scan": 0, "rescue_scan": 0, "gather_rows": 0,
+            "fm_search": 0, "fm_extend": 0, "fm_locate": 0}
 
-FUSED_GATHER_MAX_WORDS = 8      # compile-time word counts of the gathering verify
+MAX_WORDS = 32                  # read words the kernels take (1,024 bp)
+# btbs_rescue_scan's launch shape (csrc/verify.cu: kThreads, kSharedLimit and
+# the word capacities of the instances that keep PEQ in shared memory)
+_RESCUE_BLOCK = 128
+_RESCUE_SHARED_BYTES = 227 * 1024
+_RESCUE_WIDE_WORDS = (12, 16, 24, 32)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
@@ -117,6 +125,10 @@ def _lib():
         lib.btbs_myers.restype = ctypes.c_int
         lib.btbs_myers_scan.argtypes = lib.btbs_myers.argtypes
         lib.btbs_myers_scan.restype = ctypes.c_int
+        lib.btbs_rescue_scan.argtypes = (
+            [vp] + [vp, i64] * 6 + [vp, i64, i64, i64, vp, i64, i64]
+            + [vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, vp])
+        lib.btbs_rescue_scan.restype = ctypes.c_int
         lib.btbs_gather_rows = ctypes.CDLL(paths["gather"]).btbs_gather_rows
         lib.btbs_gather_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
         lib.btbs_gather_rows.restype = ctypes.c_int
@@ -222,11 +234,12 @@ def verify_fused(win, read_planes, lenmask, m: int, ncols: int, e: int):
 # ---- fused verify with the window gather inside ------------------------------
 
 def verify_fused_gather_fits(m: int, ncols: int) -> bool:
-    """Whether the gathering entry takes these widths: at most
-    FUSED_GATHER_MAX_WORDS read words (its shared-memory staging is sized at
-    compile time) and a window of exactly one word more."""
+    """Whether the gathering entry takes these widths: 1..MAX_WORDS read
+    words (every bucket up to 1,024 bp) and a window of exactly one word
+    more (1 <= e <= 16; the configuration allows e up to 15)."""
     Wd = m // 32
-    return 1 <= Wd <= FUSED_GATHER_MAX_WORDS and -(-ncols // 32) == Wd + 1
+    return m % 32 == 0 and 1 <= Wd <= MAX_WORDS \
+        and -(-ncols // 32) == Wd + 1
 
 
 def verify_fused_gather_ref(g_planes, orient, start, read_tab, row, lens,
@@ -260,8 +273,8 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
                                        lens, genome_len, g_words, m, ncols, e)
     Wd = m // 32
     if not verify_fused_gather_fits(m, ncols) or not 0 <= e <= 31:
-        raise ValueError(f"verify_fused_gather takes 1..{FUSED_GATHER_MAX_WORDS}"
-                         f" read words, a window of one more and e <= 31; got "
+        raise ValueError(f"verify_fused_gather takes 1..{MAX_WORDS} read "
+                         f"words, a window of one more and e <= 31; got "
                          f"m {m}, ncols {ncols}, e {e}")
     if g_planes.dtype != torch.int32 or not g_planes.is_contiguous() \
             or tuple(g_planes.shape) != (2 * g_words, 3):
@@ -352,6 +365,116 @@ def myers_scan(win, peq, pad, m: int, ncols: int):
             m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers_scan")
         LAUNCHES["myers_scan"] += 1
     return out.t().reshape(*lanes, ncols)
+
+
+# ---- paired-end mate rescue: window gather + Myers scan + selection --------
+
+def rescue_scan_chunks(m: int, e: int, R: int) -> int:
+    """Threads per pair that `rescue_scan` splits a pair's columns over: 8,
+    or 16 or 32 where the insert range is so wide that a block of 128 / 8
+    pairs would not fit its one byte per output column (and, for reads over
+    256 bp, its PEQ table) into the 227 KB of shared memory a block may
+    take.  Raises ValueError where 32 threads per pair do not fit either."""
+    Wd = m // 32
+    table = 0 if Wd <= 8 else 5 * 4 * _RESCUE_BLOCK * next(
+        nw for nw in _RESCUE_WIDE_WORDS if Wd <= nw)
+    per_pair = (R + e + 4) & ~3
+    for chunks in (8, 16, 32):
+        if table + _RESCUE_BLOCK // chunks * per_pair <= _RESCUE_SHARED_BYTES:
+            return chunks
+    raise ValueError(
+        f"the insert-size range (max - min + 1 = {R}) is too wide for the "
+        f"mate-rescue kernel at reads of up to {m} bp: at most "
+        f"{(_RESCUE_SHARED_BYTES - table) // 4 - e - 4} offsets fit the "
+        f"card's shared memory")
+
+
+def rescue_scan_ref(g_planes, block, win_start, r_ok, a_lo, span, ms_len,
+                    ms_peq, ms_pad, genome_len: int, g_words: int, m: int,
+                    e: int, R: int):
+    """Plain version: ops/verify.window_planes over the whole insert window,
+    ops/verify.myers_scan, then the selection on the [B, ncols] scores."""
+    ncols = R + m + 2 * e
+    L = genome_len
+    win = verify.window_planes(g_planes, block, win_start, -(-ncols // 32),
+                               L, g_words)
+    S = verify.myers_scan(win, ms_peq, ms_pad, m, ncols)   # B, ncols
+    # real frame anchor of column j: a_lo + (j - (e + m - 1)); valid iff
+    # j >= e+m-1 and j - (e+m-1) <= span, span read as int32 (as the
+    # reference casts it)
+    joff = torch.arange(ncols, dtype=torch.int64,
+                        device=S.device) - (e + m - 1)
+    span_i32 = (span ^ 0x80000000) - 0x80000000
+    in_range = (joff >= 0) & (joff <= span_i32[:, None])
+    A_raw = wrap(a_lo[:, None] + joff.clamp(min=0))
+    valid = r_ok[:, None] & in_range & (S <= e)
+    P = verify.frame_anchor(A_raw, block[:, None], ms_len[:, None], L)
+    rs_best = torch.where(valid, S, K.INF_SCORE).amin(dim=-1)
+    rm1 = valid & (S == rs_best[:, None])
+    rp_best = torch.where(rm1, P, INVALID).amin(dim=-1)
+    A_best = verify.frame_anchor(rp_best, block, ms_len, L)
+    rdiff = torch.maximum(A_raw, A_best[:, None]) - torch.minimum(
+        A_raw, A_best[:, None])
+    rs_second = torch.where(valid & (rdiff > e), S,
+                            K.INF_SCORE).amin(dim=-1)
+    return rs_best, rp_best, rs_second
+
+
+def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
+                ms_pad, genome_len: int, g_words: int, m: int, e: int, R: int):
+    """Mate rescue of B pairs in one launch.  Per pair (int64 [B] unless
+    said): block (0 fwd / 1 rc), win_start (u32 start of the scan window,
+    a_lo - e, possibly wrapped below 0), r_ok (bool: a rescue window
+    exists), a_lo (u32 frame anchor of the window's first offset), span
+    (u32, read as int32: offsets 0..span are valid), ms_len (the missing
+    mate's length), ms_peq int64 u32 [B, 4, Wd] and ms_pad [B, Wd] (its PEQ
+    and pad words; any strides).  g_planes: int32 bits [2 * g_words, 3].
+    The window has R + m + 2e columns.
+    Returns (rs_best int32, rp_best u32 as int64, rs_second int32), [B]
+    each: the best semi-global score <= e over the valid end columns, the
+    lowest frame position among the columns that reach it, and the best
+    score more than e anchors away from it; INF_SCORE / 0xFFFFFFFF /
+    INF_SCORE where there is none."""
+    lane_t = dict(block=block, win_start=win_start, a_lo=a_lo, span=span,
+                  ms_len=ms_len)
+    _require(torch.int64, ms_peq=ms_peq, ms_pad=ms_pad, **lane_t)
+    _require(torch.bool, r_ok=r_ok)
+    if not _on_cuda(g_planes, r_ok, ms_peq, ms_pad, *lane_t.values()):
+        return rescue_scan_ref(g_planes, block, win_start, r_ok, a_lo, span,
+                               ms_len, ms_peq, ms_pad, genome_len, g_words,
+                               m, e, R)
+    B, Wd = r_ok.shape[0], m // 32
+    if m % 32 or not 1 <= Wd <= MAX_WORDS or not 0 <= e <= 31 or R < 1:
+        raise ValueError(f"rescue_scan takes 1..{MAX_WORDS} read words, "
+                         f"e <= 31 and R >= 1; got m {m}, e {e}, R {R}")
+    chunks = rescue_scan_chunks(m, e, R)
+    for name, t in (("r_ok", r_ok), *lane_t.items()):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"expected [{B}] {name}, got {tuple(t.shape)}")
+    if tuple(ms_peq.shape) != (B, 4, Wd) or tuple(ms_pad.shape) != (B, Wd):
+        raise ValueError(f"expected peq [{B}, 4, {Wd}] and pad [{B}, {Wd}], "
+                         f"got {tuple(ms_peq.shape)} and "
+                         f"{tuple(ms_pad.shape)}")
+    if g_planes.dtype != torch.int32 or not g_planes.is_contiguous() \
+            or tuple(g_planes.shape) != (2 * g_words, 3):
+        raise ValueError(f"expected contiguous int32 [{2 * g_words}, 3] "
+                         f"genome planes, got {g_planes.dtype} "
+                         f"{tuple(g_planes.shape)}")
+    dev = g_planes.device
+    rs_best = torch.empty(B, dtype=torch.int32, device=dev)
+    rp_best = torch.empty(B, dtype=torch.int64, device=dev)
+    rs_second = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lanes = [x for t in (block, win_start, r_ok, a_lo, span, ms_len)
+                 for x in (t.data_ptr(), t.stride(0))]
+        _check_rc(_lib().btbs_rescue_scan(
+            g_planes.data_ptr(), *lanes, ms_peq.data_ptr(), *ms_peq.stride(),
+            ms_pad.data_ptr(), *ms_pad.stride(), rs_best.data_ptr(),
+            rp_best.data_ptr(), rs_second.data_ptr(), B, g_words, genome_len,
+            Wd, m, e, R, chunks, stream), "btbs_rescue_scan")
+        LAUNCHES["rescue_scan"] += 1
+    return rs_best, rp_best, rs_second
 
 
 # ---- table row gather --------------------------------------------------------

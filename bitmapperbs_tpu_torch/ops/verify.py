@@ -87,6 +87,15 @@ def window_planes(g_planes, orient, start, nwords: int, genome_len: int,
     return b0 & bnot(oob), b1 & bnot(oob), nm | oob
 
 
+def frame_anchor(fwd, block, m, L):
+    """fwd-genome anchor <-> frame anchor of a read of length m on a genome
+    of length L (the map is its own inverse; block: int or int lanes)."""
+    rc = wrap(L - fwd - m)
+    if isinstance(block, int):
+        return fwd if block == K.BLOCK_FWD else rc
+    return torch.where(block == K.BLOCK_FWD, fwd, rc)
+
+
 def hamming(ref_planes, read_planes, lenmask):
     """Asymmetric bisulfite mismatch count per lane (popcount over XOR).
 

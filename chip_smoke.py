@@ -12,11 +12,22 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
   3. each kernel vs its plain PyTorch version at the main paths' shapes,
      torch.equal, median CUDA-event times: verify_fused, verify_fused_gather
      (the same lanes, fetching its own windows from the genome planes) and
-     myers at 163,840 lanes (m = 96, e = 4); verify_fused again at the one
-     shape the main paths still give it (before phase 12: the 288 bucket of
-     reads over 256 bp, 9 read words, 296 columns, 1,024 reads x flat cap
-     lanes); myers_scan at 4,096 lanes (one per pair; insert 0-500 -> 605
-     columns, 19 window words) and at a ragged 4,093; gather_rows (before
+     myers at 163,840 lanes (m = 96, e = 4); verify_fused and
+     verify_fused_gather again at the 288 bucket of reads over 256 bp
+     (before phase 12: 9 read words, 296 columns, 1,024 reads x flat cap
+     lanes; the gathering entry's shared-memory kernel, whose 16- and
+     32-word builds are checked at buckets 512 and 1,024); myers_scan at
+     4,096 lanes (one per pair; insert 0-500 -> 605 columns, 19 window
+     words) and at a ragged 4,093; rescue_scan (the scan with its window
+     fetch in front and its selection behind) on the same pairs, planted
+     pairs without a window, zero and negative spans and mates cut down to
+     a few bases (ties, seconds); its bound counts the columns the function
+     needs (one scan per pair over its valid columns), with the columns its
+     8 threads per pair run, warm-up included, beside it; checked again at
+     buckets 288 and 1,024 (PEQ in shared memory), at the command line's
+     default insert range (1,001 offsets) and at ranges so wide that a
+     block's shared memory makes the wrapper take 16 and 32 threads per
+     pair; gather_rows (before
      phase 12, on the 100 Mbp index's own tables, which do not fit the 50 MB
      L2): the k-mer table W = 2 at 4,096 x 2 x 5 lanes (the lookup the
      compact path launches; the record's headline), checkpoint rows W = 17
@@ -65,7 +76,8 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      The last batch ends with 256 pairs whose mate 2 carries one
      substitution in each of three of its five seeds, and 512
      low-complexity pairs (mate 1 pyrimidine-only, mate 2 purine-only) that
-     take the gdrop dense re-run.  All three kernels must launch.  SAM of
+     take the gdrop dense re-run.  verify_fused_gather, rescue_scan and
+     myers must launch.  SAM of
      64 ordinary, 16 seed-killed and 8 low-complexity pairs equals the
      oracle's; proper-pair rate, recall, and how the last batch's pairs
      were decided (pair join / rescue / neither).  On a random genome a
@@ -87,8 +99,9 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      reads through map_batch; the last batch ends with 2,048 reads from
      inside mid-copy satellite arrays, which overflow the flat buffer and
      take the dense re-run at 128 candidates; then 1,024 reads of 280 bp in
-     a 288 bucket, whose 9 plane words are past the gathering verify's
-     compile-time widths, so they take window_planes + verify_fused.  SAM
+     a 288 bucket, whose 9 plane words take the gathering verify's
+     shared-memory kernel (one launch, no window_planes, no verify_fused).
+     SAM
      of a sample equals the oracle's; recall, mapped share, overflow and
      gdrop counts; one batch
      with flat_chunks = 2 gives the same tensors; device reads/s at 4,096
@@ -97,13 +110,20 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      kernel time against unprofiled walls taken before it); peak memory
  13. PE, Gbp-scale configuration: 2 x 4,096 pairs through map_batch_pe, SAM
      of a sample equal to the oracle's, proper-pair rate, how pairs were
-     decided (pair join / rescue / neither), device and end-to-end rates
+     decided (pair join / rescue / neither), device and end-to-end rates;
+     one rescue_scan launch per map_batch_pe_device call; the synced stage
+     tables of the 280 bp batch and of the PE batches (candidate stages,
+     pair join, select, rescue), the PE path's device kernels, idle share
+     and peak memory
  14. CLI on the saved 100 Mbp artifact with `--seed-ext 20
      --max-candidates 128` gives phase 12's records
 Launch counts are set to 0 just before each main path (phases 4, 8, 12,
 13) and read just after it.  The kernels' record gives, per kernel, the
 launches of this slice's main paths (phase 12's 96 bp batches, its 280 bp
 batch, counted on its own, and phase 13) with every path's beside them.
+Every TPU kernel of the reference has at least one entry point that those
+paths launch; verify_fused and myers_scan, which no path calls any more,
+stay checked against their plain versions.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -116,6 +136,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -136,6 +157,15 @@ N_PE_RESCUE, N_PE_LOWCX = 256, 512  # groups ending the PE main path
 N_PE_TIMED_BATCHES = 8
 MIN_INSERT, MAX_INSERT = 0, 500    # bench.py:150-151
 SCAN_LANES = (PE_PAIRS, PE_PAIRS - 3)  # one lane per pair; a ragged count
+# widths no main path here reaches, checked on the card all the same: the
+# gathering verify's 16- and 32-word kernels (bucket, read length, lanes) and
+# the rescue scan (bucket, insert range, pairs, threads per pair) with its
+# PEQ in shared memory, at the command line's default insert range, and at
+# ranges whose bytes per output column make a block hold fewer pairs
+WIDE_VERIFY_SHAPES = ((512, 500, 8_192), (1_024, 1_000, 8_192))
+WIDE_RESCUE_SHAPES = ((288, 301, 1_024, 8), (96, 1_001, 1_024, 8),
+                      (1_024, 1_001, 512, 8), (96, 20_000, 128, 16),
+                      (288, 13_000, 64, 16), (96, 40_000, 64, 32))
 PLAIN_SCAN_REPS = 5                # the plain scan is ~600 columns of ops
 KILL_POS = (9, 27, 63)             # in seeds 0, 1 and 3 of a 90 bp read
 N_PE_ORACLE, N_PE_ORACLE_RESCUE, N_PE_ORACLE_LOWCX = 64, 16, 8
@@ -181,6 +211,7 @@ SASS_KERNELS = {        # kernel -> (library, what its mangled name contains)
     "verify_fused_gather": ("verify", "verify_fused_gather_kernelILi3E"),
     "myers": ("verify", "12myers_kernelILi3E"),
     "myers_scan": ("verify", "myers_scan_kernelILi3E"),
+    "rescue_scan": ("verify", "rescue_scan_kernelILi3ELb0E"),
     "fm_search": ("fm", "fm_search_kernel"),
     "fm_extend": ("fm", "fm_extend_kernel"),
     "fm_locate": ("fm", "fm_locate_kernel"),
@@ -202,6 +233,10 @@ KERNEL_SOURCES = {
               "bitmapperbs_tpu/ops/pallas_kernels.py:29"),
     "myers_scan": ("bitmapperbs_tpu_torch/csrc/verify.cu",
                    "bitmapperbs_tpu/ops/pallas_kernels.py:119"),
+    "rescue_scan": ("bitmapperbs_tpu_torch/csrc/verify.cu",
+                    "bitmapperbs_tpu/ops/pallas_kernels.py:119 "
+                    "(myers_scan_pallas) with the selection of "
+                    "bitmapperbs_tpu/models/paired.py:220-238"),
     "gather_rows": ("bitmapperbs_tpu_torch/csrc/gather.cu",
                     "scripts/pallas_gather_proto.py:28"),
     "verify_fused_gather": ("bitmapperbs_tpu_torch/csrc/verify.cu",
@@ -212,6 +247,16 @@ KERNEL_SOURCES = {
                   "scripts/pallas_gather_proto.py:28"),
     "fm_locate": ("bitmapperbs_tpu_torch/csrc/fm.cu",
                   "scripts/pallas_gather_proto.py:28"),
+}
+# every TPU kernel (each function of the reference that reaches
+# pl.pallas_call) and the port's entry points that stand for it: at least
+# one entry of each must launch on a main path
+TPU_KERNEL_ENTRIES = {
+    "verify_fused_pallas": ("verify_fused", "verify_fused_gather"),
+    "myers_pallas": ("myers",),
+    "myers_scan_pallas": ("myers_scan", "rescue_scan"),
+    "make_pallas_gather.gather": ("gather_rows", "fm_search", "fm_extend",
+                                  "fm_locate"),
 }
 
 
@@ -337,6 +382,8 @@ def verify_ops(kernel: str, lanes: int, myers_lanes: int, ncols: int,
 
 
 def build_native() -> None:
+    """Builds libsais.so and the CUDA kernels, dumps their machine code and
+    reads the instruction counts of the bounds from it."""
     from bitmapperbs_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -363,7 +410,7 @@ def build_native() -> None:
                 if "Compiling entry function" in ln:
                     name = ln.split("'")[1]
                 elif "spill stores" in ln:
-                    spill = ln.split(",")[1].strip()
+                    spill = ", ".join(x.strip() for x in ln.split(","))
                 elif "Used" in ln and "registers" in ln and name:
                     regs = ln.split("Used")[1].split(",")[0].strip()
                     log(f"ptxas: {name}: {regs}, {spill}")
@@ -499,7 +546,9 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
             raise AssertionError(f"{name} (m {m}): kernel != plain on "
                                  f"{int((got != want).sum())} lanes")
         ms, plain_ms = median_ms(kern), median_ms(plain, reps=plain_reps)
-        inside = device_ms(kern, name + "_kernel")
+        # the gathering entry has two kernels (registers / shared memory)
+        inside = device_ms(kern, name if name == "verify_fused_gather"
+                           else name + "_kernel")
         if name.startswith("verify_fused"):
             frac = float((want <= E).float().mean())
             extra = f", result <= e on {frac:.3f} of lanes"
@@ -552,16 +601,161 @@ def phase_scan_kernel(idx, dix) -> dict:
         if out is None:
             ms = median_ms(kern)
             plain_ms = median_ms(plain, reps=PLAIN_SCAN_REPS)
+            inside = device_ms(kern, "myers_scan_kernel")
             Wd, Ww = m // 32, win[0].shape[-1]
             b = bound(n * 4 * (3 * Ww + 5 * Wd + ncols),
                       verify_ops("myers_scan", n, n, ncols, Wd))
-            msg += (f"; median {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
+            msg += (f"; median {ms:.3f} ms ({fmt_ms(inside)} inside the "
+                    f"kernel) vs plain {plain_ms:.3f} ms; bound "
                     f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
             out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                   "library_ms": None}
+                   "library_ms": None, "device_ms": inside}
         else:
             out["max_abs_err"] = max(out["max_abs_err"], err)
         log(msg)
+    return out
+
+
+def rescue_columns_run(r_ok, span, m: int, e: int, R: int,
+                       chunks: int) -> int:
+    """Myers columns that rescue_scan runs on these pairs (numpy lanes:
+    r_ok bool, span u32 values), warm-up included: a pair's span + 1 output
+    columns (span read as int32, at most R + e + 1; none without r_ok) are
+    split over `chunks` threads, and each thread with columns starts m + e
+    columns before its first one (clipped at column 0)."""
+    import numpy as np
+
+    span = np.asarray(span).astype(np.int64)
+    span = np.where(span >= 1 << 31, span - (1 << 32), span)
+    nout = np.where(np.asarray(r_ok) & (span >= 0),
+                    np.minimum(span, R + e) + 1, 0)
+    ch = -(-nout // chunks)
+    jo, total = e + m - 1, 0
+    for c in range(chunks):
+        q0 = np.minimum(c * ch, nout)
+        q1 = np.minimum(q0 + ch, nout)
+        first = np.maximum(0, jo + q0 - (m + e))
+        total += int(np.where(q0 < q1, jo + q1 - first, 0).sum())
+    return total
+
+
+def rescue_inputs(idx, dix, n: int, m: int, R: int):
+    """n pairs' arguments of rescue_scan at bucket m and an insert range of
+    R offsets: the missing mate somewhere in the window.  Most pairs carry
+    the full span, as the path's do; planted: pairs without a window, spans
+    of 0, spans that read negative as int32, random spans (hits fall
+    outside), mates cut down to 8-12 bases (they reach a score <= e at many
+    columns: equal minima, seconds within and beyond e of the best), and
+    kernel_inputs' own wrapped starts, windows past the genome end and
+    short mates.  Returns (args, r_ok, span), the last two as numpy."""
+    import numpy as np
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import verify
+    from bitmapperbs_tpu_torch.ops.u32 import bnot, wrap
+
+    _, _, _, peq, _, lanes = kernel_inputs(idx, dix, n, seed=11, span=R, m=m,
+                                           read_len=m - 6)
+    rng = np.random.default_rng(12)
+    span = np.full(n, R - 1, np.int64)
+    span[5::7] = rng.integers(0, R, len(span[5::7]))
+    span[3::101] = 0
+    span[4::103] = 0x80000000 + rng.integers(0, R, len(span[4::103]))
+    r_ok = np.ones(n, bool)
+    r_ok[2::53] = False
+    ok = torch.from_numpy(r_ok).to(dix.device)
+    # rows past a mate's length always match: cutting a mate down is OR-ing
+    # the new pad rows into its PEQ
+    lens = lanes["lens"].clone()
+    lens[6::97] = 8 + torch.arange(len(lens[6::97]), device=dix.device) % 5
+    pad = bnot(verify.length_mask(lens, m))
+    args = (dix.g_planes, lanes["orient"], torch.where(ok, lanes["start"], 0),
+            ok, wrap(lanes["start"] + E),
+            torch.from_numpy(span).to(dix.device), lens,
+            peq | pad[:, None, :], pad, dix.genome_len, dix.g_words, m, E, R)
+    return args, r_ok, span
+
+
+def phase_rescue_kernel(idx, dix) -> dict:
+    """rescue_scan vs its plain version at the PE rescue shape (one pair per
+    lane, insert window 0-500: 605 columns), timed; then at
+    WIDE_RESCUE_SHAPES, checked."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    def check(args, want, what) -> int:
+        got = kernels.rescue_scan(*args)
+        torch.cuda.synchronize()
+        err = 0
+        for name, g, w in zip(("rs_best", "rp_best", "rs_second"), got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            err = max(err, int((g.to(torch.int64)
+                                - w.to(torch.int64)).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"rescue_scan ({what}): {name} differs from plain on "
+                    f"{int((g != w).sum())} of {g.numel()} pairs")
+        return err
+
+    m, R = BUCKET, MAX_INSERT - MIN_INSERT + 1
+    Wd, Ww = m // 32, -(-(R + m + 2 * E) // 32)
+    chunks = kernels.rescue_scan_chunks(m, E, R)
+    out = None
+    for n in SCAN_LANES:
+        args, r_ok, span = rescue_inputs(idx, dix, n, m, R)
+        want = kernels.rescue_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = check(args, want, f"{n} pairs")
+        hit = float((want[0] <= E).float().mean())
+        second = float((want[2] <= E).float().mean())
+        assert 0 < second < hit < 1, (second, hit)
+        msg = (f"kernel rescue_scan: {n} pairs x {R + m + 2 * E} columns "
+               f"equal to plain (max_abs_err {err}; a hit on {hit:.3f} of "
+               f"pairs, a second one more than e away on {second:.3f})")
+        if out is None:
+            # per pair: 5 int64 lanes and a bool, 5 Wd int64 PEQ / pad
+            # words, Ww + 1 plane rows of 12 bytes, 16 bytes out
+            nbytes = n * (41 + 40 * Wd + 12 * (Ww + 1) + 16)
+            c = SASS_OPS["rescue_scan"]
+            # what the function needs: one scan per pair over its valid
+            # columns; what the kernel runs: `chunks` scans per pair, each
+            # with its warm-up
+            needed = rescue_columns_run(r_ok, span, m, E, R, 1)
+            run = rescue_columns_run(r_ok, span, m, E, R, chunks)
+            b = bound(nbytes, n * c["once"] + needed * c["loop"])
+            b_run = bound(nbytes, n * chunks * c["once"] + run * c["loop"])
+            ms = median_ms(lambda: kernels.rescue_scan(*args))
+            inside = device_ms(lambda: kernels.rescue_scan(*args),
+                               "rescue_scan_kernel")
+            plain_ms = median_ms(lambda: kernels.rescue_scan_ref(*args),
+                                 reps=PLAIN_SCAN_REPS)
+            msg += (f"; {chunks} threads per pair: median {ms:.4f} ms "
+                    f"({fmt_ms(inside)} inside the kernel) vs plain "
+                    f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by "
+                    f"{b['bound_by']} for the {needed} columns the function "
+                    f"needs ({needed / n:.1f} per pair); the kernel runs "
+                    f"{run} ({run / n:.1f} per pair, warm-up included), "
+                    f"which alone would take {b_run['bound_ms']:.4f} ms")
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": None, "device_ms": inside,
+                   "columns_needed": needed, "columns_run": run,
+                   "bound_ms_columns_run": b_run["bound_ms"],
+                   "threads_per_pair": chunks}
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(msg)
+    for m, R, n, chunks in WIDE_RESCUE_SHAPES:
+        assert kernels.rescue_scan_chunks(m, E, R) == chunks, (m, R)
+        args, _, _ = rescue_inputs(idx, dix, n, m, R)
+        want = kernels.rescue_scan_ref(*args)
+        out["max_abs_err"] = max(out["max_abs_err"], check(
+            args, want, f"m {m}, {R} offsets, {chunks} threads per pair"))
+        log(f"kernel rescue_scan: {n} pairs x {R + m + 2 * E} columns at m "
+            f"{m} ({m // 32} read words"
+            + (", PEQ in shared memory" if m > 256 else "")
+            + f"), {chunks} threads per pair, equal to plain (a hit on "
+            f"{float((want[0] <= E).float().mean()):.3f} of pairs)")
     return out
 
 
@@ -832,7 +1026,7 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"{main_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(recs) == 2 * len(pairs)
-    for name in ("verify_fused_gather", "myers_scan", "myers", "fm_search",
+    for name in ("verify_fused_gather", "rescue_scan", "myers", "fm_search",
                  "fm_locate"):
         assert main_launches[name] > 0, f"{name} never ran on the PE path"
     lines = [r.line() for r in recs]
@@ -876,7 +1070,7 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
     reset_launches()
     rep_recs = [r.line() for r in map_batch_pe(rep_idx, rep_dix, cfg, rep)]
     rep_launches = dict(kernels.LAUNCHES)
-    assert rep_launches["myers_scan"] > 0, "myers_scan never ran (repeat)"
+    assert rep_launches["rescue_scan"] > 0, "rescue_scan never ran (repeat)"
     assert rep_recs == [r.line() for r in oracle_pe(rep_idx, cfg, rep)], \
         "repeat-genome PE SAM differs from the oracle"
     args, mn1, mn2 = to_dev(rep)
@@ -1268,23 +1462,15 @@ def satellite_reads(idx, n: int, seed: int):
     return reads, len(spans)
 
 
-def stage_table(dix, cfg, batches) -> tuple[dict, float]:
-    """Per-stage ms per batch of map_batch_device (median over the
-    batches), a device sync on both sides of each stage (so launch overhead
-    is charged to its stage); `rest` is what runs between them:
-    conversion, seed ordering, the flat expansion, the sort dedup and the
-    scatter back."""
+def timed_stages(stages: dict, run_batch, batches):
+    """Per-stage ms per batch of run_batch(batch) (median over the batches):
+    each function named in `stages` ({label: (module, attribute)}) is
+    wrapped with a device sync on both sides, so launch overhead is charged
+    to its stage; a stage called several times per batch sums its calls.
+    Returns ({label: ms}, ms of the whole batch); `rest` is the batch less
+    the stages."""
     import torch
 
-    from bitmapperbs_tpu_torch.models import aligner
-    from bitmapperbs_tpu_torch.ops import fm, kernels
-
-    stages = {"seed (KLT + backward search)": (fm, "search_patterns"),
-              "extend seeds": (fm, "extend_seeds"),
-              "locate": (fm, "locate"),
-              "window gather + verify (one kernel)":
-                  (kernels, "verify_fused_gather"),
-              "select": (aligner, "select_se")}
     spent = {name: [] for name in stages}       # ms, one entry per batch
     saved = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
 
@@ -1302,22 +1488,74 @@ def stage_table(dix, cfg, batches) -> tuple[dict, float]:
     try:
         for name, (mod, attr) in stages.items():
             setattr(mod, attr, timed(name, saved[name]))
-        for a, ln, mn in batches:
+        for batch in batches:
             for per_batch in spent.values():
                 per_batch.append(0.0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            aligner.map_batch_device(dix, cfg, a, ln,
-                                     min_read_len=mn)["best_score"].cpu()
+            run_batch(batch)
             totals.append(1e3 * (time.perf_counter() - t0))
     finally:
         for name, (mod, attr) in stages.items():
             setattr(mod, attr, saved[name])
     table = {name: statistics.median(ms) for name, ms in spent.items()}
-    table["rest (convert, order, expand, dedup, scatter)"] = \
-        statistics.median(t - sum(ms[i] for ms in spent.values())
-                          for i, t in enumerate(totals))
+    table["rest"] = statistics.median(
+        t - sum(ms[i] for ms in spent.values()) for i, t in enumerate(totals))
     return table, statistics.median(totals)
+
+
+def stage_table(dix, cfg, batches) -> tuple[dict, float]:
+    """The stage table of map_batch_device; `rest` is what runs between the
+    stages: conversion, seed ordering, the flat expansion, the sort dedup
+    and the scatter back."""
+    from bitmapperbs_tpu_torch.models import aligner
+    from bitmapperbs_tpu_torch.ops import fm, kernels
+
+    stages = {"seed (KLT + backward search)": (fm, "search_patterns"),
+              "extend seeds": (fm, "extend_seeds"),
+              "locate": (fm, "locate"),
+              "window gather + verify (one kernel)":
+                  (kernels, "verify_fused_gather"),
+              "select": (aligner, "select_se")}
+
+    def run_batch(batch):
+        a, ln, mn = batch
+        aligner.map_batch_device(dix, cfg, a, ln,
+                                 min_read_len=mn)["best_score"].cpu()
+
+    return timed_stages(stages, run_batch, batches)
+
+
+def pe_stage_table(dix, cfg, batches) -> tuple[dict, float]:
+    """The stage table of map_batch_pe_device; `rest` is the anchored-mate
+    choice, the missing mate's tables and the window bounds."""
+    from bitmapperbs_tpu_torch.models import paired
+
+    # the two candidate stages are one function called twice per batch
+    # (mate 1, then mate 2): each call is sent to a stage of its own
+    saved = paired.candidate_stage
+    mates = types.SimpleNamespace(calls=0, stage1=saved, stage2=saved)
+
+    def by_mate(*a, **kw):
+        mates.calls += 1
+        return (mates.stage1 if mates.calls % 2 else mates.stage2)(*a, **kw)
+
+    stages = {"candidate stage, mate 1": (mates, "stage1"),
+              "candidate stage, mate 2": (mates, "stage2"),
+              "pair join": (paired, "_pair_join"),
+              "select (both mates)": (paired, "select_se"),
+              "rescue (one rescue_scan launch)": (paired, "_rescue_scan")}
+
+    def run_batch(batch):
+        args, m1, m2 = batch
+        paired.map_batch_pe_device(dix, cfg, *args, min_read_len1=m1,
+                                   min_read_len2=m2)["pair_sum"].cpu()
+
+    paired.candidate_stage = by_mate
+    try:
+        return timed_stages(stages, run_batch, batches)
+    finally:
+        paired.candidate_stage = saved
 
 
 def idle_share(run_batches, n_walls: int = 5) -> dict:
@@ -1347,35 +1585,20 @@ def idle_share(run_batches, n_walls: int = 5) -> dict:
     return out
 
 
-def run_gbp(card: str) -> tuple[dict, dict]:
-    """Phases 12-14 on the planted-repeat genome; returns the records of
-    the kernels checked on its index (gather_rows, the FM kernels,
-    verify_fused at the 288 bucket) and the launch counts of its main paths
-    (phase 12's 96 bp batches, its 280 bp batch, phase 13)."""
+def gbp_index(device):
+    """The planted-repeat genome's index, on the host and on the card, and
+    the configuration the CLI tunes for a genome over 512 Mbp."""
     import argparse
 
     import numpy as np
     import torch
 
-    from bitmapperbs_tpu_torch import constants as K
     from bitmapperbs_tpu_torch.cli import autotune_for_genome
     from bitmapperbs_tpu_torch.config import AlignerConfig
-    from bitmapperbs_tpu_torch.index.build import build_index, save_index
+    from bitmapperbs_tpu_torch.index.build import build_index
     from bitmapperbs_tpu_torch.index.device import upload_index
-    from bitmapperbs_tpu_torch.io.fastq import write_fastq
-    from bitmapperbs_tpu_torch.io.stats import MapStats
-    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
-    from bitmapperbs_tpu_torch.models.host import (map_batch, map_batch_pe,
-                                                   prepare_batch, to_host)
-    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
-    from bitmapperbs_tpu_torch.ops import kernels
-    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
-    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
-    from bitmapperbs_tpu_torch.utils.simulate import (repeat_genome_fasta,
-                                                      simulate_pairs,
-                                                      simulate_reads)
+    from bitmapperbs_tpu_torch.utils.simulate import repeat_genome_fasta
 
-    device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     fasta = repeat_genome_fasta(np.random.default_rng(1), contigs=GBP_CONTIGS)
     t1 = time.perf_counter()
@@ -1393,35 +1616,148 @@ def run_gbp(card: str) -> tuple[dict, dict]:
         f"{dix.nbytes / 1e6:.1f} MB in all; sa_rate {dix.sa_rate}, klt_k "
         f"{dix.klt_k}")
     assert dix.sa_rate == 4
-
-    # the configuration the CLI tunes for a genome over 512 Mbp
     base = AlignerConfig(max_errors=E, indels=True, read_len_bucket=BUCKET,
                          batch_size=GBP_BATCH)
     cfg = autotune_for_genome(base, argparse.Namespace(), GBP_GENOME_BP)
     assert (cfg.seed_ext_max, cfg.seed_ext_occ, cfg.max_candidates) == \
         (20, 4, 128), cfg
-    cap = cfg.resolve_flat_cap(dix.genome_len, 2)
     log(f"Gbp config: seed_ext {cfg.seed_ext_max} / occ {cfg.seed_ext_occ}, "
         f"max_candidates {cfg.max_candidates}, max_seed_occ "
         f"{cfg.max_seed_occ}, locate_budget {cfg.locate_budget}, batch "
-        f"{cfg.batch_size}, flat cap {cap} slots per read")
+        f"{cfg.batch_size}, flat cap "
+        f"{cfg.resolve_flat_cap(dix.genome_len, 2)} slots per read")
+    return idx, dix, cfg
 
-    # ---- phase 3 (gather_rows, the FM kernels, verify_fused at the shape
-    # of its one caller left, the 288 bucket) on this index's tables --------
+
+def gbp_long_batch(idx, device):
+    """Phase 12's reads of 280 bp: the simulated reads and their batch on
+    the card."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models.host import prepare_batch
+    from bitmapperbs_tpu_torch.utils.simulate import simulate_reads
+
+    sims = simulate_reads(idx.genome, N_LONG, read_len=LONG_READ_LEN,
+                          seed=112, sub_rate=0.004, indel_rate=0.001)
+    a, ln = prepare_batch([s.codes for s in sims], LONG_BUCKET, N_LONG)
+    return sims, (torch.from_numpy(a).to(device),
+                  torch.from_numpy(ln).to(device), int(ln.min()))
+
+
+def gbp_pe_batches(idx, device):
+    """Phase 13's pairs: the simulated pairs and their batches on the
+    card."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models.host import prepare_batch
+    from bitmapperbs_tpu_torch.utils.simulate import simulate_pairs
+
+    psims = simulate_pairs(idx.genome, N_GBP_PE_BATCHES * GBP_BATCH,
+                           read_len=READ_LEN, seed=150, sub_rate=0.01,
+                           indel_rate=0.005, min_insert=150, max_insert=480)
+    batches = []
+    for lo in range(0, len(psims), GBP_BATCH):
+        mates = []
+        for k in (0, 1):
+            a, ln = prepare_batch([p[k].codes for p in psims[lo:lo
+                                                             + GBP_BATCH]],
+                                  BUCKET, GBP_BATCH)
+            mates.append((torch.from_numpy(a).to(device),
+                          torch.from_numpy(ln).to(device), int(ln.min())))
+        (a1, l1, m1), (a2, l2, m2) = mates
+        batches.append(((a1, l1, a2, l2), m1, m2))
+    return psims, batches
+
+
+def gbp_stage_tables(dix, cfg, long_batch, pe_batches) -> None:
+    """Synced stage tables of the 280 bp batch and of the PE batches in the
+    Gbp-scale configuration, and the PE path's device kernels, idle share
+    and peak memory."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+
+    long_cfg = cfg.replace(read_len_bucket=LONG_BUCKET, batch_size=N_LONG)
+    table, total = stage_table(dix, long_cfg, [long_batch] * 8)
+    for name, ms in table.items():
+        log(f"Gbp SE {LONG_READ_LEN} bp stage, synced, ms per {N_LONG}-read "
+            f"batch: {name}: {ms:.3f}")
+    log(f"Gbp SE {LONG_READ_LEN} bp stage total, synced per stage: "
+        f"{total:.3f} ms per batch (medians over 8 runs of the batch)")
+
+    pcfg = cfg.replace(paired=True, min_insert=MIN_INSERT,
+                       max_insert=MAX_INSERT)
+    table, total = pe_stage_table(dix, pcfg, pe_batches * 4)
+    for name, ms in table.items():
+        log(f"Gbp PE stage, synced, ms per {GBP_BATCH}-pair batch: {name}: "
+            f"{ms:.3f}")
+    log(f"Gbp PE stage total, synced per stage: {total:.3f} ms per batch "
+        f"(medians over {4 * len(pe_batches)} runs of {len(pe_batches)} "
+        f"batches)")
+
+    def all_batches():
+        for args, m1, m2 in pe_batches:
+            map_batch_pe_device(dix, pcfg, *args, min_read_len1=m1,
+                                min_read_len2=m2)
+        torch.cuda.synchronize()
+
+    all_batches()
+    torch.cuda.reset_peak_memory_stats(dix.device)
+    all_batches()
+    peak = torch.cuda.max_memory_allocated(dix.device) / 1e9
+    idle = idle_share(all_batches)
+    n = len(pe_batches)
+    log(f"Gbp PE, {n} batches of {GBP_BATCH} pairs back to back: walls "
+        f"{min(idle['walls_ms']):.2f}-{max(idle['walls_ms']):.2f} ms "
+        f"unprofiled; under torch.profiler "
+        f"{idle['device_kernels'] / n:.1f} device kernels and "
+        f"{idle['busy_ms'] / n:.3f} ms of device time per batch; idle share "
+        + ("{:.2f}-{:.2f}".format(*idle["idle"]) if "idle" in idle
+           else "not measured (the profiler reported no device time)")
+        + f"; peak device memory {peak:.2f} GB")
+
+
+def run_gbp(card: str) -> tuple[dict, dict]:
+    """Phases 12-14 on the planted-repeat genome; returns the records of
+    the kernels checked on its index (gather_rows, the FM kernels,
+    verify_fused at the 288 bucket) and the launch counts of its main paths
+    (phase 12's 96 bp batches, its 280 bp batch, phase 13)."""
+    import torch
+
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.index.build import save_index
+    from bitmapperbs_tpu_torch.io.fastq import write_fastq
+    from bitmapperbs_tpu_torch.io.stats import MapStats
+    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+    from bitmapperbs_tpu_torch.models.host import (map_batch, map_batch_pe,
+                                                   prepare_batch, to_host)
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+    from bitmapperbs_tpu_torch.ops import kernels
+    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
+    from bitmapperbs_tpu_torch.utils.simulate import simulate_reads
+
+    device = torch.device("cuda", 0)
+    idx, dix, cfg = gbp_index(device)
+    cap = cfg.resolve_flat_cap(dix.genome_len, 2)
+
+    # ---- phase 3 (gather_rows, the FM kernels, both fused verify entries
+    # at the 288 bucket: 9 read words) on this index's tables ---------------
     kstats = {"gather_rows": phase_gather_kernel(dix, GBP_BATCH * cap)}
     long_cfg = cfg.replace(read_len_bucket=LONG_BUCKET, batch_size=N_LONG)
-    kstats.update(phase_kernels(
-        idx, dix, ("verify_fused",),
+    long_k = phase_kernels(
+        idx, dix, ("verify_fused", "verify_fused_gather"),
         n_lanes=N_LONG * long_cfg.resolve_flat_cap(dix.genome_len, 2),
-        m=LONG_BUCKET, read_len=LONG_READ_LEN, plain_reps=PLAIN_LONG_REPS))
+        m=LONG_BUCKET, read_len=LONG_READ_LEN, plain_reps=PLAIN_LONG_REPS)
+    kstats["verify_fused"] = long_k["verify_fused"]
+    kstats["verify_fused_gather_long"] = long_k["verify_fused_gather"]
 
     t0 = time.perf_counter()
     n_sims = GBP_BIG_BATCH * N_GBP_BIG_BATCHES
     sims = simulate_reads(idx.genome, n_sims, read_len=READ_LEN, seed=110,
                           sub_rate=0.01, indel_rate=0.005)
     sat, n_arrays = satellite_reads(idx, N_GBP_SAT, seed=111)
-    long_sims = simulate_reads(idx.genome, N_LONG, read_len=LONG_READ_LEN,
-                               seed=112, sub_rate=0.004, indel_rate=0.001)
+    long_sims, long_batch = gbp_long_batch(idx, device)
     log(f"Gbp inputs: {n_sims} simulated reads, {N_GBP_SAT} reads from "
         f"{n_arrays} satellite arrays and {N_LONG} reads of {LONG_READ_LEN} "
         f"bp in {time.perf_counter() - t0:.2f} s")
@@ -1456,8 +1792,8 @@ def run_gbp(card: str) -> tuple[dict, dict]:
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     for name in ("gather_rows", "verify_fused_gather", "myers", *FM_KERNELS):
         assert se_launches[name] > 0, f"{name} never ran on the Gbp SE path"
-    # a main path of its own: reads over 256 bp, whose 9 plane words are past
-    # the gathering verify's widths
+    # a main path of its own: reads over 256 bp, whose 9 plane words take
+    # the gathering verify's shared-memory instance
     long_reads = [s.codes for s in long_sims]
     long_quals = [s.qual for s in long_sims]
     long_names = [f"l{i}" for i in range(N_LONG)]
@@ -1469,10 +1805,11 @@ def run_gbp(card: str) -> tuple[dict, dict]:
     log(f"Gbp SE main path, {LONG_READ_LEN} bp: {N_LONG} reads mapped in "
         f"{time.perf_counter() - t0:.2f} s (first call), launches "
         f"{long_launches}")
-    for name in ("gather_rows", "verify_fused", *FM_KERNELS):
+    for name in ("gather_rows", "verify_fused_gather", *FM_KERNELS):
         assert long_launches[name] > 0, \
             f"{name} never ran on the Gbp SE path at {LONG_READ_LEN} bp"
-    assert long_launches["verify_fused_gather"] == 0
+    assert long_launches["verify_fused_gather"] == 1, long_launches
+    assert long_launches["verify_fused"] == 0, long_launches
     oracle = [r.line() for r in map_batch_se(
         idx, long_cfg, long_reads[:N_LONG_ORACLE], long_quals[:N_LONG_ORACLE],
         long_names[:N_LONG_ORACLE])]
@@ -1571,9 +1908,7 @@ def run_gbp(card: str) -> tuple[dict, dict]:
     pcfg = cfg.replace(paired=True, min_insert=MIN_INSERT,
                        max_insert=MAX_INSERT)
     t0 = time.perf_counter()
-    psims = simulate_pairs(idx.genome, N_GBP_PE_BATCHES * GBP_BATCH,
-                           read_len=READ_LEN, seed=150, sub_rate=0.01,
-                           indel_rate=0.005, min_insert=150, max_insert=480)
+    psims, pe_batches = gbp_pe_batches(idx, device)
     pairs = [(a.codes, b.codes) for a, b in psims]
     pquals = [(a.qual, b.qual) for a, b in psims]
     pnames = [f"q{i}" for i in range(len(pairs))]
@@ -1589,9 +1924,10 @@ def run_gbp(card: str) -> tuple[dict, dict]:
         f"{pe_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(precs) == 2 * len(pairs)
-    for name in ("gather_rows", "verify_fused_gather", "myers_scan",
+    for name in ("gather_rows", "verify_fused_gather", "rescue_scan",
                  *FM_KERNELS):
         assert pe_launches[name] > 0, f"{name} never ran on the Gbp PE path"
+    assert pe_launches["myers_scan"] == 0, pe_launches
     plines = [r.line() for r in precs]
     oracle = [r.line() for r in oracle_pe(idx, pcfg, pairs[:N_GBP_PE_ORACLE],
                                           pquals[:N_GBP_PE_ORACLE],
@@ -1603,20 +1939,16 @@ def run_gbp(card: str) -> tuple[dict, dict]:
     proper = sum(bool(r.flag & K.FLAG_PROPER)
                  for r in precs[::2]) / len(pairs)
 
-    def pe_dev(lo):
-        chunk = pairs[lo:lo + GBP_BATCH]
-        a1, l1, m1 = to_dev([p[0] for p in chunk], GBP_BATCH)
-        a2, l2, m2 = to_dev([p[1] for p in chunk], GBP_BATCH)
-        return (a1, l1, a2, l2), m1, m2
-
-    pe_batches = [pe_dev(lo) for lo in range(0, len(pairs), GBP_BATCH)]
-
     def pe_run(batch):
         args, m1, m2 = batch
         return map_batch_pe_device(dix, pcfg, *args, min_read_len1=m1,
                                    min_read_len2=m2)
 
+    reset_launches()
     hosts = [to_host(pe_run(b)) for b in pe_batches]
+    per_batch = {k: v / len(pe_batches) for k, v in kernels.LAUNCHES.items()}
+    assert per_batch["rescue_scan"] == 1, per_batch
+    log(f"Gbp PE: launches per map_batch_pe_device call {per_batch}")
     join = sum(int(h["pair_valid"].sum()) for h in hosts)
     resc = sum(int((h["resc_valid"] & ~h["pair_valid"]).sum()) for h in hosts)
     neither = len(pairs) - join - resc
@@ -1643,6 +1975,8 @@ def run_gbp(card: str) -> tuple[dict, dict]:
         f"{peak:.2f} GB); end-to-end map_batch_pe {pe_e2e:.1f} reads/s "
         f"(median of {E2E_REPS} runs, {pe_lo:.1f}-{pe_hi:.1f}), on "
         f"{card}")
+
+    gbp_stage_tables(dix, cfg, long_batch, pe_batches)
 
     # ---- phase 14: CLI with the Gbp flags on the saved artifact -----------------
     with tempfile.TemporaryDirectory(prefix="btbs_smoke_gbp_") as d:
@@ -1702,8 +2036,14 @@ def run(card: str) -> dict:
     # ---- phase 3: kernels vs plain ------------------------------------------
     kstats = phase_kernels(idx, dix, ("verify_fused", "myers",
                                       "verify_fused_gather"))
-    fused_96 = kstats["verify_fused"]
+    fused_96, gather_96 = kstats["verify_fused"], kstats["verify_fused_gather"]
+    gather_wide = {
+        f"m {m}": phase_kernels(idx, dix, ("verify_fused_gather",), n_lanes=n,
+                                m=m, read_len=read_len,
+                                plain_reps=1)["verify_fused_gather"]
+        for m, read_len, n in WIDE_VERIFY_SHAPES}
     kstats["myers_scan"] = phase_scan_kernel(idx, dix)
+    kstats["rescue_scan"] = phase_rescue_kernel(idx, dix)
 
     with tempfile.TemporaryDirectory(prefix="btbs_smoke_idx_") as d:
         prefix = os.path.join(d, "ref")
@@ -1714,15 +2054,28 @@ def run(card: str) -> dict:
     del idx, dix
     torch.cuda.empty_cache()
     gbp_kstats, gbp_paths = run_gbp(card)
+    gather_long = gbp_kstats.pop("verify_fused_gather_long")
     kstats.update(gbp_kstats)         # verify_fused: the 288-bucket shape
     kstats["verify_fused"]["shapes"] = {
         f"m {LONG_BUCKET}": dict(kstats["verify_fused"]),
         f"m {BUCKET}": fused_96}
+    kstats["verify_fused_gather"] = {
+        **gather_96, "shapes": {f"m {BUCKET}": gather_96,
+                                f"m {LONG_BUCKET}": gather_long,
+                                **gather_wide}}
 
     by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches, **gbp_paths}
     launches = {name: sum(p[name] for p in gbp_paths.values())
                 for name in KERNEL_SOURCES}
-    for name in KERNEL_SOURCES:
+    assert {n for names in TPU_KERNEL_ENTRIES.values() for n in names} == \
+        set(KERNEL_SOURCES)
+    for tpu_kernel, names in TPU_KERNEL_ENTRIES.items():
+        assert any(launches[name] > 0 for name in names), \
+            f"no entry of {tpu_kernel} ({names}) launched on this slice's " \
+            f"main paths"
+    # the entries no path calls any more stay checked against their plain
+    # versions above; everything else must launch
+    for name in set(KERNEL_SOURCES) - {"verify_fused", "myers_scan"}:
         assert launches[name] > 0, \
             f"{name} never launched on this slice's main paths"
     return {"kernels": [

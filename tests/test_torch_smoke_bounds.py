@@ -97,3 +97,47 @@ def test_verify_ops_scale_with_the_words(monkeypatch, words, scale):
     got = chip_smoke.verify_ops("verify_fused", lanes=1000, myers_lanes=400,
                                 ncols=104, words=words)
     assert got == pytest.approx((1000 * 93 + 400 * 104 * 48) * scale)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 8, 32])
+def test_rescue_columns_run_counts_the_warm_up(chunks):
+    """rescue_columns_run counts the columns the kernel runs with `chunks`
+    threads per pair, warm-up included, as the scalar model of the kernel
+    does on lanes with full, short, zero, negative and missing spans; with
+    one thread it is the columns the function needs, which the bound
+    charges."""
+    import numpy as np
+
+    from test_torch_rescue_scan import (rescue_lanes, rescue_pair_model,
+                                        toy_genome)
+    from bitmapperbs_tpu_torch.index.device import _device_layout_planes
+
+    m, e, R, n = 32, 3, 61, 40
+    rng = np.random.default_rng(9)
+    genome = toy_genome(rng)
+    gp = _device_layout_planes(genome)
+    ln = rescue_lanes(rng, n, m, e, R, genome)
+    zeros = [[0] * (m // 32)] * 4
+    want = sum(rescue_pair_model(
+        gp, gp.shape[0] // 2, genome.length, int(ln["blk"][i]),
+        int(ln["win_start"][i]), bool(ln["r_ok"][i]), int(ln["a_lo"][i]),
+        int(ln["span"][i]), int(ln["lens"][i]), zeros, zeros[0], m, e, R,
+        chunks)[3] for i in range(n))
+    got = chip_smoke.rescue_columns_run(ln["r_ok"], ln["span"], m, e, R,
+                                        chunks)
+    assert got == want > 0
+    # one thread per pair: the window's columns up to the last valid one
+    if chunks == 1:
+        span = ln["span"].astype(np.int64)
+        span[span >= 1 << 31] = -1
+        full = np.where(ln["r_ok"] & (span >= 0),
+                        e + m + np.minimum(span, R + e), 0)
+        assert got == full.sum()
+
+
+def test_every_tpu_kernel_names_its_entries():
+    named = [n for names in chip_smoke.TPU_KERNEL_ENTRIES.values()
+             for n in names]
+    assert sorted(named) == sorted(chip_smoke.KERNEL_SOURCES)
+    assert "rescue_scan" in chip_smoke.TPU_KERNEL_ENTRIES["myers_scan_pallas"]
+    assert "paired.py:220-238" in chip_smoke.KERNEL_SOURCES["rescue_scan"][1]

@@ -3,7 +3,11 @@ version (what the wrapper runs on CPU tensors) equals the JAX package's
 window_planes followed by its fused verify path, run as the JAX tests run it
 on the CPU (the jnp sequence, and the Pallas kernel in interpret mode),
 exactly, on lanes whose windows wrap below position 0, run past the genome
-end, come from both orientations and carry short reads."""
+end, come from both orientations and carry short reads.  For buckets over 256
+bp (9..32 read words) a scalar per-lane model of the CUDA kernel's control
+flow (window words fetched as the Hamming words and the Myers columns
+advance, the match table indexed by the column's symbol) is held to the plain
+version as well."""
 import numpy as np
 import pytest
 
@@ -21,6 +25,8 @@ from bitmapperbs_tpu_torch.index.device import \
     _device_layout_planes  # noqa: E402
 from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
 from bitmapperbs_tpu_torch.ops import verify as tv  # noqa: E402
+from test_torch_rescue_scan import (WindowModel, mask_lt,  # noqa: E402
+                                    myers_column_words)
 
 U32 = 0xFFFFFFFF
 
@@ -41,7 +47,8 @@ def lanes(rng, n, m, e, n_rows=37):
     shifts (ham <= e and ham > e both occur), a table of n_rows read-plane
     rows that the lanes pick from, short reads, anchors within e of
     position 0 (the window start wraps) and within m of the end."""
-    genome = parse_fasta(random_genome_fasta(rng, contigs=(900, 500)))
+    genome = parse_fasta(random_genome_fasta(
+        rng, contigs=(max(900, 3 * m), 500)))
     L = genome.length
     gp = _device_layout_planes(genome)
     ref = np.stack([genome.codes, genome.rc_codes()])
@@ -50,14 +57,17 @@ def lanes(rng, n, m, e, n_rows=37):
     anchor_r = rng.integers(0, L - m, n_rows)
     anchor_r[:4] = rng.integers(0, e + 1, 4)
     anchor_r[4:8] = L - rng.integers(1, m, 4)
+    clean = slice(8, min(12, n_rows))                # whole inside contig 1
+    anchor_r[clean] = 256 + rng.integers(0, 100, 4)[:len(anchor_r[clean])]
     lens_r = np.where(rng.random(n_rows) < 0.4,
                       rng.integers(m // 2, m + 1, n_rows), m - 6)
     pos = anchor_r[:, None] + np.arange(m)
     reads = ref[orient_r[:, None], np.clip(pos, 0, L - 1)]
     reads[pos >= L] = K.N_CODE
     reads[(reads == K.C) & (rng.random(reads.shape) < 0.7)] = K.T
-    sub = rng.random(reads.shape) < rng.choice([0.0, 0.02, 0.08],
-                                               n_rows)[:, None]
+    rate = rng.choice([0.0, 0.02, 0.08], n_rows)
+    rate[clean] = 0.0                                # ham <= e at any width
+    sub = rng.random(reads.shape) < rate[:, None]
     reads[sub] = (reads[sub] + 1) % 4
     reads[np.arange(m)[None, :] >= lens_r[:, None]] = K.N_CODE
     # lanes: mostly at their row's anchor (sometimes shifted by an indel-like
@@ -74,9 +84,52 @@ def lanes(rng, n, m, e, n_rows=37):
     return gp, L, reads.astype(np.uint8), lens_r, row, orient, start
 
 
-@pytest.mark.parametrize("m,e", [(96, 4), (64, 2), (32, 3)])
-def test_gathering_verify_ref_vs_jax_sequence(rng, m, e):
-    n, Wd, ncols = 600, m // 32, m + 2 * e
+def wide_lane_model(gp, gwords, L, orient, start, planes, length, m, ncols,
+                    e):
+    """One lane as verify_fused_gather_wide_kernel runs it: the Hamming
+    count word by word from the streamed window, then (ham > e) the match
+    table of five rows and the Myers columns over a second pass of the
+    window.  planes: the lane's 3 * Wd read-plane words."""
+    Wd = m // 32
+    win = WindowModel(gp, orient, start, gwords, L)
+    cur, ham = win.next(), 0
+    for k in range(Wd):
+        nxt = win.next()
+        a0, a1, an = (((c >> e) | (x << (32 - e))) & U32 if e else c
+                      for c, x in zip(cur, nxt))
+        d0, d1, dn = planes[k], planes[Wd + k], planes[2 * Wd + k]
+        lmask = mask_lt(min(max(length - 32 * k, 0), 32))
+        eqb = ~(a0 ^ d0) & ~(a1 ^ d1)
+        match = (eqb | ((a0 & ~a1) & (d0 & d1))) & ~an & ~dn
+        ham += bin(~match & lmask & U32).count("1")
+        cur = nxt
+    if ham <= e:
+        return ham
+    table = [[], [], [], [], []]
+    for k in range(Wd):
+        r0, r1, rn = planes[k], planes[Wd + k], planes[2 * Wd + k]
+        p = ~mask_lt(min(max(length - 32 * k, 0), 32)) & U32
+        for row, bits in zip(table, (~r0 & ~r1 & ~rn,
+                                     (r0 & ~r1 & ~rn) | (r0 & r1 & ~rn),
+                                     ~r0 & r1 & ~rn, r0 & r1 & ~rn, 0)):
+            row.append((bits | p) & U32)
+    vp, vn, score, best = [U32] * Wd, [0] * Wd, m, m
+    win = WindowModel(gp, orient, start, gwords, L)
+    for j0 in range(0, ncols, 32):
+        a0, a1, an = win.next()
+        for b in range(min(32, ncols - j0)):
+            sym = 4 if (an >> b) & 1 \
+                else ((a0 >> b) & 1) | (((a1 >> b) & 1) << 1)
+            score += myers_column_words(vp, vn, table[sym])
+            best = min(best, score)
+    return best
+
+
+@pytest.mark.parametrize("m,e,n", [(96, 4, 600), (64, 2, 600), (32, 3, 600),
+                                   (288, 4, 96), (512, 3, 64),
+                                   (1024, 4, 40)])
+def test_gathering_verify_ref_vs_jax_sequence(rng, m, e, n):
+    Wd, ncols = m // 32, m + 2 * e
     Ww = -(-ncols // 32)
     assert kernels.verify_fused_gather_fits(m, ncols)
     gp, L, reads, lens_r, row, orient, start = lanes(rng, n, m, e)
@@ -100,6 +153,13 @@ def test_gathering_verify_ref_vs_jax_sequence(rng, m, e):
     assert got.dtype == torch.int32 and kernels.LAUNCHES == before
     same(got, want)
     same(kernels.verify_fused_gather_ref(*args), want)
+    if Wd > 8:           # the kernel for these widths, lane by lane
+        tab_n = tab.numpy()
+        model = [wide_lane_model(
+            gp, gp.shape[0] // 2, L, int(orient[i]), int(start[i]),
+            [int(x) for x in tab_n[row[i]]], int(lens_r[row[i]]), m, ncols,
+            e) for i in range(n)]
+        same(got, model)
 
 
 def test_gathering_verify_ref_vs_pallas_interpret(rng):
@@ -122,12 +182,13 @@ def test_gathering_verify_ref_vs_pallas_interpret(rng):
 
 
 def test_gathering_verify_widths_and_raises(rng):
-    """The gathering entry is built for 1..8 read words and a window of one
-    word more; other widths are the planes-taking entry's.  Device mixes and
-    wrong lane types raise."""
+    """The gathering entry is built for every bucket (1..32 read words) and
+    a window of one word more.  Device mixes and wrong lane types raise."""
     assert kernels.verify_fused_gather_fits(96, 104)
     assert kernels.verify_fused_gather_fits(256, 264)
-    assert not kernels.verify_fused_gather_fits(288, 296)    # 9 words
+    for m in (288, 512, 1024):                               # 9..32 words
+        assert kernels.verify_fused_gather_fits(m, m + 8)
+    assert not kernels.verify_fused_gather_fits(1056, 1064)  # 33 words
     assert not kernels.verify_fused_gather_fits(96, 96)      # e = 0
     assert not kernels.verify_fused_gather_fits(96, 96 + 40)  # e = 20
     m, e = 96, 4
@@ -149,10 +210,9 @@ def test_gathering_verify_widths_and_raises(rng):
 
 
 def test_long_bucket_takes_the_planes_entry():
-    """Reads over 256 bp (9 plane words) are past the gathering entry's
-    compile-time widths: the compact path gathers their windows with
-    window_planes and calls verify_fused, and the tuples still equal the
-    JAX package's."""
+    """Reads over 256 bp (9 plane words) took the planes entry once; now
+    the compact path hands every bucket to the gathering entry (one call,
+    no verify_fused), and the tuples still equal the JAX package's."""
     from bitmapperbs_tpu.config import AlignerConfig
     from bitmapperbs_tpu.index.build import build_index
     from bitmapperbs_tpu.index.device import upload_index as jupload
@@ -181,7 +241,7 @@ def test_long_bucket_takes_the_planes_entry():
                                    torch.from_numpy(lens))
     finally:
         kernels.verify_fused, kernels.verify_fused_gather = saved
-    assert calls == ["planes"]
+    assert calls == ["gather"]
     want = jal.map_batch_device(jupload(idx), cfg, jnp.asarray(arr),
                                 jnp.asarray(lens))
     for k in want:
