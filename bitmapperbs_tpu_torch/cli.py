@@ -11,12 +11,21 @@ Counterpart of bitmapperbs_tpu/cli.py, with the same options: the parser,
 budget grouping are kept equal to the reference CLI's.  `search` maps
 single-end reads through models/host.map_batch and pairs through
 models/host.map_batch_pe on one GPU (`--platform auto|gpu`) or, when asked
-for explicitly, on the CPU (`--platform cpu`).  Options of the reference
-that this port does not run yet exit 2.
+for explicitly, on the CPU (`--platform cpu`); `--oracle` maps through the
+numpy oracle on the host instead.
+
+Streaming runs checkpoint a (record, byte-offset) cursor next to the output,
+`<out>.cursor`, after every written group (the reference's JSON: a run
+killed under either package resumes under the other with `--resume`).
+`--profile DIR` writes a torch.profiler Chrome trace and prints the map /
+write stage walls (utils/profiling.StageTimer); `--dist-hosts N` maps
+one shard of the input per process (parallel/multihost.py).  Mapping over
+several local cards (`--shard-index`) is not ported yet and exits 2.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
 import sys
@@ -380,13 +389,7 @@ def _closing_iter(pf):
 
 
 def _unported(args) -> str | None:
-    for flag, on in (("--dist-hosts", args.dist_hosts > 1),
-                     ("--shard-index", args.shard_index),
-                     ("--profile", args.profile is not None),
-                     ("--oracle", args.oracle), ("--resume", args.resume)):
-        if on:
-            return flag
-    return None
+    return "--shard-index" if args.shard_index else None
 
 
 def _device(platform: str):
@@ -410,8 +413,9 @@ def cmd_search(args) -> int:
     if not args.pe and not args.seq:
         sys.stderr.write("error: single-end search requires --seq\n")
         return 2
-    device = _device(args.platform)
-    if device is None:
+    # --oracle maps on the host by definition: it needs no card
+    device = None if args.oracle else _device(args.platform)
+    if device is None and not args.oracle:
         sys.stderr.write(f"error: --platform {args.platform}: no CUDA device"
                          f" available (use --platform cpu for a host run)\n")
         return 2
@@ -422,9 +426,10 @@ def cmd_search(args) -> int:
                                                 read_pairs, write_fastq)
     from bitmapperbs_tpu_torch.io.sam import SamWriter
     from bitmapperbs_tpu_torch.io.stats import MapStats
-    from bitmapperbs_tpu_torch.models.pool import make_finalize_pool
-    from bitmapperbs_tpu_torch.index.device import upload_index
-    from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
+    from bitmapperbs_tpu_torch.parallel import multihost
+    from bitmapperbs_tpu_torch.utils.profiling import (StageTimer,
+                                                       device_trace,
+                                                       trace_path)
 
     # ref may be the FASTA path (resolves <ref>.btidx) or an index prefix
     for prefix in (default_prefix(args.ref), args.ref,
@@ -457,6 +462,9 @@ def cmd_search(args) -> int:
             return 2
         error_rate = args.max_errors
         args.max_errors = _budget_for(error_rate, len(first.codes[0]))
+        sys.stderr.write(f"[bitmapperbs_tpu_torch] -e {error_rate} -> "
+                         f"per-read max_errors=floor(rate*len) (first read: "
+                         f"{args.max_errors} at {len(first.codes[0])} bp)\n")
     cfg = make_config(args)
     idx = load_index(prefix)
     cfg = autotune_for_genome(cfg, args, int(sum(idx.genome.lengths)))
@@ -465,23 +473,84 @@ def cmd_search(args) -> int:
     if bam and args.output == "-":
         sys.stderr.write("error: --bam requires -o FILE\n")
         return 2
+
+    # multi-host: per-host FASTQ shard (byte ranges by default -- each host
+    # decodes ~1/H; record striding for .gz), per-host SAM shard, global
+    # stats summed over hosts at the end
+    shard = range_plan = None
+    if args.dist_hosts > 1:
+        gz = any(str(p).endswith(".gz") for p in inputs)
+        mode = args.dist_shard
+        if mode == "auto":
+            mode = "records" if gz else "bytes"
+        elif mode == "bytes" and gz:
+            # byte-range planning works on uncompressed offsets only; on a
+            # .gz the plan would be computed in compressed space while the
+            # reader seeks decompressed offsets -> silent record loss
+            raise SystemExit("error: --dist-shard bytes requires "
+                             "uncompressed FASTQ inputs (use 'records' or "
+                             "'auto' for .gz)")
+        pid, nproc = multihost.init_distributed(
+            args.dist_coordinator, args.dist_hosts, args.dist_host_id)
+        if mode == "bytes":
+            range_plan = multihost.plan_byte_range(
+                inputs[0], pid, nproc, path2=args.seq2 if args.pe else None)
+        else:
+            shard = multihost.HostShard(pid, nproc)
+        if args.output != "-":
+            args.output = multihost.shard_path(args.output, pid, nproc)
+        sys.stderr.write(f"[bitmapperbs_tpu_torch] host {pid}/{nproc} "
+                         f"({mode}) -> {args.output}\n")
+
+    # resume cursor next to the output: where the reader restarts and how
+    # much of the output is acknowledged; the same JSON as the reference's
+    cursor_path = (args.output + ".cursor") if args.output != "-" else None
+    resume = {"record": 0, "offset": 0, "out_pos": 0}
+    if range_plan is not None:   # shard start; a cursor overrides it below
+        resume = {"record": range_plan.start_record,
+                  "offset": range_plan.offset,
+                  "offset2": range_plan.offset2, "out_pos": 0}
+    resumed = args.resume and cursor_path and os.path.exists(cursor_path)
+    if resumed:
+        with open(cursor_path) as f:
+            resume = json.load(f)
+        # a crash can land between the output flush and the cursor write:
+        # truncating the output to the cursor's byte position (a record
+        # boundary, a BGZF block boundary for BAM: save_cursor flushes the
+        # writer first) drops what the cursor does not acknowledge
+        if resume.get("out_pos") is not None and os.path.exists(args.output):
+            with open(args.output, "r+b") as f:
+                f.truncate(resume["out_pos"])
+        sys.stderr.write(f"[bitmapperbs_tpu_torch] resuming at record "
+                         f"{resume['record']}\n")
+
     # finalize workers are spawned (numpy only) before the device is touched
-    pool = make_finalize_pool(idx, cfg, args.threads)
-    dix = upload_index(idx, device)
+    pool = dix = None
+    if not args.oracle:
+        from bitmapperbs_tpu_torch.index.device import upload_index
+        from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
+        from bitmapperbs_tpu_torch.models.pool import make_finalize_pool
+        pool = make_finalize_pool(idx, cfg, args.threads)
+        dix = upload_index(idx, device)
 
     out_fh = sys.stdout if args.output == "-" else open(
-        args.output, "wb" if bam else "w")
+        args.output,
+        ("ab" if bam else "a") if resumed else ("wb" if bam else "w"))
     stats = MapStats()
+    timer = StageTimer()         # map / write walls, reported with --profile
     unmapped, ambiguous = [], []
     t0 = time.time()
     cl = "bitmapperbs_tpu_torch " + " ".join(sys.argv[1:])
     if bam:
         from bitmapperbs_tpu_torch.io.bam import BamWriter
         writer = BamWriter(out_fh, idx.genome.names, idx.genome.lengths,
-                           rg=args.rg, cl=cl)
-    else:
+                           rg=args.rg, cl=cl, write_header=not resumed)
+    elif not resumed:
         writer = SamWriter(out_fh, idx.genome.names, idx.genome.lengths,
                            rg=args.rg, cl=cl)
+    else:                        # appending: no second header
+        writer = SamWriter.__new__(SamWriter)
+        writer.fh = out_fh
 
     def emit(records, reads, qnames, quals):
         for rec, r, qn, q in zip(records, reads, qnames, quals):
@@ -493,56 +562,128 @@ def cmd_search(args) -> int:
                     and not rec.flag & K.FLAG_UNMAPPED:
                 ambiguous.append((r, qn, q))
 
-    def run(c, codes, quals, qnames):
+    def save_cursor(record, offset, offset2=0):
+        if cursor_path:
+            writer.flush()  # out_pos must be a record/BGZF-block boundary
+            # atomic replace: a SIGKILL mid-write never leaves a torn cursor
+            with open(cursor_path + ".tmp", "w") as f:
+                json.dump({"record": record, "offset": offset,
+                           "offset2": offset2, "out_pos": out_fh.tell()}, f)
+            os.replace(cursor_path + ".tmp", cursor_path)
+
+    if args.oracle:
+        from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as ope
+        from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se as ose
+
+    def run_se(c, codes, quals, qnames):
+        if args.oracle:
+            return ose(idx, c, codes, quals, qnames)
         return map_batch(idx, dix, c, codes, quals, qnames, stats=stats,
                          pool=pool)
 
-    def run_pe(c, pairs, quals, qnames):
-        return map_batch_pe(idx, dix, c, pairs, quals, qnames, stats=stats,
+    def run_pairs(c, prs, quals, qnames):
+        if args.oracle:
+            return ope(idx, c, prs, quals, qnames)
+        return map_batch_pe(idx, dix, c, prs, quals, qnames, stats=stats,
                             pool=pool)
 
     try:
-        if args.pe:
-            for b1, b2 in _closing_iter(Prefetcher(read_pairs(
-                    args.seq1, args.seq2, cfg.batch_size, args.phred64))):
-                prs = list(zip(b1.codes, b2.codes))
-                quals = list(zip(b1.quals, b2.quals))
-                recs = _map_grouped_pe(run_pe, cfg, error_rate, prs, quals,
-                                       b1.qnames)
-                # two records per pair: mate 1, mate 2
-                emit(recs, [r for p in prs for r in p],
-                     [q for q in b1.qnames for _ in (0, 1)],
-                     [q for p in quals for q in p])
-                out_fh.flush()
-        else:
-            # group `threads` reader batches per call so the finalize pool
-            # has cross-batch work
-            group_n = max(1, args.threads)
-            gbuf: list = []
+        with device_trace(args.profile, device):
+            if args.pe:
+                limit_records = None
+                if range_plan is not None:
+                    limit_records = range_plan.n_records - (
+                        resume["record"] - range_plan.start_record)
+                for b1, b2 in _closing_iter(Prefetcher(read_pairs(
+                        args.seq1, args.seq2, cfg.batch_size, args.phred64,
+                        resume_offsets=(resume["offset"],
+                                        resume.get("offset2", 0)),
+                        resume_record=resume["record"],
+                        limit_records=limit_records))):
+                    prs = list(zip(b1.codes, b2.codes))
+                    quals = list(zip(b1.quals, b2.quals))
+                    qn = b1.qnames
+                    # the cursor advances by the unfiltered batch: shard
+                    # ownership is by global record index, so record indices
+                    # and byte offsets stay aligned across a resume
+                    cursor = (b1.start_record + len(b1), b1.end_offset,
+                              b2.end_offset)
+                    if shard is not None:
+                        prs, qn, quals = shard.filter_batch(
+                            prs, qn, quals, b1.start_record)
+                        if not prs:
+                            save_cursor(*cursor)
+                            continue
+                    with timer("map"):
+                        recs = _map_grouped_pe(run_pairs, cfg, error_rate,
+                                               prs, quals, qn)
+                    with timer("write"):
+                        # two records per pair: mate 1, mate 2
+                        emit(recs, [r for p in prs for r in p],
+                             [q for q in qn for _ in (0, 1)],
+                             [q for p in quals for q in p])
+                        out_fh.flush()
+                        save_cursor(*cursor)
+            else:
+                # group `threads` reader batches per call so the finalize
+                # pool has cross-batch work; the cursor moves per group
+                group_n = max(1, args.threads)
+                gbuf: list = []
+                last = [None]
 
-            def flush_group():
-                if not gbuf:
-                    return
-                codes = [c for g in gbuf for c in g[0]]
-                qnames = [c for g in gbuf for c in g[1]]
-                quals = [c for g in gbuf for c in g[2]]
-                gbuf.clear()
-                emit(_map_grouped_se(run, cfg, error_rate, codes, quals,
-                                     qnames), codes, qnames, quals)
-                out_fh.flush()
+                def flush_group():
+                    if not gbuf:
+                        return
+                    codes = [c for g in gbuf for c in g[0]]
+                    qnames = [c for g in gbuf for c in g[1]]
+                    quals = [c for g in gbuf for c in g[2]]
+                    gbuf.clear()
+                    with timer("map"):
+                        recs = _map_grouped_se(run_se, cfg, error_rate, codes,
+                                               quals, qnames)
+                    with timer("write"):
+                        emit(recs, codes, qnames, quals)
+                        out_fh.flush()
+                        save_cursor(*last[0])
 
-            reader = FastqReader(args.seq, cfg.batch_size, args.phred64)
-            for batch in _closing_iter(Prefetcher(reader)):
-                gbuf.append((batch.codes, batch.qnames, batch.quals))
-                if len(gbuf) >= group_n:
-                    flush_group()
-            flush_group()
+                reader = FastqReader(
+                    args.seq, cfg.batch_size, args.phred64,
+                    resume_offset=resume["offset"],
+                    resume_record=resume["record"],
+                    limit_offset=(range_plan.limit_offset
+                                  if range_plan is not None else None))
+                for batch in _closing_iter(Prefetcher(reader)):
+                    codes, qnames, quals = (batch.codes, batch.qnames,
+                                            batch.quals)
+                    last[0] = (batch.start_record + len(batch),
+                               batch.end_offset)
+                    if shard is not None:
+                        codes, qnames, quals = shard.filter_batch(
+                            codes, qnames, quals, batch.start_record)
+                        if not codes:
+                            if not gbuf:
+                                save_cursor(*last[0])
+                            continue
+                    gbuf.append((codes, qnames, quals))
+                    if len(gbuf) >= group_n:
+                        flush_group()
+                flush_group()
+        if args.profile:
+            sys.stderr.write(f"[bitmapperbs_tpu_torch] profiler trace -> "
+                             f"{trace_path(args.profile)}\n"
+                             f"[bitmapperbs_tpu_torch] stages: "
+                             f"{timer.report()}\n")
+        if bam:
+            writer.close()
+        stats.report(wall_s=time.time() - t0)
+        if shard is not None:
+            sys.stderr.write(f"[bitmapperbs_tpu_torch] global (all "
+                             f"{args.dist_hosts} hosts): "
+                             f"{multihost.global_stats(stats)}\n")
     finally:
         if pool is not None:
             pool.terminate()
-    if bam:
-        writer.close()
-    stats.report(wall_s=time.time() - t0)
+        multihost.finalize_distributed()
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             f.write(stats.to_json() + "\n")
@@ -552,6 +693,8 @@ def cmd_search(args) -> int:
         write_fastq(args.ambiguous_out, *map(list, zip(*ambiguous)))
     if out_fh is not sys.stdout:
         out_fh.close()
+    if cursor_path and os.path.exists(cursor_path):
+        os.unlink(cursor_path)   # completed: drop the resume cursor
     return 0
 
 

@@ -628,6 +628,17 @@ __global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
 // warp shuffles, every thread then knows A_best and re-reads its own bytes
 // for the best score more than e away, and a second shuffle round combines
 // those.  Columns past `span` and pairs without r_ok run no column at all.
+//
+// Two passes where the bytes do not fit.  A block of 128 / 32 pairs keeps
+// 4 (R + e + 1) bytes; past ~58,000 offsets (~37,000 at 1,024 bp, where the
+// PEQ table takes 80 KB) they pass the 227 KB a block may take.  There the
+// wrapper launches the kernel twice with no per-column storage: MODE 1 runs
+// the scan for (best, lowest P) alone and writes rs_best / rp_best; MODE 2
+// reads them back, runs the same scan again and keeps the minimum S <= e over
+// the columns more than e anchors from A_best.  Both passes see the same
+// scores on the same columns (same split, same warm-up), and only S <= e
+// enters either minimum, so the result equals the one-pass kernel's at twice
+// its columns.  MODE 0 is the one-pass kernel.
 struct RescueArgs {
   const uint32_t* gp;
   const int64_t *block, *win_start, *a_lo, *span, *ms_len, *peq, *pad;
@@ -645,7 +656,8 @@ constexpr int kInfScore = 1 << 20;           // constants.INF_SCORE
 
 // NW: compile-time word count when !SHARED (PEQ in registers, wd == NW);
 // register capacity of VP / VN when SHARED (PEQ in shared memory, wd <= NW).
-template <int NW, bool SHARED>
+// MODE: 0 one pass, 1 and 2 the passes of the two-pass mode (see above).
+template <int NW, bool SHARED, int MODE>
 __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
     const RescueArgs a) {
   extern __shared__ uint32_t rescue_smem[];
@@ -664,16 +676,22 @@ __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
   }
   const int ch = (nout + C - 1) / C;
   const int q0 = min(chunk * ch, nout), q1 = min(q0 + ch, nout);
-  int best = kInfScore;
+  int best = kInfScore, second = kInfScore;
   uint32_t best_p = 0xFFFFFFFFu, alo = 0u, mlen = 0u;
   const uint32_t glen = uint32_t(a.genome_len);
   bool fwd = true;
+  if (MODE == 2 && q0 < q1) {                // pass 1's result for the pair
+    best = a.rs_best[pair];
+    best_p = uint32_t(a.rp_best[pair]);
+  }
+  int64_t a_best = 0;
 
-  if (q0 < q1) {
+  if (q0 < q1 && (MODE != 2 || best <= a.e)) {
     const int64_t blk = a.block[pair * a.s_block];
     fwd = blk == 0;
     alo = uint32_t(a.a_lo[pair * a.s_alo]);
     mlen = uint32_t(a.ms_len[pair * a.s_len]);
+    if (MODE == 2) a_best = int64_t(fwd ? best_p : glen - best_p - mlen);
     const int64_t* pq = a.peq + pair * a.pq_l;
     const int64_t* pd = a.pad + pair * a.pd_l;
     uint32_t peq[SHARED ? 1 : 4][SHARED ? 1 : NW], pad[SHARED ? 1 : NW];
@@ -725,13 +743,18 @@ __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
         }
         const int q = 32 * w + b - jo;
         if (q >= q0) {
-          sc[q] = uint8_t(min(score, a.e + 1));
+          if (MODE == 0) sc[q] = uint8_t(min(score, a.e + 1));
           if (score <= a.e) {
             const uint32_t A = alo + uint32_t(q);
-            const uint32_t P = fwd ? A : glen - A - mlen;
-            if (score < best || (score == best && P < best_p)) {
-              best = score;
-              best_p = P;
+            if (MODE == 2) {
+              const int64_t d = int64_t(A) - a_best;
+              if ((d < 0 ? -d : d) > a.e) second = min(second, score);
+            } else {
+              const uint32_t P = fwd ? A : glen - A - mlen;
+              if (score < best || (score == best && P < best_p)) {
+                best = score;
+                best_p = P;
+              }
             }
           }
         }
@@ -740,18 +763,19 @@ __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
   }
 
   // the pair's (best, lowest P): its threads are neighbours within one warp
-  for (int off = C >> 1; off > 0; off >>= 1) {
-    const int ob = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-    const uint32_t op = __shfl_xor_sync(0xFFFFFFFFu, best_p, off);
-    if (ob < best || (ob == best && op < best_p)) {
-      best = ob;
-      best_p = op;
+  if (MODE != 2) {
+    for (int off = C >> 1; off > 0; off >>= 1) {
+      const int ob = __shfl_xor_sync(0xFFFFFFFFu, best, off);
+      const uint32_t op = __shfl_xor_sync(0xFFFFFFFFu, best_p, off);
+      if (ob < best || (ob == best && op < best_p)) {
+        best = ob;
+        best_p = op;
+      }
     }
   }
   // best score more than e anchors away from the best: own bytes again
-  int second = kInfScore;
-  if (q0 < q1 && best <= a.e) {
-    const int64_t a_best = int64_t(fwd ? best_p : glen - best_p - mlen);
+  if (MODE == 0 && q0 < q1 && best <= a.e) {
+    a_best = int64_t(fwd ? best_p : glen - best_p - mlen);
     for (int q = q0; q < q1; ++q) {
       const int s = sc[q];
       if (s <= a.e) {
@@ -760,12 +784,16 @@ __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
       }
     }
   }
-  for (int off = C >> 1; off > 0; off >>= 1)
-    second = min(second, __shfl_xor_sync(0xFFFFFFFFu, second, off));
+  if (MODE != 1) {
+    for (int off = C >> 1; off > 0; off >>= 1)
+      second = min(second, __shfl_xor_sync(0xFFFFFFFFu, second, off));
+  }
   if (chunk == 0 && pair < a.B) {
-    a.rs_best[pair] = best;
-    a.rp_best[pair] = int64_t(best_p);
-    a.rs_second[pair] = second;
+    if (MODE != 2) {
+      a.rs_best[pair] = best;
+      a.rp_best[pair] = int64_t(best_p);
+    }
+    if (MODE != 1) a.rs_second[pair] = second;
   }
 }
 
@@ -871,17 +899,26 @@ cudaError_t launch_fused_gather_wide(
   return cudaGetLastError();
 }
 
-template <int NW, bool SHARED>
-cudaError_t launch_rescue_scan(const RescueArgs& a, cudaStream_t st) {
+template <int NW, bool SHARED, int MODE>
+cudaError_t launch_rescue_scan_mode(const RescueArgs& a, cudaStream_t st) {
   const int pairs = kThreads / a.chunks;     // per block
   const size_t smem =
       (SHARED ? size_t(5) * NW * kThreads * sizeof(uint32_t) : 0) +
-      size_t(pairs) * a.qstride;
-  const cudaError_t rc = allow_shared(rescue_scan_kernel<NW, SHARED>, smem);
+      (MODE == 0 ? size_t(pairs) * a.qstride : 0);
+  const cudaError_t rc =
+      allow_shared(rescue_scan_kernel<NW, SHARED, MODE>, smem);
   if (rc != cudaSuccess) return rc;
   const unsigned grid = unsigned((a.B + pairs - 1) / pairs);
-  rescue_scan_kernel<NW, SHARED><<<grid, kThreads, smem, st>>>(a);
+  rescue_scan_kernel<NW, SHARED, MODE><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <int NW, bool SHARED>
+cudaError_t launch_rescue_scan(const RescueArgs& a, int mode,
+                               cudaStream_t st) {
+  if (mode == 1) return launch_rescue_scan_mode<NW, SHARED, 1>(a, st);
+  if (mode == 2) return launch_rescue_scan_mode<NW, SHARED, 2>(a, st);
+  return launch_rescue_scan_mode<NW, SHARED, 0>(a, st);
 }
 
 bool shapes_ok(int64_t L, int wd, int ww, int ncols) {
@@ -975,10 +1012,13 @@ int btbs_verify_fused_gather(const void* gp, const void* orient,
 // and r_ok bool (one byte) lanes, peq int64 [B][4][wd] and pad int64 [B][wd]
 // (u32 values), each with its element strides; rs_best, rs_second int32 [B],
 // rp_best int64 [B], contiguous.  chunks: threads per pair, a power of two up
-// to 32; a block of 128 / chunks pairs keeps R + e + 1 bytes per pair (and
-// above 8 read words its PEQ table) in shared memory, so the caller raises
-// chunks where the insert range is wide (ops/kernels.rescue_scan_chunks); a
-// block that does not fit is refused with cudaErrorInvalidValue.
+// to 32; in mode 0 a block of 128 / chunks pairs keeps R + e + 1 bytes per
+// pair (and above 8 read words its PEQ table) in shared memory, so the caller
+// raises chunks where the insert range is wide, and past what 32 threads per
+// pair fit it runs mode 1 and then mode 2, which keep no bytes
+// (ops/kernels.rescue_scan_chunks); mode 1 writes rs_best and rp_best only,
+// mode 2 reads them and writes rs_second only.  A block that does not fit is
+// refused with cudaErrorInvalidValue.
 int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
                      const void* win_start, int64_t s_start, const void* r_ok,
                      int64_t s_ok, const void* a_lo, int64_t s_alo,
@@ -988,10 +1028,11 @@ int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
                      int64_t pd_w, void* rs_best, void* rp_best,
                      void* rs_second, int64_t B, int64_t gwords,
                      int64_t genome_len, int wd, int m, int e, int R,
-                     int chunks, void* stream) {
+                     int chunks, int mode, void* stream) {
   if (B < 1 || wd < 1 || wd > kMaxWords || m != 32 * wd || e < 0 || e > 31 ||
       R < 1 || R > (1 << 24) || chunks < 1 || chunks > 32 ||
-      (chunks & (chunks - 1)) != 0 || gwords < 1 || genome_len < 0)
+      (chunks & (chunks - 1)) != 0 || gwords < 1 || genome_len < 0 ||
+      mode < 0 || mode > 2)
     return int(cudaErrorInvalidValue);
   RescueArgs a;
   a.gp = static_cast<const uint32_t*>(gp);
@@ -1028,20 +1069,20 @@ int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
   a.qstride = (R + e + 1 + 3) & ~3;          // one byte per output column
   auto st = static_cast<cudaStream_t>(stream);
   switch (wd) {
-    case 1: return int(launch_rescue_scan<1, false>(a, st));
-    case 2: return int(launch_rescue_scan<2, false>(a, st));
-    case 3: return int(launch_rescue_scan<3, false>(a, st));
-    case 4: return int(launch_rescue_scan<4, false>(a, st));
-    case 5: return int(launch_rescue_scan<5, false>(a, st));
-    case 6: return int(launch_rescue_scan<6, false>(a, st));
-    case 7: return int(launch_rescue_scan<7, false>(a, st));
-    case 8: return int(launch_rescue_scan<8, false>(a, st));
+    case 1: return int(launch_rescue_scan<1, false>(a, mode, st));
+    case 2: return int(launch_rescue_scan<2, false>(a, mode, st));
+    case 3: return int(launch_rescue_scan<3, false>(a, mode, st));
+    case 4: return int(launch_rescue_scan<4, false>(a, mode, st));
+    case 5: return int(launch_rescue_scan<5, false>(a, mode, st));
+    case 6: return int(launch_rescue_scan<6, false>(a, mode, st));
+    case 7: return int(launch_rescue_scan<7, false>(a, mode, st));
+    case 8: return int(launch_rescue_scan<8, false>(a, mode, st));
     default: break;
   }
-  if (wd <= 12) return int(launch_rescue_scan<12, true>(a, st));
-  if (wd <= 16) return int(launch_rescue_scan<16, true>(a, st));
-  if (wd <= 24) return int(launch_rescue_scan<24, true>(a, st));
-  return int(launch_rescue_scan<32, true>(a, st));
+  if (wd <= 12) return int(launch_rescue_scan<12, true>(a, mode, st));
+  if (wd <= 16) return int(launch_rescue_scan<16, true>(a, mode, st));
+  if (wd <= 24) return int(launch_rescue_scan<24, true>(a, mode, st));
+  return int(launch_rescue_scan<32, true>(a, mode, st));
 }
 
 int btbs_myers(const void* win, const void* peq, const void* pad, void* out,

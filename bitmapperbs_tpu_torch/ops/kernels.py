@@ -127,7 +127,7 @@ def _lib():
         lib.btbs_myers_scan.restype = ctypes.c_int
         lib.btbs_rescue_scan.argtypes = (
             [vp] + [vp, i64] * 6 + [vp, i64, i64, i64, vp, i64, i64]
-            + [vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, vp])
+            + [vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp])
         lib.btbs_rescue_scan.restype = ctypes.c_int
         lib.btbs_gather_rows = ctypes.CDLL(paths["gather"]).btbs_gather_rows
         lib.btbs_gather_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
@@ -369,24 +369,23 @@ def myers_scan(win, peq, pad, m: int, ncols: int):
 
 # ---- paired-end mate rescue: window gather + Myers scan + selection --------
 
-def rescue_scan_chunks(m: int, e: int, R: int) -> int:
-    """Threads per pair that `rescue_scan` splits a pair's columns over: 8,
-    or 16 or 32 where the insert range is so wide that a block of 128 / 8
-    pairs would not fit its one byte per output column (and, for reads over
-    256 bp, its PEQ table) into the 227 KB of shared memory a block may
-    take.  Raises ValueError where 32 threads per pair do not fit either."""
+def rescue_scan_chunks(m: int, e: int, R: int) -> tuple[int, bool]:
+    """(threads per pair, two passes) of `rescue_scan`: 8 threads, or 16 or
+    32 where the insert range is so wide that a block of 128 / 8 pairs would
+    not fit its one byte per output column (and, for reads over 256 bp, its
+    PEQ table) into the 227 KB of shared memory a block may take.  Where 32
+    threads per pair do not fit either (past ~58,000 offsets; ~37,000 at
+    1,024 bp), 32 threads in two passes that keep no byte per column: the
+    first finds the best score and its position, the second the best score
+    more than e anchors away from it."""
     Wd = m // 32
     table = 0 if Wd <= 8 else 5 * 4 * _RESCUE_BLOCK * next(
         nw for nw in _RESCUE_WIDE_WORDS if Wd <= nw)
     per_pair = (R + e + 4) & ~3
     for chunks in (8, 16, 32):
         if table + _RESCUE_BLOCK // chunks * per_pair <= _RESCUE_SHARED_BYTES:
-            return chunks
-    raise ValueError(
-        f"the insert-size range (max - min + 1 = {R}) is too wide for the "
-        f"mate-rescue kernel at reads of up to {m} bp: at most "
-        f"{(_RESCUE_SHARED_BYTES - table) // 4 - e - 4} offsets fit the "
-        f"card's shared memory")
+            return chunks, False
+    return 32, True
 
 
 def rescue_scan_ref(g_planes, block, win_start, r_ok, a_lo, span, ms_len,
@@ -434,7 +433,8 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
     each: the best semi-global score <= e over the valid end columns, the
     lowest frame position among the columns that reach it, and the best
     score more than e anchors away from it; INF_SCORE / 0xFFFFFFFF /
-    INF_SCORE where there is none."""
+    INF_SCORE where there is none.  One launch, or two where the insert
+    range is too wide for one (`rescue_scan_chunks`)."""
     lane_t = dict(block=block, win_start=win_start, a_lo=a_lo, span=span,
                   ms_len=ms_len)
     _require(torch.int64, ms_peq=ms_peq, ms_pad=ms_pad, **lane_t)
@@ -447,7 +447,7 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
     if m % 32 or not 1 <= Wd <= MAX_WORDS or not 0 <= e <= 31 or R < 1:
         raise ValueError(f"rescue_scan takes 1..{MAX_WORDS} read words, "
                          f"e <= 31 and R >= 1; got m {m}, e {e}, R {R}")
-    chunks = rescue_scan_chunks(m, e, R)
+    chunks, two_pass = rescue_scan_chunks(m, e, R)
     for name, t in (("r_ok", r_ok), *lane_t.items()):
         if tuple(t.shape) != (B,):
             raise ValueError(f"expected [{B}] {name}, got {tuple(t.shape)}")
@@ -468,12 +468,16 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
         stream = torch.cuda.current_stream(dev).cuda_stream
         lanes = [x for t in (block, win_start, r_ok, a_lo, span, ms_len)
                  for x in (t.data_ptr(), t.stride(0))]
-        _check_rc(_lib().btbs_rescue_scan(
-            g_planes.data_ptr(), *lanes, ms_peq.data_ptr(), *ms_peq.stride(),
-            ms_pad.data_ptr(), *ms_pad.stride(), rs_best.data_ptr(),
-            rp_best.data_ptr(), rs_second.data_ptr(), B, g_words, genome_len,
-            Wd, m, e, R, chunks, stream), "btbs_rescue_scan")
-        LAUNCHES["rescue_scan"] += 1
+        # mode 0: one pass; 1 then 2: the two passes (pass 2 reads pass 1's
+        # rs_best / rp_best)
+        for mode in ((1, 2) if two_pass else (0,)):
+            _check_rc(_lib().btbs_rescue_scan(
+                g_planes.data_ptr(), *lanes, ms_peq.data_ptr(),
+                *ms_peq.stride(), ms_pad.data_ptr(), *ms_pad.stride(),
+                rs_best.data_ptr(), rp_best.data_ptr(), rs_second.data_ptr(),
+                B, g_words, genome_len, Wd, m, e, R, chunks, mode, stream),
+                "btbs_rescue_scan")
+            LAUNCHES["rescue_scan"] += 1
     return rs_best, rp_best, rs_second
 
 

@@ -25,9 +25,12 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      needs (one scan per pair over its valid columns), with the columns its
      8 threads per pair run, warm-up included, beside it; checked again at
      buckets 288 and 1,024 (PEQ in shared memory), at the command line's
-     default insert range (1,001 offsets) and at ranges so wide that a
+     default insert range (1,001 offsets), at ranges so wide that a
      block's shared memory makes the wrapper take 16 and 32 threads per
-     pair; gather_rows (before
+     pair, and past what 32 threads per pair fit (100,000 offsets at m 96,
+     60,000 at m 1,024), where it runs in two passes that keep no byte per
+     column: each pass timed inside the kernel beside its bound (m 96);
+     gather_rows (before
      phase 12, on the 100 Mbp index's own tables, which do not fit the 50 MB
      L2): the k-mer table W = 2 at 4,096 x 2 x 5 lanes (the lookup the
      compact path launches; the record's headline), checkpoint rows W = 17
@@ -92,6 +95,21 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
  11. PE throughput: map_batch_pe_device reads/s (2 x pairs) over 8 distinct
      batches (synced by copying pair_sum) and end-to-end map_batch_pe
      reads/s over phase 8's batches
+ 11b. CLI features and wide inserts, on the same index: `search` SE (SAM)
+     and PE (BAM, -t 2) SIGKILLed once `<out>.cursor` has advanced, then
+     `--resume`: records equal phase 6's and phase 10's, the cursor gone;
+     the resumed PE run (one batch) with `--profile DIR`: its Chrome trace
+     names the port's kernels (verify_fused_gather, fm_search, fm_locate,
+     rescue_scan); two
+     processes on the one card with --dist-hosts 2 (gloo on 127.0.0.1),
+     byte ranges then record striding: the shards together are phase 6's
+     records, the global counters phase 6's stats; then PE at insert
+     0-100,000 through map_batch_pe (the rescue kernel in two passes): the
+     last PE batch, SAM of a sample equal to the oracle's, each pass of the
+     rescue kernel timed inside on the arguments that batch's device call
+     hands it, beside its bound for the columns those pairs need; and phase
+     8b's repeat pairs, rescue deciding at least half, SAM equal to the
+     oracle's
  12. SE, Gbp-scale configuration (what cli.autotune_for_genome sets above
      512 Mbp: seed extension 20 / occ 4, 128 candidates; batch 4,096) on a
      100 Mbp two-contig genome with planted human-profile repeats
@@ -117,10 +135,11 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      and peak memory
  14. CLI on the saved 100 Mbp artifact with `--seed-ext 20
      --max-candidates 128` gives phase 12's records
-Launch counts are set to 0 just before each main path (phases 4, 8, 12,
-13) and read just after it.  The kernels' record gives, per kernel, the
-launches of this slice's main paths (phase 12's 96 bp batches, its 280 bp
-batch, counted on its own, and phase 13) with every path's beside them.
+Launch counts are set to 0 just before each main path (phases 4, 8, 11b's
+wide-insert batch, 12, 13) and read just after it.  The kernels' record
+gives, per kernel, the launches of this slice's main paths (phase 11b's
+wide-insert batch, phase 12's 96 bp batches, its 280 bp batch, counted on
+its own, and phase 13) with every path's beside them.
 Every TPU kernel of the reference has at least one entry point that those
 paths launch; verify_fused and myers_scan, which no path calls any more,
 stay checked against their plain versions.
@@ -129,6 +148,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import statistics
@@ -165,7 +185,10 @@ SCAN_LANES = (PE_PAIRS, PE_PAIRS - 3)  # one lane per pair; a ragged count
 WIDE_VERIFY_SHAPES = ((512, 500, 8_192), (1_024, 1_000, 8_192))
 WIDE_RESCUE_SHAPES = ((288, 301, 1_024, 8), (96, 1_001, 1_024, 8),
                       (1_024, 1_001, 512, 8), (96, 20_000, 128, 16),
-                      (288, 13_000, 64, 16), (96, 40_000, 64, 32))
+                      (288, 13_000, 64, 16), (96, 40_000, 64, 32),
+                      # past what 32 threads per pair fit: the two passes
+                      (96, 100_000, 64, 32), (1_024, 60_000, 32, 32))
+WIDE_PE_MAX_INSERT = 100_000       # phase 11b: a PE batch in the two passes
 PLAIN_SCAN_REPS = 5                # the plain scan is ~600 columns of ops
 KILL_POS = (9, 27, 63)             # in seeds 0, 1 and 3 of a 90 bp read
 N_PE_ORACLE, N_PE_ORACLE_RESCUE, N_PE_ORACLE_LOWCX = 64, 16, 8
@@ -211,10 +234,16 @@ SASS_KERNELS = {        # kernel -> (library, what its mangled name contains)
     "verify_fused_gather": ("verify", "verify_fused_gather_kernelILi3E"),
     "myers": ("verify", "12myers_kernelILi3E"),
     "myers_scan": ("verify", "myers_scan_kernelILi3E"),
-    "rescue_scan": ("verify", "rescue_scan_kernelILi3ELb0E"),
+    "rescue_scan": ("verify", "rescue_scan_kernelILi3ELb0ELi0E"),
     "fm_search": ("fm", "fm_search_kernel"),
     "fm_extend": ("fm", "fm_extend_kernel"),
     "fm_locate": ("fm", "fm_locate_kernel"),
+}
+# the two passes of rescue_scan's mode for insert ranges past the bytes'
+# limit, counted apart from its one-pass kernel
+SASS_PASSES = {
+    "rescue_scan pass 1": ("verify", "rescue_scan_kernelILi3ELb0ELi1E"),
+    "rescue_scan pass 2": ("verify", "rescue_scan_kernelILi3ELb0ELi2E"),
 }
 SASS_OPS: dict = {}     # kernel -> {"loop": n, "once": n}, set by build_native
 FM_THREADS_PER_ROW = 2  # csrc/fm.cu kTpr
@@ -425,7 +454,7 @@ def build_native() -> None:
                                    timeout=300).stdout
         with open(so + ".sass", "w") as f:
             f.write(sass[lib])
-    for name, (lib, function) in SASS_KERNELS.items():
+    for name, (lib, function) in {**SASS_KERNELS, **SASS_PASSES}.items():
         SASS_OPS[name] = sass_int32_ops(sass[lib], function)
         log(f"sass: {name} ({function}): {SASS_OPS[name]['loop']} INT32-pipe "
             f"instructions in its innermost loop, {SASS_OPS[name]['once']} "
@@ -700,7 +729,8 @@ def phase_rescue_kernel(idx, dix) -> dict:
 
     m, R = BUCKET, MAX_INSERT - MIN_INSERT + 1
     Wd, Ww = m // 32, -(-(R + m + 2 * E) // 32)
-    chunks = kernels.rescue_scan_chunks(m, E, R)
+    chunks, two_pass = kernels.rescue_scan_chunks(m, E, R)
+    assert not two_pass
     out = None
     for n in SCAN_LANES:
         args, r_ok, span = rescue_inputs(idx, dix, n, m, R)
@@ -746,17 +776,87 @@ def phase_rescue_kernel(idx, dix) -> dict:
             out["max_abs_err"] = max(out["max_abs_err"], err)
         log(msg)
     for m, R, n, chunks in WIDE_RESCUE_SHAPES:
-        assert kernels.rescue_scan_chunks(m, E, R) == chunks, (m, R)
-        args, _, _ = rescue_inputs(idx, dix, n, m, R)
-        want = kernels.rescue_scan_ref(*args)
+        two_pass = kernels.rescue_scan_chunks(m, E, R)[1]
+        assert kernels.rescue_scan_chunks(m, E, R) == (chunks, two_pass)
+        assert two_pass == (R > 58_107 if m <= 256 else R > 37_627), (m, R)
+        args, r_ok, span = rescue_inputs(idx, dix, n, m, R)
+        t0 = time.perf_counter()
+        if two_pass:
+            # the plain scan is one loop step of ~30 small ops per column;
+            # at 60,000-100,000 columns the host's CPU runs it sooner than
+            # the card's per-op dispatch does
+            with torch.inference_mode():
+                want = tuple(t.to(dix.device) for t in kernels.rescue_scan_ref(
+                    *(a.cpu() if isinstance(a, torch.Tensor) else a
+                      for a in args)))
+        else:
+            want = kernels.rescue_scan_ref(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        before = kernels.LAUNCHES["rescue_scan"]
         out["max_abs_err"] = max(out["max_abs_err"], check(
             args, want, f"m {m}, {R} offsets, {chunks} threads per pair"))
-        log(f"kernel rescue_scan: {n} pairs x {R + m + 2 * E} columns at m "
-            f"{m} ({m // 32} read words"
-            + (", PEQ in shared memory" if m > 256 else "")
-            + f"), {chunks} threads per pair, equal to plain (a hit on "
-            f"{float((want[0] <= E).float().mean()):.3f} of pairs)")
+        assert kernels.LAUNCHES["rescue_scan"] - before == 1 + two_pass
+        msg = (f"kernel rescue_scan: {n} pairs x {R + m + 2 * E} columns at "
+               f"m {m} ({m // 32} read words"
+               + (", PEQ in shared memory" if m > 256 else "")
+               + f"), {chunks} threads per pair"
+               + (" in two passes" if two_pass else "")
+               + f", equal to plain (a hit on "
+               f"{float((want[0] <= E).float().mean()):.3f} of pairs, a "
+               f"second one on {float((want[2] <= E).float().mean()):.3f}; "
+               f"plain {plain_s:.1f} s"
+               + (" on the host's CPU" if two_pass else "") + ")")
+        if two_pass and m == BUCKET:
+            out["two_pass"] = two_pass_record(args, want, r_ok, span, m, R)
+            tp = out["two_pass"]
+            msg += (f"; pass 1 {fmt_ms(tp['pass1_device_ms'])} ms inside "
+                    f"(bound {tp['pass1_bound_ms']:.4f}), pass 2 "
+                    f"{fmt_ms(tp['pass2_device_ms'])} ms inside (bound "
+                    f"{tp['pass2_bound_ms']:.4f}), call {tp['ms']:.4f} ms; "
+                    f"the function's bound {tp['bound_ms']:.4f} ms by "
+                    f"{tp['bound_by']} ({tp['columns_needed']} columns)")
+        log(msg)
     return out
+
+
+def two_pass_record(args, want, r_ok, span, m: int, R: int) -> dict:
+    """Times of the two-pass mode at one shape: each pass inside the kernel
+    beside its bound (pass 1 scans every pair with a window, pass 2 only
+    those with a hit; each at its own instructions per column), the
+    wrapper's call, and the function's bound (one scan per pair over its
+    valid columns, at the one-pass kernel's instructions per column)."""
+    import numpy as np
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    n = len(r_ok)
+    Ww = -(-(R + m + 2 * E) // 32)
+    nbytes = n * (41 + 40 * (m // 32) + 12 * (Ww + 1) + 16)
+    hit = np.asarray(want[0].cpu()) <= E
+    # each pass's bound: the columns it must scan (pass 2 only on pairs with
+    # a hit), without the warm-up its 32 threads per pair add
+    needed = rescue_columns_run(r_ok, span, m, E, R, 1)
+    needed2 = rescue_columns_run(r_ok & hit, span, m, E, R, 1)
+    run1 = rescue_columns_run(r_ok, span, m, E, R, 32)
+    run2 = rescue_columns_run(r_ok & hit, span, m, E, R, 32)
+    c0, c1, c2 = (SASS_OPS[k] for k in ("rescue_scan", "rescue_scan pass 1",
+                                        "rescue_scan pass 2"))
+    call = lambda: kernels.rescue_scan(*args)        # noqa: E731
+    return {"ms": median_ms(call, reps=5),
+            "pass1_device_ms": device_ms(call, "rescue_scan_kernel<3, false, "
+                                               "1>", reps=3),
+            "pass2_device_ms": device_ms(call, "rescue_scan_kernel<3, false, "
+                                               "2>", reps=3),
+            **bound(nbytes, n * c0["once"] + needed * c0["loop"]),
+            "pass1_bound_ms": bound(nbytes, n * c1["once"]
+                                    + needed * c1["loop"])["bound_ms"],
+            "pass2_bound_ms": bound(nbytes, n * c2["once"]
+                                    + needed2 * c2["loop"])["bound_ms"],
+            "columns_needed": needed, "columns_run_pass1": run1,
+            "columns_run_pass2": run2, "pairs": n, "pairs_with_a_hit":
+            int(hit.sum()), "insert_range": R, "m": m}
 
 
 def low_complexity_reads(n: int, seed: int, bases=None):
@@ -828,6 +928,44 @@ def recall(idx, sims, recs) -> float:
     return ok / len(sims)
 
 
+def cli_cmd(args, prefix: str) -> list:
+    """`search` of the port's CLI on the card (never --platform cpu)."""
+    return [sys.executable, "-m", "bitmapperbs_tpu_torch", "search", prefix,
+            *args, "--platform", "gpu"]
+
+
+def cli_run(args, prefix: str) -> str:
+    """Runs cli_cmd to its end; returns its stderr, raises on failure."""
+    proc = subprocess.run(cli_cmd(args, prefix), cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI {args} failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return proc.stderr
+
+
+def sam_records(path: str) -> list:
+    with open(path) as f:
+        return [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
+
+
+def bam_record_bytes(data: bytes) -> bytes:
+    """The alignment records of a BAM file, decompressed, header skipped."""
+    import gzip
+    import struct
+
+    raw = gzip.decompress(data)
+    assert raw[:4] == b"BAM\1"
+    l_text, = struct.unpack_from("<i", raw, 4)
+    off = 8 + l_text
+    n_ref, = struct.unpack_from("<i", raw, off)
+    off += 4
+    for _ in range(n_ref):
+        l_name, = struct.unpack_from("<i", raw, off)
+        off += 8 + l_name
+    return raw[off:]
+
+
 def reset_launches() -> None:
     from bitmapperbs_tpu_torch.ops import kernels
 
@@ -835,8 +973,10 @@ def reset_launches() -> None:
         kernels.LAUNCHES[k] = 0
 
 
-def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
-    """SE phases 4-7; returns phase 4's and phase 5's launch counts."""
+def run_se(idx, dix, card: str, prefix: str, workdir: str):
+    """SE phases 4-7; returns phase 4's and phase 5's launch counts and
+    phase 6's CLI run (its FASTQ in workdir, records and stats) for phase
+    11b."""
     import torch
 
     from bitmapperbs_tpu_torch.config import AlignerConfig
@@ -903,25 +1043,20 @@ def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
 
     # ---- phase 6: SE CLI, with the spawned finalize pool beside CUDA ---------
-    with tempfile.TemporaryDirectory(prefix="btbs_smoke_") as d:
-        fq = os.path.join(d, "reads.fq")
-        write_fastq(fq, reads, qnames, quals)
-        out = os.path.join(d, "out.sam")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "bitmapperbs_tpu_torch", "search", prefix,
-             "--seq", fq, "-o", out, "--read-bucket", str(BUCKET),
-             "--batch-size", str(BATCH), "--platform", "gpu",
-             "-t", str(CLI_THREADS)],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"CLI failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        with open(out) as f:
-            cli = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
-        assert cli == lines, "CLI records differ from map_batch's"
-        log(f"CLI (-t {CLI_THREADS}): {len(cli)} records equal to phase 4 "
-            f"({time.perf_counter() - t0:.2f} s incl. start-up)")
+    fq = os.path.join(workdir, "reads.fq")
+    write_fastq(fq, reads, qnames, quals)
+    out = os.path.join(workdir, "out.sam")
+    t0 = time.perf_counter()
+    cli_run(["--seq", fq, "-o", out, "--read-bucket", str(BUCKET),
+             "--batch-size", str(BATCH), "-t", str(CLI_THREADS),
+             "--stats-json", out + ".json"], prefix)
+    wall = time.perf_counter() - t0
+    cli = sam_records(out)
+    assert cli == lines, "CLI records differ from map_batch's"
+    with open(out + ".json") as f:
+        cli_stats = json.load(f)
+    log(f"CLI (-t {CLI_THREADS}): {len(cli)} records equal to phase 4 "
+        f"({wall:.2f} s incl. start-up)")
 
     # ---- phase 7: SE throughput ---------------------------------------------
     dev_batches = []
@@ -950,7 +1085,8 @@ def run_se(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"over phase 4's {N_MAIN_BATCHES} batches (one gdrop re-run), on "
         f"{card}")
 
-    return main_launches, gdrop_launches
+    return main_launches, gdrop_launches, {
+        "fq": fq, "lines": lines, "stats": cli_stats, "cli_s": wall}
 
 
 def pe_inputs(idx):
@@ -985,8 +1121,10 @@ def pe_inputs(idx):
     return sims, main, pairs, quals, qnames, r0
 
 
-def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
-    """PE phases 8-11; returns phase 8's and phase 9's launch counts."""
+def run_pe(idx, dix, card: str, prefix: str, workdir: str):
+    """PE phases 8-11; returns phase 8's and phase 9's launch counts and
+    what phase 11b reuses: phase 10's FASTQs (in workdir), the records, the
+    pairs and the configuration."""
     import torch
 
     from bitmapperbs_tpu_torch import constants as K
@@ -1097,28 +1235,21 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
 
     # ---- phase 10: PE CLI ---------------------------------------------------
-    with tempfile.TemporaryDirectory(prefix="btbs_smoke_pe_") as d:
-        fq = [os.path.join(d, f"pairs_{k}.fq") for k in (1, 2)]
-        for k in (0, 1):
-            write_fastq(fq[k], [p[k] for p in pairs], qnames,
-                        [q[k] for q in quals])
-        out = os.path.join(d, "out.sam")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "bitmapperbs_tpu_torch", "search", prefix,
-             "--pe", "--seq1", fq[0], "--seq2", fq[1], "-o", out,
+    fq = [os.path.join(workdir, f"pairs_{k}.fq") for k in (1, 2)]
+    for k in (0, 1):
+        write_fastq(fq[k], [p[k] for p in pairs], qnames,
+                    [q[k] for q in quals])
+    out = os.path.join(workdir, "out_pe.sam")
+    t0 = time.perf_counter()
+    cli_run(["--pe", "--seq1", fq[0], "--seq2", fq[1], "-o", out,
              "--read-bucket", str(BUCKET), "--batch-size", str(PE_PAIRS),
              "--min", str(MIN_INSERT), "--max", str(MAX_INSERT),
-             "--platform", "gpu", "-t", str(CLI_THREADS)],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"PE CLI failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        with open(out) as f:
-            cli = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
-        assert cli == lines, "PE CLI records differ from map_batch_pe's"
-        log(f"PE CLI (--pe -t {CLI_THREADS}): {len(cli)} records equal to "
-            f"phase 8 ({time.perf_counter() - t0:.2f} s incl. start-up)")
+             "-t", str(CLI_THREADS)], prefix)
+    wall = time.perf_counter() - t0
+    cli = sam_records(out)
+    assert cli == lines, "PE CLI records differ from map_batch_pe's"
+    log(f"PE CLI (--pe -t {CLI_THREADS}): {len(cli)} records equal to "
+        f"phase 8 ({wall:.2f} s incl. start-up)")
 
     # ---- phase 11: PE throughput --------------------------------------------
     dev_batches = [to_dev([(a.codes, b.codes) for a, b in sb]) for sb in sims]
@@ -1147,7 +1278,277 @@ def run_pe(idx, dix, card: str, prefix: str) -> tuple[dict, dict]:
         f"end-to-end map_batch_pe {e2e_rps:.1f} reads/s (median of "
         f"{E2E_REPS} runs, {e2e_lo:.1f}-{e2e_hi:.1f}) over phase 8's "
         f"{N_PE_MAIN_BATCHES} batches (one gdrop re-run), on {card}")
-    return main_launches, gdrop_launches
+    return main_launches, gdrop_launches, {
+        "fq": fq, "lines": lines, "recs": recs, "pairs": pairs,
+        "quals": quals, "qnames": qnames, "r0": r0, "cfg": cfg,
+        "cli_s": wall}
+
+
+def kill_once_cursor_advances(args, prefix: str, out: str,
+                              at_record: int) -> dict:
+    """Starts cli_cmd in a session of its own, SIGKILLs the session (the CLI
+    and its finalize workers) once `<out>.cursor` has reached at_record,
+    and returns the cursor it left."""
+    import signal
+
+    cursor = out + ".cursor"
+    proc = subprocess.Popen(cli_cmd(args, prefix), cwd=ROOT,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, start_new_session=True)
+    deadline = time.perf_counter() + 600
+    try:
+        while True:
+            if os.path.exists(cursor):
+                with open(cursor) as f:      # replaced whole, never torn
+                    if json.load(f)["record"] >= at_record:
+                        break
+            if proc.poll() is not None:
+                raise RuntimeError("CLI ended before its cursor advanced:\n"
+                                   + proc.stderr.read().decode()[-4000:])
+            assert time.perf_counter() < deadline, "no cursor in 600 s"
+            time.sleep(0.05)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        proc.stderr.close()
+    with open(cursor) as f:
+        cur = json.load(f)
+    assert set(cur) == {"record", "offset", "offset2", "out_pos"}, cur
+    return cur
+
+
+def trace_kernels(trace_dir: str) -> dict:
+    """Kernel events of the Chrome trace(s) torch.profiler wrote into
+    trace_dir: {kernel name: count}."""
+    counts: dict = {}
+    names = [n for n in os.listdir(trace_dir) if n.endswith(".json")]
+    assert names, f"no trace in {trace_dir}"
+    for name in names:
+        with open(os.path.join(trace_dir, name)) as f:
+            trace = json.load(f)
+        events = trace["traceEvents"] if isinstance(trace, dict) else trace
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    return counts
+
+
+def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
+                   pe: dict) -> tuple[dict, dict]:
+    """Phase 11b on the 10 Mbp index: --resume after a SIGKILL (SE SAM, PE
+    BAM with -t 2; the resumed PE run, one batch, with --profile), two hosts
+    on the one card (--dist-hosts 2, gloo on 127.0.0.1, bytes then records),
+    then PE at insert 0-100,000, which takes the rescue kernel's two passes
+    (a batch on this genome, phase 8b's pairs in a tandem repeat).  Returns
+    the launch counts of the last two, and the two passes' times on the
+    batch's own rescue_scan arguments (two_pass_record)."""
+    import ast
+    import socket
+
+    import torch
+
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.index.build import build_index
+    from bitmapperbs_tpu_torch.index.device import upload_index
+    from bitmapperbs_tpu_torch.io.bam import BamWriter
+    from bitmapperbs_tpu_torch.models.host import (map_batch_pe,
+                                                   prepare_batch, to_host)
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    se_args = ["--seq", se["fq"], "--read-bucket", str(BUCKET),
+               "--batch-size", str(BATCH)]
+    pe_args = ["--pe", "--seq1", pe["fq"][0], "--seq2", pe["fq"][1],
+               "--read-bucket", str(BUCKET), "--batch-size", str(PE_PAIRS),
+               "--min", str(MIN_INSERT), "--max", str(MAX_INSERT)]
+
+    # ---- resume: SE SAM, one batch per cursor ---------------------------------
+    # killed once three of the four batches are acknowledged, so the resumed
+    # run maps the last batch alone
+    t0 = time.perf_counter()
+    out = os.path.join(workdir, "resume.sam")
+    cur = kill_once_cursor_advances([*se_args, "-o", out], prefix, out,
+                                    3 * BATCH)
+    assert cur["record"] < len(se["lines"]), cur
+    cli_run([*se_args, "-o", out, "--resume"], prefix)
+    assert not os.path.exists(out + ".cursor"), "cursor left after the run"
+    assert sam_records(out) == se["lines"], "resumed SE records differ"
+    log(f"resume, SE: killed with the cursor at record {cur['record']} "
+        f"(output byte {cur['out_pos']}), resumed: {len(se['lines'])} "
+        f"records equal to phase 6, cursor gone "
+        f"({time.perf_counter() - t0:.2f} s for both runs)")
+
+    # ---- resume: PE BAM with the finalize pool; the resumed run profiled --
+    t0 = time.perf_counter()
+    out = os.path.join(workdir, "resume.bam")
+    cur = kill_once_cursor_advances([*pe_args, "-o", out, "-t", "2"], prefix,
+                                    out, 3 * PE_PAIRS)
+    assert cur["record"] < len(pe["pairs"]) and cur["offset2"] > 0, cur
+    prof = os.path.join(workdir, "profile")
+    err = cli_run([*pe_args, "-o", out, "-t", "2", "--resume", "--profile",
+                   prof], prefix)
+    assert not os.path.exists(out + ".cursor"), "cursor left after the run"
+    buf = io.BytesIO()
+    want = BamWriter(buf, idx.genome.names, idx.genome.lengths)
+    for rec in pe["recs"]:
+        want.write(rec)
+    want.close()
+    with open(out, "rb") as f:
+        assert bam_record_bytes(f.read()) == bam_record_bytes(
+            buf.getvalue()), "resumed PE BAM records differ from phase 10's"
+    log(f"resume, PE BAM (-t 2): killed with the cursor at pair "
+        f"{cur['record']}, resumed: the decompressed records equal phase "
+        f"10's ({len(pe['lines'])}), cursor gone "
+        f"({time.perf_counter() - t0:.2f} s for both runs)")
+
+    # ---- profile: the resumed run, one PE batch ---------------------------------
+    assert "profiler trace ->" in err, err[-2000:]
+    kern = trace_kernels(prof)
+    seen = {}
+    for name in ("verify_fused_gather", "fm_search", "fm_locate",
+                 "rescue_scan"):
+        seen[name] = sum(c for k, c in kern.items() if name + "_kernel" in k)
+        assert seen[name] > 0, f"no {name} kernel in the trace: {kern}"
+    log(f"profile: the resumed run's one PE batch ({PE_PAIRS} pairs): Chrome "
+        f"trace with {sum(kern.values())} kernel events; the port's kernels "
+        f"among them: {seen}")
+
+    # ---- two hosts on the one card -----------------------------------------------
+    for mode in ("bytes", "records"):
+        t0 = time.perf_counter()
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        out = os.path.join(workdir, f"hosts_{mode}.sam")
+        procs = [subprocess.Popen(
+            cli_cmd([*se_args, "-o", out, "--dist-hosts", "2",
+                     "--dist-host-id", str(h), "--dist-shard", mode,
+                     "--dist-coordinator", f"127.0.0.1:{port}"], prefix),
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True) for h in (0, 1)]
+        errs = []
+        try:
+            for proc in procs:
+                errs.append(proc.communicate(timeout=600)[1])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        for proc, err in zip(procs, errs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"host run ({mode}) failed "
+                                   f"({proc.returncode}):\n{err[-4000:]}")
+        shards = [sam_records(os.path.join(workdir, f"hosts_{mode}.shard{h}"
+                                                    ".sam")) for h in (0, 1)]
+        assert sorted(shards[0] + shards[1]) == sorted(se["lines"]), \
+            f"the two shards ({mode}) differ from phase 6's records"
+        msg = ""
+        if mode == "records":
+            for err in errs:
+                line = [ln for ln in err.splitlines()
+                        if "global (all 2 hosts)" in ln]
+                assert len(line) == 1, err[-2000:]
+                g = ast.literal_eval(line[0].split("hosts): ", 1)[1])
+                assert g == {k: se["stats"][k] for k in g}, (g, se["stats"])
+            msg = f"; global counters on both hosts equal phase 6's: {g}"
+        log(f"two hosts on one card ({mode}): shards of {len(shards[0])} + "
+            f"{len(shards[1])} records, together phase 6's{msg} "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+    # ---- mate rescue past the one-pass limit: a PE batch at insert 0-100,000
+    # on this genome, and phase 8b's pairs in a tandem repeat, where rescue
+    # decides
+    cfg = pe["cfg"].replace(max_insert=WIDE_PE_MAX_INSERT)
+    R = cfg.max_insert - cfg.min_insert + 1
+    assert kernels.rescue_scan_chunks(BUCKET, E, R) == (32, True)
+    lo = (N_PE_MAIN_BATCHES - 1) * PE_PAIRS
+    pairs, quals, qnames = (pe[k][lo:] for k in ("pairs", "quals", "qnames"))
+    t0 = time.perf_counter()
+    reset_launches()
+    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
+    launches = dict(kernels.LAUNCHES)
+    wall = time.perf_counter() - t0
+    assert launches["rescue_scan"] >= 2 and launches["rescue_scan"] % 2 == 0, \
+        launches
+    lines = [r.line() for r in recs]
+    n, r0 = len(pairs), pe["r0"] - lo
+    for a, b in ((0, N_PE_ORACLE), (r0, r0 + N_PE_ORACLE_RESCUE),
+                 (n - N_PE_ORACLE_LOWCX, n)):
+        oracle = [r.line() for r in oracle_pe(idx, cfg, pairs[a:b],
+                                              quals[a:b], qnames[a:b])]
+        bad = [i for i, (x, y) in enumerate(zip(oracle, lines[2 * a:2 * b]))
+               if x != y]
+        assert len(oracle) == 2 * (b - a) and not bad, \
+            f"wide-insert PE oracle mismatch at record {2 * a + bad[0]}:\n" \
+            f"{oracle[bad[0]]}\n{lines[2 * a + bad[0]]}"
+    a1, l1 = prepare_batch([p[0] for p in pairs], BUCKET, PE_PAIRS)
+    a2, l2 = prepare_batch([p[1] for p in pairs], BUCKET, PE_PAIRS)
+    # this device call's rescue_scan arguments: both passes are timed on
+    # them below, at the shape the path gives the kernel
+    saved, calls = kernels.rescue_scan, []
+
+    def recording(*a):
+        calls.append(a)
+        return saved(*a)
+    kernels.rescue_scan = recording
+    try:
+        host = to_host(map_batch_pe_device(
+            dix, cfg, *(torch.from_numpy(x).to(dix.device)
+                        for x in (a1, l1, a2, l2)),
+            min_read_len1=int(l1.min()), min_read_len2=int(l2.min())))
+    finally:
+        kernels.rescue_scan = saved
+    assert len(calls) == 1, len(calls)
+    args = calls[0]
+    batch_tp = two_pass_record(
+        args, kernels.rescue_scan(*args), args[3].cpu().numpy(),
+        args[5].cpu().numpy(), BUCKET, R)
+    log(f"rescue_scan's two passes on this batch's {batch_tp['pairs']} lanes "
+        f"({batch_tp['pairs_with_a_hit']} with a hit) x {R + BUCKET + 2 * E} "
+        f"columns: pass 1 {fmt_ms(batch_tp['pass1_device_ms'])} ms inside "
+        f"(bound {batch_tp['pass1_bound_ms']:.4f}), pass 2 "
+        f"{fmt_ms(batch_tp['pass2_device_ms'])} ms inside (bound "
+        f"{batch_tp['pass2_bound_ms']:.4f}), call {batch_tp['ms']:.4f} ms; "
+        f"the function's bound {batch_tp['bound_ms']:.4f} ms by "
+        f"{batch_tp['bound_by']} ({batch_tp['columns_needed']} columns)")
+    pv, rv = host["pair_valid"][:n], host["resc_valid"][:n]
+    proper = sum(bool(r.flag & K.FLAG_PROPER) for r in recs[::2]) / n
+    log(f"PE batch at insert {cfg.min_insert}-{cfg.max_insert} ({R} offsets:"
+        f" the rescue kernel's two passes, 32 threads per pair): {n} pairs in "
+        f"{wall:.2f} s, launches {launches}; SAM of pairs [0, {N_PE_ORACLE}),"
+        f" [{r0}, {r0 + N_PE_ORACLE_RESCUE}) and the last "
+        f"{N_PE_ORACLE_LOWCX} equals the oracle; pair join "
+        f"{int(pv.sum())}, rescue {int((rv & ~pv).sum())}, neither "
+        f"{int((~rv & ~pv).sum())}; proper-pair rate {proper:.4f}")
+    rep_idx = build_index(tandem_genome_fasta(31))
+    rep_dix = upload_index(rep_idx, dix.device)
+    rep = straddling_pairs(rep_idx, N_REPEAT_PAIRS, seed=32,
+                           read_len=READ_LEN)
+    reset_launches()
+    rep_lines = [r.line() for r in map_batch_pe(rep_idx, rep_dix, cfg, rep)]
+    for k, v in kernels.LAUNCHES.items():
+        launches[k] += v
+    assert rep_lines == [r.line() for r in oracle_pe(rep_idx, cfg, rep)], \
+        "repeat-genome PE SAM at insert 0-100,000 differs from the oracle"
+    a1, l1 = prepare_batch([p[0] for p in rep], BUCKET, len(rep))
+    a2, l2 = prepare_batch([p[1] for p in rep], BUCKET, len(rep))
+    host = to_host(map_batch_pe_device(
+        rep_dix, cfg, *(torch.from_numpy(x).to(dix.device)
+                        for x in (a1, l1, a2, l2)),
+        min_read_len1=int(l1.min()), min_read_len2=int(l2.min())))
+    decided = int((host["resc_valid"] & ~host["pair_valid"])[:len(rep)].sum())
+    assert 2 * decided >= len(rep), f"rescue decided only {decided} pairs"
+    log(f"PE in a tandem repeat at insert {cfg.min_insert}-{cfg.max_insert} "
+        f"(the windows span the whole {rep_idx.genome.length} bp genome): "
+        f"rescue decided {decided} of {len(rep)} pairs in the two passes, SAM"
+        f" equal to the oracle")
+    log(f"phase 11b: {time.perf_counter() - t_phase:.2f} s")
+    return launches, batch_tp
 
 
 def phase_gather_kernel(dix, flat_lanes: int) -> dict:
@@ -2047,9 +2448,11 @@ def run(card: str) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="btbs_smoke_idx_") as d:
         prefix = os.path.join(d, "ref")
-        save_index(idx, prefix)            # for the CLI phases 6 and 10
-        se_launches, se_gdrop = run_se(idx, dix, card, prefix)
-        pe_launches, pe_gdrop = run_pe(idx, dix, card, prefix)
+        save_index(idx, prefix)            # for the CLI phases 6, 10, 11b
+        se_launches, se_gdrop, se_cli = run_se(idx, dix, card, prefix, d)
+        pe_launches, pe_gdrop, pe_cli = run_pe(idx, dix, card, prefix, d)
+        wide_launches, kstats["rescue_scan"]["two_pass_pe_batch"] = \
+            run_cli_extras(idx, dix, prefix, d, se_cli, pe_cli)
 
     del idx, dix
     torch.cuda.empty_cache()
@@ -2064,8 +2467,11 @@ def run(card: str) -> dict:
                                 f"m {LONG_BUCKET}": gather_long,
                                 **gather_wide}}
 
-    by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches, **gbp_paths}
-    launches = {name: sum(p[name] for p in gbp_paths.values())
+    # this slice's paths: the Gbp-config paths and the wide-insert PE batch
+    slice_paths = {**gbp_paths, "pe_10mbp_insert_100k": wide_launches}
+    by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches,
+               **slice_paths}
+    launches = {name: sum(p[name] for p in slice_paths.values())
                 for name in KERNEL_SOURCES}
     assert {n for names in TPU_KERNEL_ENTRIES.values() for n in names} == \
         set(KERNEL_SOURCES)

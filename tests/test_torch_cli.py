@@ -1,7 +1,8 @@
 """PyTorch port CLI: `search` SAM records equal the reference CLI's (single
 end and `--pe`), the GPU platform refuses to fall back to the CPU, `--pe`
-needs both mate files, unported options exit 2, and the package never
-imports jax."""
+needs both mate files, `--oracle` and `--profile` work as the reference's,
+the one unported option exits 2, and the package never imports jax."""
+import json
 import os
 import subprocess
 import sys
@@ -106,14 +107,85 @@ def test_platform_auto_needs_a_gpu(workdir, capsys):
     assert not (d / "x.sam").exists()
 
 
-@pytest.mark.parametrize("flag", [["--resume"], ["--oracle"],
-                                  ["--profile", "p"], ["--dist-hosts", "2"],
-                                  ["--shard-index", "2"]])
+@pytest.mark.parametrize("flag", [["--shard-index", "2"]])
 def test_unported_options_exit_2(workdir, capsys, flag):
+    """Mapping over several local cards is the one option not ported."""
     d = workdir
     assert main(["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
                  "--platform", "cpu", *flag]) == 2
     assert "not yet ported (ROADMAP.md)" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("pe", [False, True])
+def test_oracle_matches_reference_and_device(workdir, capsys, pe):
+    """--oracle maps through the port's numpy oracle: records equal to the
+    reference CLI's --oracle and to the port's device path on the CPU; with
+    the default --platform auto it needs no CUDA device."""
+    d = workdir
+    if pe:
+        common = ["search", str(d / "ref.fa"), "--pe", "--seq1",
+                  str(d / "pairs_1.fq"), "--seq2", str(d / "pairs_2.fq"),
+                  "--min", "100", "--max", "400"]
+    else:
+        common = ["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq")]
+    common += ["--batch-size", "16"]
+    tag = "pe" if pe else "se"
+    assert main([*common, "--oracle", "-o", str(d / f"or_{tag}.sam")]) == 0
+    assert "no CUDA device" not in capsys.readouterr().err
+    assert jmain([*common, "--oracle", "-o", str(d / f"jor_{tag}.sam")]) == 0
+    assert main([*common, "--platform", "cpu", "-o",
+                 str(d / f"dev_{tag}.sam")]) == 0
+    got = records(d / f"or_{tag}.sam")
+    assert got == records(d / f"jor_{tag}.sam") == \
+        records(d / f"dev_{tag}.sam")
+    assert sum(not ln.startswith("@") for ln in got) == (48 if pe else 40)
+
+
+def test_profile_writes_a_chrome_trace(workdir, capsys):
+    """--profile DIR: a torch.profiler Chrome trace that parses as JSON and
+    holds events; the stderr lines name the file and give the map / write
+    stage walls, one of each per written group; records unchanged."""
+    import re
+
+    from bitmapperbs_tpu_torch.utils.profiling import trace_path
+
+    d = workdir
+    common = ["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
+              "--batch-size", "16", "--platform", "cpu"]
+    prof = d / "prof"
+    assert main([*common, "-o", str(d / "prof.sam"), "--profile",
+                 str(prof)]) == 0
+    path = trace_path(str(prof))
+    err = capsys.readouterr().err
+    assert f"profiler trace -> {path}" in err
+    stages = re.search(r"stages: map=[0-9.]+ms/(\d+)x  write=[0-9.]+ms/(\d+)x",
+                       err)
+    assert stages and stages[1] == stages[2] and int(stages[1]) >= 1, err
+    trace = json.load(open(path))
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    names = {ev.get("name", "") for ev in events}
+    assert len(events) > 100 and any("aten::" in n for n in names)
+    assert main([*common, "-o", str(d / "noprof.sam")]) == 0
+    assert records(d / "prof.sam") == records(d / "noprof.sam")
+
+
+def test_stage_timer_accumulates_and_reports():
+    from bitmapperbs_tpu_torch.utils.profiling import StageTimer, \
+        device_trace
+
+    timer = StageTimer()
+    for _ in range(3):
+        with timer("seed", sync=torch.ones(4)):
+            torch.ones(8).sum()
+    with timer("verify"):
+        pass
+    assert timer.counts == {"seed": 3, "verify": 1}
+    assert timer.totals["seed"] > 0
+    rep = timer.report()
+    assert rep.startswith("seed=") and "ms/3x" in rep and "ms/1x" in rep
+    assert rep.index("seed=") < rep.index("verify=")
+    with device_trace(None):                # no directory: a no-op
+        pass
 
 
 def test_resample_matches_reference_cli(workdir, capsys):

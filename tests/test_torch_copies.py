@@ -335,3 +335,56 @@ def test_budget_grouping_helpers():
         assert str(ej.value) == str(et.value)
     assert tcli._translate_legacy(["--index", "x"]) == ["index", "x"]
     assert tcli.default_prefix("a.fa") == jcli.default_prefix("a.fa")
+
+
+# ---- multi-host shard planning -------------------------------------------------
+
+MULTIHOST_COPIES = ("HostShard", "_snap_record_start", "_count_newlines",
+                    "_offset_of_record", "ByteRangePlan", "plan_byte_range",
+                    "shard_path")
+
+
+@pytest.mark.parametrize("name", MULTIHOST_COPIES)
+def test_multihost_helpers_are_verbatim_copies(name):
+    """The pure-Python parts of parallel/multihost.py are the reference's,
+    line for line (only init_distributed and global_stats differ: gloo
+    instead of jax.distributed)."""
+    import inspect
+
+    jmh, tmh = both("parallel.multihost")
+    assert inspect.getsource(getattr(tmh, name)) == \
+        inspect.getsource(getattr(jmh, name))
+
+
+def test_multihost_plans_equal_the_reference(tmp_path):
+    """Seeded FASTQs of varied read lengths (and '@'-leading qualities):
+    every host's byte-range plan, SE and PE, and every record-strided
+    filter equal the reference's."""
+    jfq, tfq = both("io.fastq")
+    jmh, tmh = both("parallel.multihost")
+    rng = np.random.default_rng(11)
+    n = 41
+    paths = []
+    for mate, (lo, hi) in enumerate(((40, 120), (30, 60))):
+        reads = [rng.integers(0, 4, int(rng.integers(lo, hi))).astype(
+            np.uint8) for _ in range(n)]
+        quals = [("@" if i % 3 else "I") * len(r)
+                 for i, r in enumerate(reads)]
+        paths.append(str(tmp_path / f"r{mate}.fq"))
+        tfq.write_fastq(paths[-1], reads, [f"q{i}" for i in range(n)], quals)
+    for H in (1, 2, 3, 4, 7):
+        for h in range(H):
+            for path2 in (None, paths[1]):
+                assert dataclasses.asdict(tmh.plan_byte_range(
+                    paths[0], h, H, path2=path2)) == dataclasses.asdict(
+                    jmh.plan_byte_range(paths[0], h, H, path2=path2))
+            batch = [np.full(3, i, np.uint8) for i in range(9)]
+            names = [f"x{i}" for i in range(9)]
+            for start in (0, 5, 13):
+                got = tmh.HostShard(h, H).filter_batch(batch, names, names,
+                                                       start)
+                want = jmh.HostShard(h, H).filter_batch(batch, names, names,
+                                                        start)
+                assert got[1] == want[1] and got[2] == want[2]
+            assert tmh.shard_path("o.sam", h, H) == \
+                jmh.shard_path("o.sam", h, H)

@@ -29,12 +29,14 @@ from bitmapperbs_tpu.config import AlignerConfig  # noqa: E402
 from bitmapperbs_tpu.index.build import build_index, parse_fasta  # noqa: E402
 from bitmapperbs_tpu.index.device import upload_index as jupload  # noqa: E402
 from bitmapperbs_tpu.models import paired as jpaired  # noqa: E402
+from bitmapperbs_tpu.models.host import map_batch_pe_tpu  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import simulate_pairs  # noqa: E402
 from bitmapperbs_tpu_torch import constants as K  # noqa: E402
 from bitmapperbs_tpu_torch.index.device import (  # noqa: E402
     _device_layout_planes, upload_index)
 from bitmapperbs_tpu_torch.models import paired as tpaired  # noqa: E402
-from bitmapperbs_tpu_torch.models.host import prepare_batch  # noqa: E402
+from bitmapperbs_tpu_torch.models.host import (map_batch_pe as tmap_pe,  # noqa: E402
+                                               prepare_batch)
 from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
 from bitmapperbs_tpu_torch.ops import verify as tv  # noqa: E402
 from chip_smoke import straddling_pairs, tandem_genome_fasta  # noqa: E402
@@ -117,53 +119,67 @@ def eq_row(peq, pad, a0, a1, an, b):
 
 
 def rescue_pair_model(gp, gwords, L, blk, win_start, r_ok, a_lo, span, ms_len,
-                      peq, pad, m, e, R, chunks):
-    """One pair as rescue_scan_kernel runs it with `chunks` threads: returns
-    (rs_best, rp_best, rs_second, columns run)."""
+                      peq, pad, m, e, R, chunks, two_pass=False):
+    """One pair as rescue_scan_kernel runs it with `chunks` threads, in one
+    pass (MODE 0) or in two (MODE 1, then MODE 2): returns (rs_best,
+    rp_best, rs_second, columns run)."""
     nout = 0
     if r_ok:
         span_i32 = span - (1 << 32) if span >= (1 << 31) else span
         if span_i32 >= 0:
             nout = min(span_i32, R + e) + 1
     ch = -(-nout // chunks)
-    threads = []                         # per thread: state after its columns
-    cols_run = 0
     jo = e + m - 1
-    for chunk in range(chunks):
-        q0 = min(chunk * ch, nout)
-        q1 = min(q0 + ch, nout)
+    cols_run = 0
+
+    def scan(q0, q1):
+        """One thread's columns: yields (q, score) for its output columns,
+        after the warm-up."""
+        nonlocal cols_run
+        j_first = max(0, jo + q0 - (m + e))
+        j_last = jo + q1 - 1
+        win = WindowModel(gp, blk, win_start, gwords, L, j_first >> 5)
+        vp, vn, score = [U32] * (m // 32), [0] * (m // 32), m
+        for w in range(j_first >> 5, (j_last >> 5) + 1):
+            a0, a1, an = win.next()
+            for b in range(max(j_first - 32 * w, 0),
+                           min(j_last - 32 * w, 31) + 1):
+                score += myers_column_words(
+                    vp, vn, eq_row(peq, pad, a0, a1, an, b))
+                cols_run += 1
+                q = 32 * w + b - jo
+                if q >= q0:
+                    yield q, score
+
+    def frame(A):
+        return A if blk == 0 else (L - A - ms_len) & U32
+
+    splits = [(min(c * ch, nout), min(min(c * ch, nout) + ch, nout))
+              for c in range(chunks)]
+    threads = []                         # per thread: its running best, bytes
+    for q0, q1 in splits:
         best, best_p, sc = INF, U32, {}
         if q0 < q1:
-            j_first = max(0, jo + q0 - (m + e))
-            j_last = jo + q1 - 1
-            win = WindowModel(gp, blk, win_start, gwords, L, j_first >> 5)
-            vp, vn, score = [U32] * (m // 32), [0] * (m // 32), m
-            for w in range(j_first >> 5, (j_last >> 5) + 1):
-                a0, a1, an = win.next()
-                for b in range(max(j_first - 32 * w, 0),
-                               min(j_last - 32 * w, 31) + 1):
-                    score += myers_column_words(
-                        vp, vn, eq_row(peq, pad, a0, a1, an, b))
-                    cols_run += 1
-                    q = 32 * w + b - jo
-                    if q >= q0:
-                        sc[q] = min(score, e + 1)     # one byte per column
-                        if score <= e:
-                            A = (a_lo + q) & U32
-                            P = A if blk == 0 else (L - A - ms_len) & U32
-                            if (score, P) < (best, best_p):
-                                best, best_p = score, P
-            assert sorted(sc) == list(range(q0, q1))
+            for q, score in scan(q0, q1):
+                if not two_pass:
+                    sc[q] = min(score, e + 1)     # one byte per column
+                if score <= e:
+                    P = frame((a_lo + q) & U32)
+                    if (score, P) < (best, best_p):
+                        best, best_p = score, P
+            assert two_pass or sorted(sc) == list(range(q0, q1))
         threads.append((q0, q1, best, best_p, sc))
     # the shuffle rounds: lexicographic minimum over the pair's threads
     best, best_p = min((t[2], t[3]) for t in threads)
     second = INF
+    a_best = frame(best_p)                   # the frame map is its own inverse
     for q0, q1, _, _, sc in threads:
         if q0 < q1 and best <= e:
-            a_best = best_p if blk == 0 else (L - best_p - ms_len) & U32
-            for q in range(q0, q1):
-                if sc[q] <= e and abs(((a_lo + q) & U32) - a_best) > e:
-                    second = min(second, sc[q])
+            # MODE 0 re-reads its own bytes; MODE 2 runs the scan again
+            cols = sc.items() if not two_pass else scan(q0, q1)
+            for q, s in cols:
+                if s <= e and abs(((a_lo + q) & U32) - a_best) > e:
+                    second = min(second, s)
     return best, best_p, second, cols_run
 
 
@@ -250,20 +266,11 @@ def rescue_lanes(rng, n, m, e, R, genome):
             "reads": reads, "planted": planted}
 
 
-@pytest.mark.parametrize("m,e,R,chunks,n", [
-    (32, 3, 61, (1, 2, 8, 32), 72),
-    (64, 4, 101, (1, 4, 16), 72),
-    (96, 2, 40, (8,), 72),
-    # the default insert range of the command line, and one so wide that
-    # the wrapper's rule takes 16 threads per pair
-    (32, 3, 1_001, None, 32),
-    (32, 3, 20_000, None, 14),
-])
-def test_kernel_model_matches_plain(m, e, R, chunks, n):
-    if chunks is None:
-        chunks = (kernels.rescue_scan_chunks(m, e, R),)
-        assert chunks == ((8,) if R < 10_000 else (16,))
-    rng = np.random.default_rng(100 + m)
+def check_model(m, e, R, runs, n, seed):
+    """rescue_lanes' n pairs through the wrapper on the CPU (its plain
+    version) and through the scalar model with each (threads per pair, two
+    passes) of `runs`; returns the lanes and the plain outputs."""
+    rng = np.random.default_rng(seed)
     genome = toy_genome(rng, tail=R if R > 500 else 0)
     L = genome.length
     gp = _device_layout_planes(genome)
@@ -279,15 +286,15 @@ def test_kernel_model_matches_plain(m, e, R, chunks, n):
     assert rs.dtype == r2.dtype == torch.int32 and rp.dtype == torch.int64
     rs, rp, r2 = rs.numpy(), rp.numpy(), r2.numpy()
     peq_n, pad_n = peq.numpy(), pad.numpy()
-    for C in chunks:
+    for C, two_pass in runs:
         for i in range(n):
             got = rescue_pair_model(
                 gp, gwords, L, int(ln["blk"][i]), int(ln["win_start"][i]),
                 bool(ln["r_ok"][i]), int(ln["a_lo"][i]), int(ln["span"][i]),
                 int(ln["lens"][i]), [[int(x) for x in row]
                                      for row in peq_n[i]],
-                [int(x) for x in pad_n[i]], m, e, R, C)
-            assert got[:3] == (rs[i], rp[i], r2[i]), (C, i, got)
+                [int(x) for x in pad_n[i]], m, e, R, C, two_pass)
+            assert got[:3] == (rs[i], rp[i], r2[i]), (C, two_pass, i, got)
     # the planted lanes are what their names say
     pl = ln["planted"]
     for name in ("r_ok false", "r_ok false, garbage",
@@ -297,15 +304,58 @@ def test_kernel_model_matches_plain(m, e, R, chunks, n):
     for name in ("span 0", "span R - 1", "block 1", "short mate",
                  "span past the window"):
         assert rs[pl[name]] <= e, name
-    assert (rs < INF).sum() > n // 2 and (r2 < INF).any()
     # equal minima a repeat period (> e) apart: the second best is as good
     # as the best, and the position is the lowest P (the last column on
     # block 1)
     for name in ("repeat, block 0", "repeat, block 1"):
         i = pl[name]
         assert rs[i] == r2[i] == 0, (name, rs[i], r2[i])
+    return ln, rs, rp, r2
+
+
+@pytest.mark.parametrize("m,e,R,chunks,n", [
+    (32, 3, 61, (1, 2, 8, 32), 72),
+    (64, 4, 101, (1, 4, 16), 72),
+    (96, 2, 40, (8,), 72),
+    # the default insert range of the command line, and one so wide that
+    # the wrapper's rule takes 16 threads per pair
+    (32, 3, 1_001, None, 32),
+    (32, 3, 20_000, None, 14),
+])
+def test_kernel_model_matches_plain(m, e, R, chunks, n):
+    if chunks is None:
+        chunks = (kernels.rescue_scan_chunks(m, e, R),)
+        assert chunks == (((8,) if R < 10_000 else (16,)) + (False,),)
+    else:
+        chunks = [(C, False) for C in chunks]
+    _, rs, _, r2 = check_model(m, e, R, chunks, n, seed=100 + m)
+    assert (rs < INF).sum() > n // 2 and (r2 < INF).any()
     # somewhere a hit has only neighbours within e: no second
     assert ((rs <= e) & (r2 == INF)).any()
+
+
+@pytest.mark.parametrize("m,e,R,chunks,n", [
+    # the two-pass mode on many lanes of a narrow window (the mode does not
+    # depend on the range; the wrapper takes it only past the bytes' limit)
+    (32, 3, 61, (1, 8, 32), 72),
+    (64, 4, 101, (4, 32), 40),
+    # past the one-pass limit, where the wrapper takes it: few pairs, the
+    # planted ones carrying the whole window
+    (32, 3, 100_000, None, 14),
+])
+def test_two_pass_model_matches_plain(m, e, R, chunks, n):
+    """The two-pass mode (MODE 1: best and its lowest position; MODE 2: the
+    scan again for the best score more than e anchors away) equals the plain
+    version, ties a period apart on both blocks and seconds included."""
+    if chunks is None:
+        runs = [kernels.rescue_scan_chunks(m, e, R)]
+        assert runs == [(32, True)]
+    else:
+        runs = [(C, True) for C in chunks]
+    ln, rs, rp, r2 = check_model(m, e, R, runs, n, seed=200 + m)
+    assert (rs <= e).sum() > n // 2 and ((rs <= e) & (r2 == INF)).any()
+    # a hit at the far end of a window wider than the one-pass limit
+    assert rs[ln["planted"]["span R - 1"]] <= e
 
 
 def test_rescue_scan_wrapper_raises_and_picks_chunks():
@@ -316,12 +366,12 @@ def test_rescue_scan_wrapper_raises_and_picks_chunks():
                           (96, 4, 20_000, 16), (96, 4, 40_000, 32),
                           (1_024, 4, 9_000, 8), (1_024, 4, 12_000, 16),
                           (1_024, 4, 30_000, 32)):
-        assert kernels.rescue_scan_chunks(m, e, R) == want, (m, e, R)
+        assert kernels.rescue_scan_chunks(m, e, R) == (want, False), (m, e, R)
         table = 0 if m <= 256 else 5 * 4 * 128 * 32
         assert table + 128 // want * ((R + e + 4) & ~3) <= 227 * 1024
+    # past what 32 threads per pair fit: the two passes, no limit
     for m, R in ((96, 60_000), (1_024, 40_000)):
-        with pytest.raises(ValueError, match="insert-size range"):
-            kernels.rescue_scan_chunks(m, 4, R)
+        assert kernels.rescue_scan_chunks(m, 4, R) == (32, True), (m, R)
     rng = np.random.default_rng(5)
     genome = toy_genome(rng)
     gp = torch.from_numpy(_device_layout_planes(genome).view(np.int32))
@@ -345,6 +395,21 @@ def test_rescue_scan_wrapper_raises_and_picks_chunks():
     bad[0] = bad[0].to("meta")                        # no silent path
     with pytest.raises(ValueError):
         kernels.rescue_scan(*bad, *tail)
+
+
+@pytest.mark.parametrize("m,one_pass_max", [(96, 58_107), (288, 50_427),
+                                            (1_024, 37_627)])
+def test_two_pass_dispatch_boundary(m, one_pass_max):
+    """The largest insert range whose bytes per output column still fit a
+    block of 4 pairs (32 threads each) keeps the one-pass mode; one offset
+    more takes the two passes, at any range the kernel accepts."""
+    e = 4
+    assert kernels.rescue_scan_chunks(m, e, one_pass_max) == (32, False)
+    table = 0 if m <= 256 else 5 * 4 * 128 * (12 if m <= 384 else 32)
+    assert table + 4 * ((one_pass_max + e + 4) & ~3) <= 227 * 1024
+    assert table + 4 * ((one_pass_max + 1 + e + 4) & ~3) > 227 * 1024
+    for R in (one_pass_max + 1, 100_000, 1 << 24):
+        assert kernels.rescue_scan_chunks(m, e, R) == (32, True), R
 
 
 # ---- 3. the lemma ------------------------------------------------------------
@@ -448,3 +513,27 @@ def test_plain_version_matches_jax_rescue(repeat_setup, e, pbat):
     decided = got["resc_valid"].numpy() & ~got["pair_valid"].numpy()
     assert decided[:24].sum() >= 12                   # rescue decides here
     assert (np.asarray(want["resc_second"]) < INF).any()
+
+
+def test_wide_insert_pe_matches_jax(repeat_setup, monkeypatch):
+    """Insert range 0-100,000, past what the one-pass kernel fits at any
+    read length (the wrapper takes the two passes there): the port's
+    map_batch_pe on the CPU writes the JAX package's SAM, and rescue decides
+    pairs across the whole small genome."""
+    from bitmapperbs_tpu_torch.models import host as thost
+
+    idx, jd, td, pairs = repeat_setup
+    pairs = pairs[:16]
+    cfg = AlignerConfig(max_errors=4, indels=True, paired=True, min_insert=0,
+                        max_insert=100_000, read_len_bucket=96,
+                        batch_size=len(pairs), use_pallas=False)
+    assert kernels.rescue_scan_chunks(96, 4, 100_001) == (32, True)
+    outs = []
+    run = thost.map_batch_pe_device
+    monkeypatch.setattr(thost, "map_batch_pe_device",
+                        lambda *a, **k: outs.append(run(*a, **k)) or outs[-1])
+    got = [r.line() for r in tmap_pe(idx, td, cfg, pairs)]
+    assert got == [r.line() for r in map_batch_pe_tpu(idx, jd, cfg, pairs)]
+    out = outs[0]
+    decided = out["resc_valid"].numpy() & ~out["pair_valid"].numpy()
+    assert decided.sum() >= 4

@@ -80,6 +80,16 @@ def test_every_kernel_has_a_listing_name():
                for lib, _ in chip_smoke.SASS_KERNELS.values())
 
 
+def test_rescue_passes_have_their_own_listing_names():
+    """The one-pass kernel and the two passes are three instances of one
+    template: each name picks out exactly one of them."""
+    names = [chip_smoke.SASS_KERNELS["rescue_scan"][1]] + [
+        f for _, f in chip_smoke.SASS_PASSES.values()]
+    assert len(set(names)) == 3
+    for a in names:
+        assert sum(a in b for b in names) == 1, a
+
+
 @pytest.mark.parametrize("nbytes, ops, by", [
     (3.35e9, 16.75e9 / 2, "bytes"),          # 1 ms against 0.5 ms
     (3.35e9 / 2, 16.75e9, "operations"),

@@ -34,6 +34,8 @@ mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')
 for m in mods:
     importlib.import_module(m)
 assert len(mods) >= 30, mods
+assert {'bitmapperbs_tpu_torch.parallel.multihost',
+        'bitmapperbs_tpu_torch.utils.profiling'} <= set(mods), mods
 
 from bitmapperbs_tpu_torch.cli import main
 from bitmapperbs_tpu_torch.config import AlignerConfig
@@ -71,6 +73,26 @@ with tempfile.TemporaryDirectory() as d:
                  '--seq2', os.path.join(d, 'p1.fq'), '-o',
                  os.path.join(d, 'pe.sam'), '--platform', 'cpu', '-t', '2',
                  '--min', '100', '--max', '400']) == 0
+    # the host oracle, a profiler trace, the cursor written per group and a
+    # resume, and the stats all_reduce of a one-process gloo group
+    assert main(['search', ref, '--seq', os.path.join(d, 'r.fq'), '-o',
+                 os.path.join(d, 'or.sam'), '--oracle', '--profile',
+                 os.path.join(d, 'prof'), '--batch-size', '8']) == 0
+    assert not os.path.exists(os.path.join(d, 'or.sam.cursor'))
+    open(os.path.join(d, 'or.sam.cursor'), 'w').write(
+        '{"record": 0, "offset": 0, "offset2": 0, "out_pos": 0}')
+    assert main(['search', ref, '--seq', os.path.join(d, 'r.fq'), '-o',
+                 os.path.join(d, 'or.sam'), '--platform', 'cpu', '--resume',
+                 '--batch-size', '8']) == 0
+    from bitmapperbs_tpu_torch.io.stats import MapStats
+    from bitmapperbs_tpu_torch.parallel import multihost
+    import socket
+    s = socket.socket(); s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]; s.close()
+    multihost.dist.init_process_group('gloo', rank=0, world_size=1,
+                                      init_method=f'tcp://127.0.0.1:{port}')
+    assert multihost.global_stats(MapStats(total=3))['total'] == 3
+    multihost.finalize_distributed()
     n_se = sum(not ln.startswith('@') for ln in open(os.path.join(d, 'se.sam')))
     n_pe = sum(not ln.startswith('@') for ln in open(os.path.join(d, 'pe.sam')))
     assert (n_se, n_pe) == (24, 24), (n_se, n_pe)
