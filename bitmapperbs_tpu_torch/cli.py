@@ -10,17 +10,19 @@ Counterpart of bitmapperbs_tpu/cli.py, with the same options: the parser,
 `index`, `resample`, config building, genome-size autotune and the per-read
 budget grouping are kept equal to the reference CLI's.  `search` maps
 single-end reads through models/host.map_batch and pairs through
-models/host.map_batch_pe on one GPU (`--platform auto|gpu`) or, when asked
+models/host.map_batch_pe on the GPUs (`--platform auto|gpu`) or, when asked
 for explicitly, on the CPU (`--platform cpu`); `--oracle` maps through the
-numpy oracle on the host instead.
+numpy oracle on the host instead.  With more than one local card and no
+`--single-device`, batches are split over every card (parallel/shard.py),
+the index replicated on each, or split over `--shard-index N` cards per
+data slice.
 
 Streaming runs checkpoint a (record, byte-offset) cursor next to the output,
 `<out>.cursor`, after every written group (the reference's JSON: a run
 killed under either package resumes under the other with `--resume`).
 `--profile DIR` writes a torch.profiler Chrome trace and prints the map /
 write stage walls (utils/profiling.StageTimer); `--dist-hosts N` maps
-one shard of the input per process (parallel/multihost.py).  Mapping over
-several local cards (`--shard-index`) is not ported yet and exits 2.
+one shard of the input per process (parallel/multihost.py).
 """
 from __future__ import annotations
 
@@ -388,25 +390,17 @@ def _closing_iter(pf):
 
 
 
-def _unported(args) -> str | None:
-    return "--shard-index" if args.shard_index else None
-
-
-def _device(platform: str):
+def _local_devices(platform: str) -> list:
+    """The devices `search` maps on: the CPU for `--platform cpu`, else
+    every CUDA device (none without CUDA)."""
     import torch
 
-    if platform == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        return None
-    return torch.device("cuda", torch.cuda.current_device())
+    from bitmapperbs_tpu_torch.parallel.mesh import local_devices
+
+    return [torch.device("cpu")] if platform == "cpu" else local_devices()
 
 
 def cmd_search(args) -> int:
-    flag = _unported(args)
-    if flag is not None:
-        sys.stderr.write(f"error: {flag} is not yet ported (ROADMAP.md)\n")
-        return 2
     if args.pe and not (args.seq1 and args.seq2):
         sys.stderr.write("error: --pe requires --seq1 and --seq2\n")
         return 2
@@ -414,11 +408,12 @@ def cmd_search(args) -> int:
         sys.stderr.write("error: single-end search requires --seq\n")
         return 2
     # --oracle maps on the host by definition: it needs no card
-    device = None if args.oracle else _device(args.platform)
-    if device is None and not args.oracle:
+    devices = [] if args.oracle else _local_devices(args.platform)
+    if not devices and not args.oracle:
         sys.stderr.write(f"error: --platform {args.platform}: no CUDA device"
                          f" available (use --platform cpu for a host run)\n")
         return 2
+    device = devices[0] if devices else None
 
     from bitmapperbs_tpu_torch import constants as K
     from bitmapperbs_tpu_torch.index.build import load_index
@@ -468,6 +463,10 @@ def cmd_search(args) -> int:
     cfg = make_config(args)
     idx = load_index(prefix)
     cfg = autotune_for_genome(cfg, args, int(sum(idx.genome.lengths)))
+    if not args.oracle and args.shard_index and (
+            len(devices) < 2 or args.single_device):
+        sys.stderr.write("error: --shard-index needs >1 local device\n")
+        return 2
 
     bam = args.bam or args.output.endswith(".bam")
     if bam and args.output == "-":
@@ -525,13 +524,41 @@ def cmd_search(args) -> int:
                          f"{resume['record']}\n")
 
     # finalize workers are spawned (numpy only) before the device is touched
-    pool = dix = None
+    pool = dix = mappers = None
     if not args.oracle:
         from bitmapperbs_tpu_torch.index.device import upload_index
         from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
         from bitmapperbs_tpu_torch.models.pool import make_finalize_pool
+        from bitmapperbs_tpu_torch.parallel.shard import make_cli_mappers
         pool = make_finalize_pool(idx, cfg, args.threads)
-        dix = upload_index(idx, device)
+        if len(devices) > 1 and not args.single_device:
+            # every local card: the index replicated on each, or split
+            # over --shard-index N cards per data slice
+            try:
+                mappers = make_cli_mappers(idx, cfg, devices,
+                                           shard_index=args.shard_index)
+            except ValueError as e:
+                if pool is not None:
+                    pool.terminate()
+                sys.stderr.write(f"error: {e}\n")
+                return 2
+            sys.stderr.write(
+                f"[bitmapperbs_tpu_torch] mapping over {len(devices)} "
+                f"devices (mesh {mappers.mesh.shape})\n")
+        else:
+            dix = upload_index(idx, device)
+
+    # per-group mapper sets (-e rate budgets / grown length buckets) share
+    # the base mappers' mesh and uploaded index
+    group_mappers = {}
+
+    def mappers_for(c):
+        key = (c.max_errors, c.read_len_bucket)
+        if mappers is None or key == (cfg.max_errors, cfg.read_len_bucket):
+            return mappers
+        if key not in group_mappers:
+            group_mappers[key] = make_cli_mappers(idx, c, reuse=mappers)
+        return group_mappers[key]
 
     out_fh = sys.stdout if args.output == "-" else open(
         args.output,
@@ -579,13 +606,13 @@ def cmd_search(args) -> int:
         if args.oracle:
             return ose(idx, c, codes, quals, qnames)
         return map_batch(idx, dix, c, codes, quals, qnames, stats=stats,
-                         pool=pool)
+                         pool=pool, mappers=mappers_for(c))
 
     def run_pairs(c, prs, quals, qnames):
         if args.oracle:
             return ope(idx, c, prs, quals, qnames)
         return map_batch_pe(idx, dix, c, prs, quals, qnames, stats=stats,
-                            pool=pool)
+                            pool=pool, mappers=mappers_for(c))
 
     try:
         with device_trace(args.profile, device):

@@ -37,6 +37,17 @@
 // with a runtime-W instantiation for any other width.  Offsets are 64-bit
 // throughout: checkpoint rows of a 3 Gbp genome are past 2^31 bytes.
 //
+// btbs_gather_rows_shard is the same gather over one shard of a table whose
+// rows are split into equal ranges, one per card (the sharded index,
+// index/device.upload_index_sharded): the table holds global rows
+// [base, base + R), and a lane whose index falls outside that range gets a
+// zero row without touching the table.  It stands for the reference's
+// sharded fetch, clip + where(ok, row, 0) before the psum
+// (bitmapperbs_tpu/ops/fm.py:46-69, ops/verify.py:105-112); the caller sums
+// the shards' partial rows, and every row lives on exactly one shard.  One
+// kernel template serves both (SHARD): the same threads-own-output-words
+// layout and kIlp loads in flight, with the range test in place of the clamp.
+//
 // The FM-index step loops do not come through here on the card: csrc/fm.cu
 // fuses their row fetches with the occ / LF step that consumes the row and
 // keeps the loop inside one launch, and csrc/verify.cu's gathering entry
@@ -54,10 +65,12 @@ constexpr int64_t kMaxBlocks = 0x7FFFFFFF;
 
 // W > 0: compile-time row width; W == 0: runtime width w_rt.
 // kIlp output words per thread and trip, a whole grid apart.
-template <int W>
+// SHARD: the table is global rows [base, base + R); rows outside give 0.
+// Otherwise indices are clamped into [0, R - 1] (base unused).
+template <int W, bool SHARD>
 __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
     const int32_t* __restrict__ table, const int64_t* __restrict__ idx,
-    int32_t* __restrict__ out, int64_t R, int64_t L, int w_rt) {
+    int32_t* __restrict__ out, int64_t R, int64_t L, int w_rt, int64_t base) {
   const int64_t w = W > 0 ? W : w_rt;
   const int64_t total = L * w;
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
@@ -68,31 +81,55 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
 #pragma unroll
     for (int k = 0; k < kIlp; ++k) {
       const int64_t t = t0 + k * stride;
+      // -1: past the lanes (no store); -2: a row of another shard (store 0)
       src[k] = -1;
       if (t < total) {
         const int64_t lane = t / w;
         int64_t row = idx[lane];
-        row = row < 0 ? 0 : (row >= R ? R - 1 : row);
-        src[k] = row * w + (t - lane * w);
+        if (SHARD) {
+          row -= base;
+          src[k] = row >= 0 && row < R ? row * w + (t - lane * w) : -2;
+        } else {
+          row = row < 0 ? 0 : (row >= R ? R - 1 : row);
+          src[k] = row * w + (t - lane * w);
+        }
       }
     }
 #pragma unroll
     for (int k = 0; k < kIlp; ++k) v[k] = src[k] >= 0 ? table[src[k]] : 0;
 #pragma unroll
     for (int k = 0; k < kIlp; ++k)
-      if (src[k] >= 0) out[t0 + k * stride] = v[k];
+      if (src[k] != -1) out[t0 + k * stride] = v[k];
   }
 }
 
-template <int W>
+template <int W, bool SHARD>
 void launch(const int32_t* table, const int64_t* idx, int32_t* out, int64_t R,
-            int64_t L, int w, cudaStream_t st) {
+            int64_t L, int w, int64_t base, cudaStream_t st) {
   const int64_t total = L * int64_t(w);
   const int64_t per_block = int64_t(kThreads) * kIlp;
   int64_t blocks = (total + per_block - 1) / per_block;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;   // grid-stride covers the rest
-  gather_rows_kernel<W><<<unsigned(blocks), kThreads, 0, st>>>(table, idx, out,
-                                                              R, L, w);
+  gather_rows_kernel<W, SHARD><<<unsigned(blocks), kThreads, 0, st>>>(
+      table, idx, out, R, L, w, base);
+}
+
+template <bool SHARD>
+int gather(const void* table, const void* idx, void* out, int64_t R,
+           int64_t L, int W, int64_t base, void* stream) {
+  if (R < 1 || L < 1 || W < 1) return int(cudaErrorInvalidValue);
+  auto t = static_cast<const int32_t*>(table);
+  auto i = static_cast<const int64_t*>(idx);
+  auto o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (W) {
+    case 1: launch<1, SHARD>(t, i, o, R, L, W, base, st); break;
+    case 2: launch<2, SHARD>(t, i, o, R, L, W, base, st); break;
+    case 3: launch<3, SHARD>(t, i, o, R, L, W, base, st); break;
+    case 17: launch<17, SHARD>(t, i, o, R, L, W, base, st); break;
+    default: launch<0, SHARD>(t, i, o, R, L, W, base, st); break;
+  }
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -103,19 +140,15 @@ extern "C" {
 // cudaError_t of the launch (0 = launched).
 int btbs_gather_rows(const void* table, const void* idx, void* out, int64_t R,
                      int64_t L, int W, void* stream) {
-  if (R < 1 || L < 1 || W < 1) return int(cudaErrorInvalidValue);
-  auto t = static_cast<const int32_t*>(table);
-  auto i = static_cast<const int64_t*>(idx);
-  auto o = static_cast<int32_t*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 1: launch<1>(t, i, o, R, L, W, st); break;
-    case 2: launch<2>(t, i, o, R, L, W, st); break;
-    case 3: launch<3>(t, i, o, R, L, W, st); break;
-    case 17: launch<17>(t, i, o, R, L, W, st); break;
-    default: launch<0>(t, i, o, R, L, W, st); break;
-  }
-  return int(cudaGetLastError());
+  return gather<false>(table, idx, out, R, L, W, 0, stream);
+}
+
+// The shard's rows int32 [R][W] are global rows [base, base + R); a lane
+// outside them gets a zero row.
+int btbs_gather_rows_shard(const void* table, const void* idx, void* out,
+                           int64_t R, int64_t L, int W, int64_t base,
+                           void* stream) {
+  return gather<true>(table, idx, out, R, L, W, base, stream);
 }
 
 }  // extern "C"

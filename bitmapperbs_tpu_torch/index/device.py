@@ -9,6 +9,12 @@ both orientations, one row of [b0, b1, nmask] per 32-position word.
 The large tables (cp_rows, sa_samples, g_planes, klt) are int32 tensors
 holding the u32 bits (ops/u32.py); callers widen after each gather.  The
 small ones (cbase, n) are int64.
+
+A sharded index (upload_index_sharded, the counterpart of the reference's
+parallel/shard.upload_index_sharded) holds cp_rows, sa_samples and g_planes
+as `Shards`: equal row ranges of the padded table, one per card of an index
+group, fetched by ops/kernels.gather_table.  cbase, n and klt stay whole
+tensors on the group's first card, where the lanes live.
 """
 from __future__ import annotations
 
@@ -26,13 +32,30 @@ PLANES_CACHE_VERSION = 1
 
 
 @dataclasses.dataclass(frozen=True)
+class Shards:
+    """One table split into equal row ranges: parts[s], on its own device,
+    holds the global rows [s * rows, (s + 1) * rows) (the reference's
+    P(idx_axis) sharding).  Not a tensor: only ops/kernels.gather_table
+    reads it, and the fused kernels refuse it."""
+    parts: tuple[torch.Tensor, ...]
+
+    @property
+    def rows(self) -> int:
+        return self.parts[0].shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.parts)
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceIndex:
-    cp_rows: torch.Tensor      # int32 bits [2 * rows_max, CP_ROW_U32]
-    cbase: torch.Tensor        # int64 [2, CONV_ALPHA]
-    sa_samples: torch.Tensor   # int32 bits [2 * samples_max]
-    n: torch.Tensor            # int64 [2] text lengths (incl. sentinel)
-    g_planes: torch.Tensor     # int32 bits [2 * g_words, 3]
-    klt: torch.Tensor          # int32 bits [2 * 3^klt_k, 2]
+    cp_rows: torch.Tensor | Shards     # int32 bits [2 * rows_max, CP_ROW_U32]
+    cbase: torch.Tensor                # int64 [2, CONV_ALPHA]
+    sa_samples: torch.Tensor | Shards  # int32 bits [2 * samples_max]
+    n: torch.Tensor                    # int64 [2] text lengths (+ sentinel)
+    g_planes: torch.Tensor | Shards    # int32 bits [2 * g_words, 3]
+    klt: torch.Tensor                  # int32 bits [2 * 3^klt_k, 2]
     rows_max: int
     genome_len: int
     samples_max: int
@@ -41,12 +64,19 @@ class DeviceIndex:
     g_words: int = 0
 
     @property
+    def sharded(self) -> bool:
+        return isinstance(self.cp_rows, Shards)
+
+    @property
     def device(self) -> torch.device:
-        return self.cp_rows.device
+        """Where the lanes live: the device of the whole tables (sharded:
+        the index group's first card)."""
+        return self.cbase.device
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in
+        return sum(t.nbytes if isinstance(t, Shards)
+                   else t.numel() * t.element_size() for t in
                    (self.cp_rows, self.cbase, self.sa_samples, self.n,
                     self.g_planes, self.klt))
 
@@ -111,22 +141,26 @@ def from_arrays(arrays: dict[str, np.ndarray], device=None,
     DeviceIndex's arrays fetched as numpy) -> the port's DeviceIndex.
 
     static: rows_max, genome_len, samples_max, sa_rate, klt_k, g_words."""
-    def big(name):   # copies only when not already writable C-order uint32
-        a = np.require(arrays[name], np.uint32, ["C", "W"])
-        return torch.from_numpy(u32_to_i32_np(a)).to(device)
-
-    def small(name):
-        return torch.from_numpy(
-            np.require(arrays[name], np.int64, ["C", "W"])).to(device)
-
     return DeviceIndex(
-        cp_rows=big("cp_rows"), cbase=small("cbase"),
-        sa_samples=big("sa_samples"), n=small("n"),
-        g_planes=big("g_planes"), klt=big("klt"), **static)
+        **{k: _big(arrays[k], device)
+           for k in ("cp_rows", "sa_samples", "g_planes", "klt")},
+        **{k: _small(arrays[k], device) for k in ("cbase", "n")}, **static)
 
 
-def upload_index(idx: BSIndex, device=None) -> DeviceIndex:
-    """Host BSIndex -> device tensors (replicated on one device)."""
+def _big(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 table -> int32 tensor of its bits; copies on the host only
+    when not already writable C-order uint32."""
+    a = np.require(a, np.uint32, ["C", "W"])
+    return torch.from_numpy(u32_to_i32_np(a)).to(device)
+
+
+def _small(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.require(a, np.int64, ["C", "W"])).to(device)
+
+
+def _host_arrays(idx: BSIndex) -> tuple[dict, dict]:
+    """Host BSIndex -> (uint32 arrays in the DeviceIndex layout, static
+    fields)."""
     rows_max = max(b.cp_rows.shape[0] for b in idx.blocks)
     smax = max(max(len(b.sa_samples) for b in idx.blocks), 1)
     klt_k = idx.blocks[0].klt_k
@@ -145,7 +179,58 @@ def upload_index(idx: BSIndex, device=None) -> DeviceIndex:
         "klt": np.stack([b.klt for b in idx.blocks]).reshape(
             2 * 3 ** klt_k, 2),
     }
-    return from_arrays(arrays, device, rows_max=rows_max,
-                       genome_len=idx.genome.length, samples_max=smax,
-                       sa_rate=idx.blocks[0].sa_rate, klt_k=klt_k,
-                       g_words=gp.shape[0] // 2)
+    return arrays, dict(rows_max=rows_max, genome_len=idx.genome.length,
+                        samples_max=smax, sa_rate=idx.blocks[0].sa_rate,
+                        klt_k=klt_k, g_words=gp.shape[0] // 2)
+
+
+def upload_index(idx: BSIndex, device=None) -> DeviceIndex:
+    """Host BSIndex -> device tensors (replicated on one device)."""
+    arrays, static = _host_arrays(idx)
+    return from_arrays(arrays, device, **static)
+
+
+def _per_block_pad(flat2: np.ndarray, stride: int,
+                   new_stride: int) -> np.ndarray:
+    """[2 * stride, ...] -> [2 * new_stride, ...], block offsets at
+    multiples of new_stride, the rows between them zero."""
+    out = np.zeros((2 * new_stride, *flat2.shape[1:]), flat2.dtype)
+    out[:stride] = flat2[:stride]
+    out[new_stride:new_stride + stride] = flat2[stride:2 * stride]
+    return out
+
+
+def upload_index_sharded(idx: BSIndex, devices) -> DeviceIndex:
+    """Host BSIndex -> a DeviceIndex whose cp_rows, sa_samples and g_planes
+    are split into len(devices) equal row ranges, shard s on devices[s]
+    (devices may repeat).  As the reference's: cp_rows and sa_samples are
+    padded per block, each block's rows to a multiple of the shard count,
+    and rows_max / samples_max become the padded strides, so every
+    `block * rows_max + row` addresses the same row; g_planes is padded at
+    its end (g_words, the per-block offset, is unchanged).  cbase, n and klt
+    are whole, on devices[0]."""
+    devices = [torch.device(d) for d in devices]
+    ns = len(devices)
+    arrays, static = _host_arrays(idx)
+    rows_max = -(-static["rows_max"] // ns) * ns
+    smax = -(-static["samples_max"] // ns) * ns
+    gp = np.asarray(arrays["g_planes"])
+    tables = {
+        "cp_rows": _per_block_pad(arrays["cp_rows"], static["rows_max"],
+                                  rows_max),
+        "sa_samples": _per_block_pad(arrays["sa_samples"],
+                                     static["samples_max"], smax),
+        "g_planes": np.concatenate(
+            [gp, np.zeros((-gp.shape[0] % ns, 3), gp.dtype)]),
+    }
+
+    def split(name):
+        a, rows = tables[name], tables[name].shape[0] // ns
+        return Shards(tuple(_big(a[s * rows:(s + 1) * rows], dev)
+                            for s, dev in enumerate(devices)))
+
+    return DeviceIndex(
+        cp_rows=split("cp_rows"), cbase=_small(arrays["cbase"], devices[0]),
+        sa_samples=split("sa_samples"), n=_small(arrays["n"], devices[0]),
+        g_planes=split("g_planes"), klt=_big(arrays["klt"], devices[0]),
+        **{**static, "rows_max": rows_max, "samples_max": smax})

@@ -8,6 +8,11 @@ the same (best, second) tuples as the reference.  u32 lanes are int64
 otherwise `map_batch_device` enqueues its work and returns, so the host
 loop can keep batches in flight.
 
+On a sharded index (index/device.upload_index_sharded) every table fetch
+goes shard by shard (ops/kernels.gather_table), the FM step loops run
+lockstep, the compact verify takes the window planes into
+kernels.verify_fused, and flat_chunks is off, as in the reference.
+
 Fixed capacities (AlignerConfig): S = num_seeds seeds per (pattern, block)
 frame, O = max_seed_occ SA rows per seed, LB = locate_budget located rows
 per frame, Kc = max_candidates verified anchors per frame.
@@ -303,7 +308,8 @@ def candidate_grids_compact(dix: DeviceIndex, cfg: AlignerConfig, reads,
     blk = blocks[fidx % F]
 
     # ---- locate + anchor projection ----------------------------------------
-    chunks = cfg.flat_chunks
+    # no chunked loops on a sharded index, as in the reference
+    chunks = 0 if dix.sharded else cfg.flat_chunks
     if chunks > 1:
         (tp,) = _chunked_lanes(
             chunks, n_used, (torch.zeros(CAP, dtype=_I64, device=dev),),
@@ -346,18 +352,25 @@ def candidate_grids_compact(dix: DeviceIndex, cfg: AlignerConfig, reads,
         R, 3 * Wd)                                # per frame: b0 | b1 | nmask
 
     def _verify_lanes(blk_, cand_, row_, len_):
-        if cfg.indels and e > 0:
+        ncols = m + 2 * e
+        if cfg.indels and e > 0 and not dix.sharded:
             # one kernel at every bucket width: window gather + funnel
             # shifts + Hamming + PEQ + Myers
             return (kernels.verify_fused_gather(
                 dix.g_planes, blk_, wrap(cand_ - e), read_tab, row_, len_, L,
-                dix.g_words, m, m + 2 * e, e),)
+                dix.g_words, m, ncols, e),)
         rp = read_tab[row_]                                       # lanes,3*Wd
+        rp = (rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:])
+        lenmask = verify.length_mask(len_, m)
+        if cfg.indels and e > 0:
+            # sharded index: the window fetched shard by shard, then the
+            # fused verify on the planes (the reference's compact path)
+            wide = verify.window_planes(dix.g_planes, blk_, wrap(cand_ - e),
+                                        -(-ncols // 32), L, dix.g_words)
+            return (kernels.verify_fused(wide, rp, lenmask, m, ncols, e),)
         ref = verify.window_planes(dix.g_planes, blk_, cand_, Wd, L,
                                    dix.g_words)
-        return (verify.hamming(
-            ref, (rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:]),
-            verify.length_mask(len_, m)),)
+        return (verify.hamming(ref, rp, lenmask),)
 
     v_args = (blkS, cand, rowC, lenS)
     if chunks > 1:

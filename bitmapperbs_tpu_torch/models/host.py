@@ -43,15 +43,18 @@ def prepare_batch(reads, m_pad: int, batch: int | None = None):
     return arr, lengths
 
 
-def _pad_rows(n: int, bs: int) -> int:
+def _pad_rows(n: int, bs: int, rnd: int = 1) -> int:
     """Batch-row count for n reads: full batches use bs; partial batches pad
-    to the next power of two (bounded set of batch shapes)."""
-    if n >= bs:
-        return bs
-    p = 1
-    while p < n:
-        p <<= 1
-    return min(bs, p)
+    to the next power of two (bounded set of batch shapes); either rounded
+    up to a multiple of rnd (the mesh's data slices)."""
+    if n < bs:
+        p = 1
+        while p < n:
+            p <<= 1
+        n = min(bs, p)
+    else:
+        n = bs
+    return -(-n // rnd) * rnd
 
 
 def _merge_where(sel, dense, fast):
@@ -94,22 +97,34 @@ def _to_device(arr, lengths, device):
             torch.from_numpy(lengths).to(device))
 
 
-def _gdrop_fallback_se(dix: DeviceIndex, cfg: AlignerConfig, arr, lengths,
-                       out_np):
+def _gdrop_fallback_se(dense_fn, cfg: AlignerConfig, arr, lengths, out_np):
     """Re-run flat-buffer-overflow reads through the dense path.
 
     The compact pipeline drops candidate entries batch-dependently when its
     flat buffer fills; to keep output deterministic across batch
-    compositions, every flagged read's result is replaced by the dense
-    path's (the spec).  As in the reference, the whole batch is re-run and
-    merged per read."""
+    compositions and meshes, every flagged read's result is replaced by the
+    dense path's (the spec).  As in the reference, the whole batch is re-run
+    (dense_fn, on the host arrays) and merged per read."""
     gdrop = out_np["gdrop"]
     if not (cfg.compact and gdrop.any()):
         return out_np
-    dense = to_host(map_batch_device(dix, cfg.replace(compact=False),
-                                     *_to_device(arr, lengths, dix.device),
-                                     min_read_len=int(lengths.min())))
+    dense = to_host(dense_fn(arr, lengths, int(lengths.min())))
     return _merge_where(gdrop, dense, out_np)
+
+
+def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers):
+    """(map_fn, dense_fn), each fn(arr, lengths, min_read_len) on host
+    arrays: the mesh's (parallel/shard.CliMappers) or one device's."""
+    if mappers is not None:
+        return mappers.se, mappers.se_dense
+
+    def on(c):
+        def fn(arr, lengths, mn):
+            return map_batch_device(dix, c,
+                                    *_to_device(arr, lengths, dix.device),
+                                    min_read_len=mn)
+        return fn
+    return on(cfg), on(cfg.replace(compact=False))
 
 
 def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
@@ -131,32 +146,36 @@ def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
 
 
 def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
-              quals=None, qnames=None, stats=None,
-              pool=None) -> list[SamRecord]:
+              quals=None, qnames=None, stats=None, pool=None,
+              mappers=None) -> list[SamRecord]:
     """End-to-end device mapping of a list of reads -> SAM records.
 
     Up to MAX_INFLIGHT batches are enqueued on the device ahead of the host
     finalize (map_batch_device does not sync); output order is preserved.
     stats: optional io.stats.MapStats (capacity-overflow reads are counted).
-    pool: optional finalize pool (models.pool.make_finalize_pool)."""
+    pool: optional finalize pool (models.pool.make_finalize_pool).
+    mappers: optional parallel.shard.CliMappers: batches map over its mesh
+    (rows rounded up to a multiple of its data slices) instead of on dix,
+    which is then unused."""
     quals = quals or [""] * len(reads)
     qnames = qnames or [f"r{i}" for i in range(len(reads))]
     rc_ref = idx.genome.rc_codes()
     m_pad = cfg.read_len_bucket
     bs = cfg.batch_size
+    rnd = mappers.batch_round if mappers is not None else 1
+    map_fn, dense_fn = _se_mappers(dix, cfg, mappers)
 
     def dispatch(lo):
         chunk = reads[lo:lo + bs]
         arr, lengths = prepare_batch(chunk, m_pad,
-                                     batch=_pad_rows(len(chunk), bs))
-        out = map_batch_device(dix, cfg,
-                               *_to_device(arr, lengths, dix.device),
-                               min_read_len=int(lengths.min()))
+                                     batch=_pad_rows(len(chunk), bs, rnd))
+        out = map_fn(arr, lengths, int(lengths.min()))
         return lo, len(chunk), arr, lengths, out
 
     def finish(item):
         lo, n, arr, lengths, out = item
-        out_np = _gdrop_fallback_se(dix, cfg, arr, lengths, to_host(out))
+        out_np = _gdrop_fallback_se(dense_fn, cfg, arr, lengths,
+                                    to_host(out))
         if stats is not None:
             stats.overflow_reads += int(out_np["overflow"][:n].sum())
         task = (arr, lengths, n, quals[lo:lo + n], qnames[lo:lo + n], out_np)
@@ -167,9 +186,24 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
     return _pipelined(len(reads), bs, dispatch, finish)
 
 
+def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers):
+    """PE analogue of _se_mappers: fn(a1, l1, a2, l2, min1, min2)."""
+    if mappers is not None:
+        return mappers.pe, mappers.pe_dense
+
+    def on(c):
+        def fn(a1, l1, a2, l2, mn1, mn2):
+            return map_batch_pe_device(
+                dix, c, *_to_device(a1, l1, dix.device),
+                *_to_device(a2, l2, dix.device), min_read_len1=mn1,
+                min_read_len2=mn2)
+        return fn
+    return on(cfg), on(cfg.replace(compact=False))
+
+
 def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
-                 quals=None, qnames=None, stats=None,
-                 pool=None) -> list[SamRecord]:
+                 quals=None, qnames=None, stats=None, pool=None,
+                 mappers=None) -> list[SamRecord]:
     """End-to-end device PE mapping of (read1, read2) code-array pairs ->
     SAM records, two per pair, in input order.
 
@@ -177,23 +211,23 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
     names (default p<i>).  As map_batch: up to MAX_INFLIGHT batches in
     flight, one D2H copy per batch, a whole-batch dense re-run merged per
     pair when any pair has gdrop, stats.overflow_reads counts pairs with a
-    capacity overflow in either mate, and `pool` fans the assembly out."""
+    capacity overflow in either mate, `pool` fans the assembly out, and
+    `mappers` maps over a mesh (pe / pe_dense)."""
     m_pad = cfg.read_len_bucket
     bs = cfg.batch_size
     rc_ref = idx.genome.rc_codes()
+    rnd = mappers.batch_round if mappers is not None else 1
+    map_fn, dense_fn = _pe_mappers(dix, cfg, mappers)
 
-    def run(c, a1, l1, a2, l2):
-        dev = dix.device
-        return map_batch_pe_device(
-            dix, c, *_to_device(a1, l1, dev), *_to_device(a2, l2, dev),
-            min_read_len1=int(l1.min()), min_read_len2=int(l2.min()))
+    def run(fn, a1, l1, a2, l2):
+        return fn(a1, l1, a2, l2, int(l1.min()), int(l2.min()))
 
     def dispatch(lo):
         chunk = pairs[lo:lo + bs]
-        B = _pad_rows(len(chunk), bs)
+        B = _pad_rows(len(chunk), bs, rnd)
         a1, l1 = prepare_batch([p[0] for p in chunk], m_pad, B)
         a2, l2 = prepare_batch([p[1] for p in chunk], m_pad, B)
-        return lo, len(chunk), a1, l1, a2, l2, run(cfg, a1, l1, a2, l2)
+        return lo, len(chunk), a1, l1, a2, l2, run(map_fn, a1, l1, a2, l2)
 
     def finish(item):
         lo, n, a1, l1, a2, l2, out = item
@@ -202,7 +236,7 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
             stats.overflow_reads += int((host["se1"]["overflow"][:n]
                                          | host["se2"]["overflow"][:n]).sum())
         if cfg.compact and host["gdrop"].any():
-            dense = to_host(run(cfg.replace(compact=False), a1, l1, a2, l2))
+            dense = to_host(run(dense_fn, a1, l1, a2, l2))
             host = _merge_where(host["gdrop"], dense, host)
         task = (a1, l1, a2, l2, n,
                 quals[lo:lo + n] if quals else None,

@@ -18,13 +18,20 @@ table as the reference's gathers clamp.  The wrappers run them on CPU
 tensors, and the kernels are held to them.  Where the reference used
 where-chains to dodge its device's gather costs on SMALL tables (cbase, n),
 plain indexing gives the same values.
+
+On a sharded index (index/device.upload_index_sharded) the three step
+loops are the lockstep loops whatever the device, as the reference's
+sharded path runs them: every checkpoint row and SA sample is one
+kernels.gather_table call, one kernels.gather_rows_shard per shard with the
+partial rows summed on the lanes' device (the reference's psum), one merge
+per step.  The index's type decides, never a failure.
 """
 from __future__ import annotations
 
 import torch
 
 from bitmapperbs_tpu_torch import constants as K
-from bitmapperbs_tpu_torch.index.device import DeviceIndex
+from bitmapperbs_tpu_torch.index.device import DeviceIndex, Shards
 from bitmapperbs_tpu_torch.ops import kernels   # mutual import: used in calls
 from bitmapperbs_tpu_torch.ops.u32 import (MASK, bnot, mask_lt, popcount,
                                            widen, wrap)
@@ -45,13 +52,17 @@ def _popcount_sum(words):
 
 def fetch_cp_rows(dix: DeviceIndex, row):
     """Checkpoint rows by flat row index, widened to u32 lanes.  Rows are
-    clamped into the table, as the reference's gathers clamp."""
-    return widen(kernels.gather_rows(dix.cp_rows, row.contiguous()))
+    clamped into a whole table, as the reference's gathers clamp; past a
+    sharded one they are zero, as the reference's sharded fetch gives."""
+    return widen(kernels.gather_table(dix.cp_rows, row.contiguous()))
 
 
 def fetch_sa_samples(dix: DeviceIndex, flat_idx):
-    return widen(kernels.gather_rows(dix.sa_samples[:, None],
-                             flat_idx.contiguous())[..., 0])
+    sa = dix.sa_samples
+    col = Shards(tuple(p[:, None] for p in sa.parts)) \
+        if isinstance(sa, Shards) else sa[:, None]
+    flat_idx = flat_idx.clamp(max=2 * dix.samples_max - 1)
+    return widen(kernels.gather_table(col, flat_idx.contiguous())[..., 0])
 
 
 def block_n(dix: DeviceIndex, block):
@@ -91,7 +102,10 @@ def extend_backward(dix: DeviceIndex, block, sp, ep, c):
 
 def locate(dix: DeviceIndex, block, i, valid):
     """SA_block[i] per lane via <= dix.sa_rate LF steps; invalid lanes walk
-    garbage safely.  Returns u32 lanes.  One kernel on the card."""
+    garbage safely.  Returns u32 lanes.  One kernel on the card (the
+    lockstep loop on a sharded index)."""
+    if dix.sharded:
+        return locate_lockstep(dix, block, i, valid)
     return kernels.fm_locate(dix, block, i, valid)
 
 
@@ -143,9 +157,9 @@ def extend_seeds(dix: DeviceIndex, block, patterns, starts, sp, ep,
     ext_occ rows prepends the read character left of its start, up to
     ext_max characters, stopping at the read start or when a step would
     empty the interval.  Returns (sp, ep, starts).  One kernel on the
-    card."""
-    return kernels.fm_extend(dix, block, patterns, starts, sp, ep, ext_max,
-                             ext_occ)
+    card (the lockstep loop on a sharded index)."""
+    fn = extend_lockstep if dix.sharded else kernels.fm_extend
+    return fn(dix, block, patterns, starts, sp, ep, ext_max, ext_occ)
 
 
 def extend_lockstep(dix: DeviceIndex, block, patterns, starts, sp, ep,
@@ -200,7 +214,8 @@ def search_patterns(dix: DeviceIndex, block, patterns, starts, ends,
     (rolling_kmers at end-1 per lane), when given and the index has a KLT,
     replaces the first klt_k steps of every slice at least klt_k long with
     one table lookup (bit-identical).  Returns (sp, ep).  One gather (the
-    table lookup) and one kernel on the card.
+    table lookup) and one kernel on the card (the lockstep loop on a
+    sharded index).
 
     min_len is a lower bound on every slice length that the caller knows
     without a device sync (the host holds the read lengths); the lockstep
@@ -215,8 +230,9 @@ def search_patterns(dix: DeviceIndex, block, patterns, starts, ends,
     sp0 = ep0 = None
     if k:
         sp0, ep0 = klt_lookup(dix, block, end_kmers)
-    return kernels.fm_search(dix, block, patterns, starts, ends, sp0, ep0, k,
-                             max_len, min_len)
+    fn = search_lockstep if dix.sharded else kernels.fm_search
+    return fn(dix, block, patterns, starts, ends, sp0, ep0, k, max_len,
+              min_len)
 
 
 def search_lockstep(dix: DeviceIndex, block, patterns, starts, ends, sp0,

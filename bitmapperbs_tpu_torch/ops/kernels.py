@@ -10,6 +10,9 @@ bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
                             runs around it: the window gather in front, the
                             best / position / second-best selection behind
     gather_rows          <- make_pallas_gather.gather
+    gather_rows_shard    <- the same gather over one shard of a table split
+                            into row ranges (rows outside it are zero), as
+                            the reference's sharded-index fetches run it
     fm_search, fm_extend, fm_locate
                          <- that row gather fused with the FM-index step it
                             feeds, the step loops of ops/fm.search_patterns,
@@ -20,7 +23,10 @@ gather_rows takes an int32 table and int64 row indices; the FM wrappers take
 the device index and int64 lanes.  On CPU tensors a wrapper runs its plain
 version (`*_ref`); on CUDA tensors it checks dtype, shape and device and
 launches its kernel from csrc/verify.cu, csrc/gather.cu or csrc/fm.cu, or
-raises.  `LAUNCHES` counts the kernel launches.
+raises.  `LAUNCHES` counts the kernel launches.  A launch goes to the card
+its tensors are on (`_launching` makes that card current for the call), and
+a table split over cards (index/device.Shards) is read by `gather_table`
+alone: the wrappers that take whole tables refuse it.
 
 The kernels are built on first use with nvcc for sm_90a into _build/, one
 shared library per source (compiled side by side), each named by the hash
@@ -28,6 +34,7 @@ of its source and the flags, and bound with ctypes.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,12 +44,14 @@ import subprocess
 import torch
 
 from bitmapperbs_tpu_torch import constants as K
+from bitmapperbs_tpu_torch.index.device import Shards
 from bitmapperbs_tpu_torch.ops import fm, verify   # mutual: used in calls
 from bitmapperbs_tpu_torch.ops.u32 import INVALID, bnot, to_i32, wrap
 
 LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
             "myers_scan": 0, "rescue_scan": 0, "gather_rows": 0,
-            "fm_search": 0, "fm_extend": 0, "fm_locate": 0}
+            "gather_rows_shard": 0, "fm_search": 0, "fm_extend": 0,
+            "fm_locate": 0}
 
 MAX_WORDS = 32                  # read words the kernels take (1,024 bp)
 # btbs_rescue_scan's launch shape (csrc/verify.cu: kThreads, kSharedLimit and
@@ -129,9 +138,14 @@ def _lib():
             [vp] + [vp, i64] * 6 + [vp, i64, i64, i64, vp, i64, i64]
             + [vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp])
         lib.btbs_rescue_scan.restype = ctypes.c_int
-        lib.btbs_gather_rows = ctypes.CDLL(paths["gather"]).btbs_gather_rows
+        glib = ctypes.CDLL(paths["gather"])
+        lib.btbs_gather_rows = glib.btbs_gather_rows
         lib.btbs_gather_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
-        lib.btbs_gather_rows.restype = ctypes.c_int
+        lib.btbs_gather_rows_shard = glib.btbs_gather_rows_shard
+        lib.btbs_gather_rows_shard.argtypes = [vp, vp, vp, i64, i64, i32, i64,
+                                               vp]
+        for fn in (lib.btbs_gather_rows, lib.btbs_gather_rows_shard):
+            fn.restype = ctypes.c_int
         fmlib = ctypes.CDLL(paths["fm"])
         index = [vp, i64, i64, vp, vp]          # cp, R, rows_max, cbase, n
         pat = [vp, i64, i64, i64, i64, i64, i32]
@@ -152,6 +166,24 @@ def _lib():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+@contextlib.contextmanager
+def _launching(dev: torch.device):
+    """Makes `dev` the calling thread's current CUDA device for a launch
+    (a ctypes launch goes to the current device, and the kernels' shared-
+    memory opt-ins are set per device); yields its current stream."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def _whole(**tables) -> None:
+    """Raise if a table is a shard set (index/device.Shards): the kernels
+    that take a table read the whole of it."""
+    for name, t in tables.items():
+        if isinstance(t, Shards):
+            raise ValueError(f"{name} is split over {len(t.parts)} shards; "
+                             f"this kernel reads a whole table")
 
 
 def _on_cuda(*tensors) -> bool:
@@ -223,10 +255,10 @@ def verify_fused(win, read_planes, lenmask, m: int, ncols: int, e: int):
     L = w.shape[0]
     out = torch.empty(L, dtype=torch.int32, device=w.device)
     if L:
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        _check_rc(_lib().btbs_verify_fused(
-            w.data_ptr(), r.data_ptr(), lm.data_ptr(), out.data_ptr(), L, Wd,
-            Ww, m, ncols, e, stream), "btbs_verify_fused")
+        with _launching(w.device) as stream:
+            _check_rc(_lib().btbs_verify_fused(
+                w.data_ptr(), r.data_ptr(), lm.data_ptr(), out.data_ptr(), L,
+                Wd, Ww, m, ncols, e, stream), "btbs_verify_fused")
         LAUNCHES["verify_fused"] += 1
     return out.reshape(lanes)
 
@@ -266,6 +298,7 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
     u32 [R, 3 * Wd] read planes (b0 | b1 | nmask words).  Returns int32
     lanes: ham if ham <= e else the semi-global Myers distance."""
     lane_t = (orient, start, row, lens)
+    _whole(g_planes=g_planes)
     _require(torch.int64, orient=orient, start=start, row=row, lens=lens,
              read_tab=read_tab)
     if not _on_cuda(g_planes, read_tab, *lane_t):
@@ -292,12 +325,12 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
     L = o.numel()
     out = torch.empty(L, dtype=torch.int32, device=g_planes.device)
     if L:
-        stream = torch.cuda.current_stream(g_planes.device).cuda_stream
-        _check_rc(_lib().btbs_verify_fused_gather(
-            g_planes.data_ptr(), o.data_ptr(), s.data_ptr(),
-            read_tab.data_ptr(), r.data_ptr(), n.data_ptr(), out.data_ptr(),
-            L, read_tab.shape[0], g_words, genome_len, Wd, m, ncols, e,
-            stream), "btbs_verify_fused_gather")
+        with _launching(g_planes.device) as stream:
+            _check_rc(_lib().btbs_verify_fused_gather(
+                g_planes.data_ptr(), o.data_ptr(), s.data_ptr(),
+                read_tab.data_ptr(), r.data_ptr(), n.data_ptr(),
+                out.data_ptr(), L, read_tab.shape[0], g_words, genome_len, Wd,
+                m, ncols, e, stream), "btbs_verify_fused_gather")
         LAUNCHES["verify_fused_gather"] += 1
     return out.reshape(lanes)
 
@@ -336,10 +369,10 @@ def myers(win, peq, pad, m: int, ncols: int):
     L = w.shape[0]
     out = torch.empty(L, dtype=torch.int32, device=w.device)
     if L:
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        _check_rc(_lib().btbs_myers(
-            w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
-            m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers")
+        with _launching(w.device) as stream:
+            _check_rc(_lib().btbs_myers(
+                w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
+                m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers")
         LAUNCHES["myers"] += 1
     return out.reshape(lanes)
 
@@ -359,10 +392,11 @@ def myers_scan(win, peq, pad, m: int, ncols: int):
     L = w.shape[0]
     out = torch.empty((ncols, L), dtype=torch.int32, device=w.device)
     if L:
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        _check_rc(_lib().btbs_myers_scan(
-            w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
-            m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers_scan")
+        with _launching(w.device) as stream:
+            _check_rc(_lib().btbs_myers_scan(
+                w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
+                m // 32, win[0].shape[-1], m, ncols, stream),
+                "btbs_myers_scan")
         LAUNCHES["myers_scan"] += 1
     return out.t().reshape(*lanes, ncols)
 
@@ -394,10 +428,20 @@ def rescue_scan_ref(g_planes, block, win_start, r_ok, a_lo, span, ms_len,
     """Plain version: ops/verify.window_planes over the whole insert window,
     ops/verify.myers_scan, then the selection on the [B, ncols] scores."""
     ncols = R + m + 2 * e
-    L = genome_len
     win = verify.window_planes(g_planes, block, win_start, -(-ncols // 32),
-                               L, g_words)
+                               genome_len, g_words)
     S = verify.myers_scan(win, ms_peq, ms_pad, m, ncols)   # B, ncols
+    return rescue_select(S, block, r_ok, a_lo, span, ms_len, genome_len, m,
+                         e)
+
+
+def rescue_select(S, block, r_ok, a_lo, span, ms_len, genome_len: int,
+                  m: int, e: int):
+    """The selection behind the scan, on its int32 [B, ncols] scores S
+    (models/paired's frozen spec): (rs_best, rp_best, rs_second) as
+    `rescue_scan` returns them."""
+    ncols = S.shape[-1]
+    L = genome_len
     # real frame anchor of column j: a_lo + (j - (e + m - 1)); valid iff
     # j >= e+m-1 and j - (e+m-1) <= span, span read as int32 (as the
     # reference casts it)
@@ -437,6 +481,7 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
     range is too wide for one (`rescue_scan_chunks`)."""
     lane_t = dict(block=block, win_start=win_start, a_lo=a_lo, span=span,
                   ms_len=ms_len)
+    _whole(g_planes=g_planes)
     _require(torch.int64, ms_peq=ms_peq, ms_pad=ms_pad, **lane_t)
     _require(torch.bool, r_ok=r_ok)
     if not _on_cuda(g_planes, r_ok, ms_peq, ms_pad, *lane_t.values()):
@@ -465,18 +510,18 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
     rp_best = torch.empty(B, dtype=torch.int64, device=dev)
     rs_second = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        stream = torch.cuda.current_stream(dev).cuda_stream
         lanes = [x for t in (block, win_start, r_ok, a_lo, span, ms_len)
                  for x in (t.data_ptr(), t.stride(0))]
         # mode 0: one pass; 1 then 2: the two passes (pass 2 reads pass 1's
         # rs_best / rp_best)
         for mode in ((1, 2) if two_pass else (0,)):
-            _check_rc(_lib().btbs_rescue_scan(
-                g_planes.data_ptr(), *lanes, ms_peq.data_ptr(),
-                *ms_peq.stride(), ms_pad.data_ptr(), *ms_pad.stride(),
-                rs_best.data_ptr(), rp_best.data_ptr(), rs_second.data_ptr(),
-                B, g_words, genome_len, Wd, m, e, R, chunks, mode, stream),
-                "btbs_rescue_scan")
+            with _launching(dev) as stream:
+                _check_rc(_lib().btbs_rescue_scan(
+                    g_planes.data_ptr(), *lanes, ms_peq.data_ptr(),
+                    *ms_peq.stride(), ms_pad.data_ptr(), *ms_pad.stride(),
+                    rs_best.data_ptr(), rp_best.data_ptr(),
+                    rs_second.data_ptr(), B, g_words, genome_len, Wd, m, e, R,
+                    chunks, mode, stream), "btbs_rescue_scan")
             LAUNCHES["rescue_scan"] += 1
     return rs_best, rp_best, rs_second
 
@@ -492,6 +537,7 @@ def gather_rows(table, idx):
     """table int32 [R, W] (contiguous); idx int64 lanes of any shape
     (contiguous).  Returns int32 [..., W]: row idx of the table per lane,
     idx clamped into [0, R - 1]."""
+    _whole(table=table)
     if not _on_cuda(table, idx):
         return gather_rows_ref(table, idx)
     if table.dtype != torch.int32 or table.dim() != 2 \
@@ -507,11 +553,66 @@ def gather_rows(table, idx):
     L = idx.numel()
     out = torch.empty((*idx.shape, W), dtype=torch.int32, device=table.device)
     if L:
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        _check_rc(_lib().btbs_gather_rows(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L, W, stream),
-            "btbs_gather_rows")
+        with _launching(table.device) as stream:
+            _check_rc(_lib().btbs_gather_rows(
+                table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L, W,
+                stream), "btbs_gather_rows")
         LAUNCHES["gather_rows"] += 1
+    return out
+
+
+def gather_rows_shard_ref(table, idx, base: int):
+    """Plain version: table[idx - base] where base <= idx < base + R, a
+    zero row elsewhere."""
+    R = table.shape[0]
+    local = idx - base
+    ok = (local >= 0) & (local < R)
+    return torch.where(ok[..., None], table[local.clamp(0, R - 1)], 0)
+
+
+def gather_rows_shard(table, idx, base: int):
+    """One shard of a table split into row ranges: table int32 [R, W]
+    (contiguous) holds the global rows [base, base + R); idx int64 lanes of
+    any shape (contiguous), global row indices.  Returns int32 [..., W]: the
+    row per lane inside the range, zeros outside."""
+    if not _on_cuda(table, idx):
+        return gather_rows_shard_ref(table, idx, base)
+    if table.dtype != torch.int32 or table.dim() != 2 \
+            or not table.is_contiguous() or table.shape[0] < 1 \
+            or table.shape[1] < 1:
+        raise ValueError(f"expected a contiguous int32 [R, W] shard, got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if idx.dtype != torch.int64 or not idx.is_contiguous():
+        raise ValueError(f"expected contiguous int64 row indices, got "
+                         f"{idx.dtype} {tuple(idx.shape)} strides "
+                         f"{idx.stride()}")
+    R, W = table.shape
+    L = idx.numel()
+    out = torch.empty((*idx.shape, W), dtype=torch.int32, device=table.device)
+    if L:
+        with _launching(table.device) as stream:
+            _check_rc(_lib().btbs_gather_rows_shard(
+                table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, L, W,
+                base, stream), "btbs_gather_rows_shard")
+        LAUNCHES["gather_rows_shard"] += 1
+    return out
+
+
+def gather_table(table, idx):
+    """Rows of an int32 [R, W] table by int64 row index, on idx's device.
+    A whole table: gather_rows (idx clamped into it).  A table split over
+    cards (Shards, as the sharded index holds cp_rows, sa_samples and
+    g_planes): one gather_rows_shard per shard on the shard's device, the
+    partial rows brought to idx's device and summed there; every row lives
+    on exactly one shard, so the sum is the row, and a row past the table
+    is zero, as in the reference's sharded fetch."""
+    if not isinstance(table, Shards):
+        return gather_rows(table, idx)
+    out = None
+    for s, part in enumerate(table.parts):
+        got = gather_rows_shard(part, idx.to(part.device),
+                                s * table.rows).to(idx.device)
+        out = got if out is None else out + got
     return out
 
 
@@ -520,6 +621,7 @@ def gather_rows(table, idx):
 def _index_args(dix):
     """The device index's tables as the FM kernels take them, checked."""
     cp, cbase, n = dix.cp_rows, dix.cbase, dix.n
+    _whole(cp_rows=cp)
     if cp.dtype != torch.int32 or cp.dim() != 2 \
             or cp.shape[1] != K.CP_ROW_U32 or cp.shape[0] < 1 \
             or not cp.is_contiguous():
@@ -583,6 +685,7 @@ def fm_search(dix, block, patterns, starts, ends, sp0, ep0, k: int,
     (here and in fm_extend / fm_locate): an int32 lane tensor that the kernel
     fills with the checkpoint rows each lane fetched, for measuring.
     Returns (sp, ep) u32 lanes as int64."""
+    _whole(cp_rows=dix.cp_rows)
     tensors = [dix.cp_rows, block, patterns, starts, ends] \
         + ([sp0, ep0] if k else [])
     _require(torch.int64, block=block, starts=starts, ends=ends,
@@ -602,13 +705,13 @@ def fm_search(dix, block, patterns, starts, ends, sp0, ep0, k: int,
     sp = torch.empty(lanes, dtype=torch.int64, device=b.device)
     ep = torch.empty(lanes, dtype=torch.int64, device=b.device)
     if b.numel():
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        _check_rc(_lib().btbs_fm_search(
-            *_index_args(dix), *pat_args, b.data_ptr(), s.data_ptr(),
-            e.data_ptr(), a0.data_ptr() if k else None,
-            a1.data_ptr() if k else None, k, max_len, sp.data_ptr(),
-            ep.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
-            stream), "btbs_fm_search")
+        with _launching(b.device) as stream:
+            _check_rc(_lib().btbs_fm_search(
+                *_index_args(dix), *pat_args, b.data_ptr(), s.data_ptr(),
+                e.data_ptr(), a0.data_ptr() if k else None,
+                a1.data_ptr() if k else None, k, max_len, sp.data_ptr(),
+                ep.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
+                stream), "btbs_fm_search")
         LAUNCHES["fm_search"] += 1
     return sp, ep
 
@@ -626,6 +729,7 @@ def fm_extend(dix, block, patterns, starts, sp, ep, ext_max: int,
     than ext_occ rows and starts > 0, prepend patterns[starts - 1], at most
     ext_max times, stopping before a step that would empty the interval.
     Returns (sp, ep, starts) as int64 lanes."""
+    _whole(cp_rows=dix.cp_rows)
     _require(torch.int64, block=block, starts=starts, sp=sp, ep=ep)
     _require(torch.uint8, patterns=patterns)
     if not _on_cuda(dix.cp_rows, block, patterns, starts, sp, ep):
@@ -641,12 +745,13 @@ def fm_extend(dix, block, patterns, starts, sp, ep, ext_max: int,
     outs = [torch.empty(lanes, dtype=torch.int64, device=b.device)
             for _ in range(3)]
     if b.numel():
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        _check_rc(_lib().btbs_fm_extend(
-            *_index_args(dix), *pat_args, b.data_ptr(), s.data_ptr(),
-            a0.data_ptr(), a1.data_ptr(), ext_max, ext_occ,
-            *(o.data_ptr() for o in outs), _rows_ptr(rows_out, lanes, True),
-            b.numel(), stream), "btbs_fm_extend")
+        with _launching(b.device) as stream:
+            _check_rc(_lib().btbs_fm_extend(
+                *_index_args(dix), *pat_args, b.data_ptr(), s.data_ptr(),
+                a0.data_ptr(), a1.data_ptr(), ext_max, ext_occ,
+                *(o.data_ptr() for o in outs),
+                _rows_ptr(rows_out, lanes, True), b.numel(), stream),
+                "btbs_fm_extend")
         LAUNCHES["fm_extend"] += 1
     return tuple(outs)
 
@@ -660,6 +765,7 @@ def fm_locate(dix, block, i, valid, rows_out=None):
     """SA_block[i] per lane: at most dix.sa_rate LF steps to the next sampled
     suffix, then the sample plus the steps taken (u32).  block, i: int64
     lanes; valid: bool lanes (invalid lanes walk from position 0)."""
+    _whole(cp_rows=dix.cp_rows, sa_samples=dix.sa_samples)
     _require(torch.int64, block=block, i=i)
     _require(torch.bool, valid=valid)
     if not _on_cuda(dix.cp_rows, dix.sa_samples, block, i, valid):
@@ -675,12 +781,12 @@ def fm_locate(dix, block, i, valid, rows_out=None):
     ok = valid.expand(lanes).contiguous()
     out = torch.empty(lanes, dtype=torch.int64, device=b.device)
     if b.numel():
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        _check_rc(_lib().btbs_fm_locate(
-            *_index_args(dix), sa.data_ptr(), sa.numel(), dix.samples_max,
-            dix.sa_rate, b.data_ptr(), pos.data_ptr(), ok.data_ptr(),
-            out.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
-            stream), "btbs_fm_locate")
+        with _launching(b.device) as stream:
+            _check_rc(_lib().btbs_fm_locate(
+                *_index_args(dix), sa.data_ptr(), sa.numel(), dix.samples_max,
+                dix.sa_rate, b.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+                out.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
+                stream), "btbs_fm_locate")
         LAUNCHES["fm_locate"] += 1
     return out
 
@@ -696,9 +802,9 @@ def dependent_load_chain(table, steps: int, seed: int = 1):
             or not table.is_contiguous():
         raise ValueError("expected a contiguous int32 CUDA table")
     out = torch.empty(1, dtype=torch.int32, device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    _check_rc(_lib().btbs_dependent_load_chain(
-        table.data_ptr(), table.numel(), steps, seed & 0xFFFFFFFF,
-        out.data_ptr(), stream),
-        "btbs_dependent_load_chain")
+    with _launching(table.device) as stream:
+        _check_rc(_lib().btbs_dependent_load_chain(
+            table.data_ptr(), table.numel(), steps, seed & 0xFFFFFFFF,
+            out.data_ptr(), stream),
+            "btbs_dependent_load_chain")
     return out

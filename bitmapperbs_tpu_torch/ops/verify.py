@@ -6,7 +6,8 @@ reference windows are 3 planes (bit0, bit1 of the 2-bit base code, N mask);
 LSB = lowest position.  Everything is elementwise over an arbitrary lane
 shape.  These are the plain versions; ops/kernels.py runs the hot Myers
 loops as CUDA kernels on the card, and the genome-plane row gather of
-window_planes goes through its gather_rows.
+window_planes goes through its gather_table (one gather_rows, or on a
+sharded index one gather_rows_shard per shard and the partials summed).
 """
 from __future__ import annotations
 
@@ -54,9 +55,11 @@ def window_planes(g_planes, orient, start, nwords: int, genome_len: int,
 
     g_planes: int32 bits [2 * W, 3] flat rows (block-0 words then block-1
     words; word 0 of each block is a zero pad so wrapped starts down to -32
-    resolve through the +32 bias).  orient: int lanes (0 fwd / 1 rc).
-    Positions below 0 or at/after genome_len are N-filled, matching the
-    oracle's frame_slice.  Returns (b0, b1, nmask), each u32[..., nwords].
+    resolve through the +32 bias), or their index/device.Shards (then
+    g_words, the per-block row count, is required).  orient: int lanes (0
+    fwd / 1 rc).  Positions below 0 or at/after genome_len are N-filled,
+    matching the oracle's frame_slice.  Returns (b0, b1, nmask), each
+    u32[..., nwords].
     """
     W = g_words if g_words is not None else g_planes.shape[0] // 2
     dev = start.device
@@ -64,7 +67,7 @@ def window_planes(g_planes, orient, start, nwords: int, genome_len: int,
     wi = wrap(start + 32) >> 5                  # u32 add: wraps below 0
     offs = torch.arange(nwords + 1, dtype=torch.int64, device=dev)
     rows = (wi[..., None] + offs).clamp(0, W - 1)
-    raw3 = kernels.gather_rows(
+    raw3 = kernels.gather_table(
         g_planes, (orient.to(torch.int64)[..., None] * W + rows).contiguous())
     raw3 = raw3.to(torch.int64) & MASK           # ..., nwords+1, 3
 

@@ -110,6 +110,25 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      hands it, beside its bound for the columns those pairs need; and phase
      8b's repeat pairs, rescue deciding at least half, SAM equal to the
      oracle's
+ 11c. Several cards in one process, the card standing for each of them
+     (parallel/shard.make_cli_mappers; a device may repeat in a mesh): first
+     gather_rows_shard (the row-range gather of the sharded index) vs its
+     plain version on each shard of a 2-shard upload of this index, at the
+     lanes a data slice of 8,192 reads hands it (checkpoint rows W = 17 at a
+     search step's lanes, the record's headline; SA samples, genome
+     planes), lanes on both sides of every shard
+     boundary, in the padding, below 0 and past the end, the partial rows
+     summed equal to the whole table's; then phase 4's reads and phase
+     8's pairs on [cuda:0] x 2 (data parallel), and phase 4's and phase
+     8's last batches on [cuda:0] x 4 with --shard-index 2 (2 data slices,
+     each index split over 2 shards; their low-complexity reads take the
+     dense re-run, their seed-killed mates rescue): records equal phase 4's
+     and phase 8's; phase 8b's tandem-repeat pairs on the sharded mesh: SAM
+     equal to the oracle's, rescue deciding all 64.  The sharded paths
+     launch gather_rows_shard, verify_fused and myers (and PE myers_scan),
+     and no fm_*, verify_fused_gather or rescue_scan; each path's synced
+     wall, the last batches' per-batch walls on one card, data parallel
+     and sharded, and each shard's table bytes are printed
  12. SE, Gbp-scale configuration (what cli.autotune_for_genome sets above
      512 Mbp: seed extension 20 / occ 4, 128 candidates; batch 4,096) on a
      100 Mbp two-contig genome with planted human-profile repeats
@@ -136,13 +155,13 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
  14. CLI on the saved 100 Mbp artifact with `--seed-ext 20
      --max-candidates 128` gives phase 12's records
 Launch counts are set to 0 just before each main path (phases 4, 8, 11b's
-wide-insert batch, 12, 13) and read just after it.  The kernels' record
-gives, per kernel, the launches of this slice's main paths (phase 11b's
-wide-insert batch, phase 12's 96 bp batches, its 280 bp batch, counted on
+wide-insert batch, 11c's four paths, 12, 13) and read just after it.  The
+kernels' record gives, per kernel, the launches of the slices' main paths
+(phase 11b's wide-insert batch, 11c's data-parallel SE and PE and sharded
+SE and PE paths, phase 12's 96 bp batches, its 280 bp batch, counted on
 its own, and phase 13) with every path's beside them.
 Every TPU kernel of the reference has at least one entry point that those
-paths launch; verify_fused and myers_scan, which no path calls any more,
-stay checked against their plain versions.
+paths launch, and every entry point launches on one of them.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -268,6 +287,9 @@ KERNEL_SOURCES = {
                     "bitmapperbs_tpu/models/paired.py:220-238"),
     "gather_rows": ("bitmapperbs_tpu_torch/csrc/gather.cu",
                     "scripts/pallas_gather_proto.py:28"),
+    "gather_rows_shard": ("bitmapperbs_tpu_torch/csrc/gather.cu",
+                          "scripts/pallas_gather_proto.py:28 (with the "
+                          "sharded fetch of bitmapperbs_tpu/ops/fm.py:46-69)"),
     "verify_fused_gather": ("bitmapperbs_tpu_torch/csrc/verify.cu",
                             "bitmapperbs_tpu/ops/pallas_kernels.py:212"),
     "fm_search": ("bitmapperbs_tpu_torch/csrc/fm.cu",
@@ -284,8 +306,8 @@ TPU_KERNEL_ENTRIES = {
     "verify_fused_pallas": ("verify_fused", "verify_fused_gather"),
     "myers_pallas": ("myers",),
     "myers_scan_pallas": ("myers_scan", "rescue_scan"),
-    "make_pallas_gather.gather": ("gather_rows", "fm_search", "fm_extend",
-                                  "fm_locate"),
+    "make_pallas_gather.gather": ("gather_rows", "gather_rows_shard",
+                                  "fm_search", "fm_extend", "fm_locate"),
 }
 
 
@@ -1086,7 +1108,8 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
         f"{card}")
 
     return main_launches, gdrop_launches, {
-        "fq": fq, "lines": lines, "stats": cli_stats, "cli_s": wall}
+        "fq": fq, "lines": lines, "stats": cli_stats, "cli_s": wall,
+        "cfg": cfg, "reads": reads, "quals": quals, "qnames": qnames}
 
 
 def pe_inputs(idx):
@@ -1549,6 +1572,232 @@ def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
         f" equal to the oracle")
     log(f"phase 11b: {time.perf_counter() - t_phase:.2f} s")
     return launches, batch_tp
+
+
+def phase_shard_gather_kernel(sdix) -> dict:
+    """gather_rows_shard vs its plain version on each shard of a 2-shard
+    index of the 10 Mbp genome (phase 11c's), at the lanes that phase 11c's
+    data slices of BATCH // 2 reads hand it: checkpoint rows W = 17 at a
+    lockstep search step's 2 x reads x frames x seeds lanes (the record's
+    headline), SA samples W = 1 at the flat buffer's lanes (ragged) and
+    genome planes W = 3 at [flat lanes, 5]: the tables a sharded index
+    splits (the k-mer table stays whole).  Lanes sit on both sides of every
+    shard boundary, in the per-block padding rows, below 0 and past the
+    end; the shards' partial rows, summed, are the whole table's rows."""
+    import torch
+
+    from bitmapperbs_tpu_torch.index.device import Shards
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    dev = sdix.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    reads = BATCH // 2
+    flat = reads * 10
+    headline = "cp_rows W=17, search step lanes"
+    cases = (          # name, shards, lane shape, global padding rows
+        (headline, sdix.cp_rows, (2 * reads * 2 * 5,),
+         (sdix.rows_max - 1, 2 * sdix.rows_max - 1)),
+        ("sa_samples W=1, ragged", Shards(tuple(
+            p[:, None] for p in sdix.sa_samples.parts)), (flat - 3,),
+         (sdix.samples_max - 1, 2 * sdix.samples_max - 1)),
+        ("g_planes W=3", sdix.g_planes, (flat, 5),
+         (2 * sdix.g_words - 1 + len(sdix.g_planes.parts) - 1,)),
+    )
+    out = None
+    for name, shards, shape, pad_rows in cases:
+        rows, W = shards.parts[0].shape
+        total = rows * len(shards.parts)
+        ix = torch.randint(0, total, shape, device=dev, generator=gen,
+                           dtype=torch.int64)
+        flat_ix = ix.view(-1)
+        edges = [b + d for b in range(0, total + 1, rows) for d in (-1, 0)]
+        edges += [r for r in pad_rows if r < total] + [-7, total + 11]
+        flat_ix[:len(edges)] = torch.tensor(edges, device=dev)
+        summed = torch.zeros((*shape, W), dtype=torch.int32, device=dev)
+        for k, part in enumerate(shards.parts):
+            want = kernels.gather_rows_shard_ref(part, ix, k * rows)
+            got = kernels.gather_rows_shard(part, ix, k * rows)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (*shape, W)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"gather_rows_shard {name}, shard {k}: kernel != plain "
+                    f"on {int((got != want).sum())} words")
+            summed += got
+        whole = torch.cat(shards.parts)
+        inside = (ix >= 0) & (ix < total)
+        assert torch.equal(summed[inside], whole[ix[inside]]), name
+        assert not summed[~inside].any(), name
+        assert torch.equal(kernels.gather_table(shards, ix), summed), name
+        part, base = shards.parts[0], 0
+        n_in = int(((ix >= 0) & (ix < rows)).sum())
+        L = ix.numel()
+
+        def kern():
+            return kernels.gather_rows_shard(part, ix, base)
+
+        def plain():
+            return kernels.gather_rows_shard_ref(part, ix, base)
+
+        ms, plain_ms = median_ms(kern), median_ms(plain)
+        inside_ms = device_ms(kern, "gather_rows_kernel")
+        # the index read, the rows of this shard's lanes read, every lane's
+        # row written (a zero row for the others)
+        b = bound(L * (8 + 4 * W) + n_in * 4 * W, 0)
+        log(f"kernel gather_rows_shard, {name}: {L} lanes ({n_in} on shard "
+            f"0 of {len(shards.parts)}, {rows} x {W} rows each), every "
+            f"shard equal to plain and the partials summed equal to the "
+            f"whole table's rows; shard 0: median {ms:.4f} ms "
+            f"({fmt_ms(inside_ms)} inside the kernel) vs plain "
+            f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}; no single PyTorch call zeroes the rows of "
+            f"other shards")
+        rec = {"lanes": L, "lanes_on_shard": n_in, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None, **b,
+               "device_ms": inside_ms}
+        if name == headline:
+            out = {"max_abs_err": 0, **rec, "shapes": {}}
+        out["shapes"][name] = rec
+    return out
+
+
+def run_mesh(idx, dix, card: str, se: dict, pe: dict) -> dict:
+    """Phase 11c on the 10 Mbp index: the multi-card paths with one card
+    standing for the mesh (a device may appear more than once).  Data
+    parallel on [cuda:0] x 2 (the index replicated): phase 4's reads and
+    phase 8's pairs.  Sharded index on [cuda:0] x 4 with --shard-index 2
+    (2 data slices, the index split over 2 shards each): phase 4's 4th
+    batch and phase 8's 4th batch, and phase 8b's tandem-repeat pairs for
+    rescue deciding.  Returns gather_rows_shard's record and the launch
+    counts of the four main paths, each counted from 0 over its own run."""
+    import torch
+
+    from bitmapperbs_tpu_torch.index.build import build_index
+    from bitmapperbs_tpu_torch.index.device import upload_index_sharded
+    from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe, \
+        prepare_batch, to_host
+    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch.ops import kernels
+    from bitmapperbs_tpu_torch.parallel.shard import make_cli_mappers
+
+    t_phase = time.perf_counter()
+    dev = dix.device
+    cfg, pe_cfg = se["cfg"], pe["cfg"]
+    lo = (N_MAIN_BATCHES - 1) * BATCH
+    plo = (N_PE_MAIN_BATCHES - 1) * PE_PAIRS
+
+    def se_run(mappers, lo):
+        return map_batch(idx, None if mappers else dix, cfg, se["reads"][lo:],
+                         se["quals"][lo:], se["qnames"][lo:], mappers=mappers)
+
+    def pe_run(mappers, lo):
+        return map_batch_pe(idx, None if mappers else dix, pe_cfg,
+                            pe["pairs"][lo:], pe["quals"][lo:],
+                            pe["qnames"][lo:], mappers=mappers)
+
+    # ---- phase 3 addition: the row-range gather on a 2-shard index --------
+    sdix = upload_index_sharded(idx, [dev] * 2)
+    kstat = phase_shard_gather_kernel(sdix)
+    del sdix
+
+    dp = {"se": make_cli_mappers(idx, cfg, [dev] * 2)}
+    dp["pe"] = make_cli_mappers(idx, pe_cfg, reuse=dp["se"])
+    sh = {"se": make_cli_mappers(idx, cfg, [dev] * 4, shard_index=2)}
+    sh["pe"] = make_cli_mappers(idx, pe_cfg, reuse=sh["se"])
+    assert dp["se"].mesh.shape == {"data": 2}, dp["se"].mesh.shape
+    assert sh["se"].mesh.shape == {"data": 2, "idx": 2}, sh["se"].mesh.shape
+    sd = sh["se"].dix[0]
+    parts = {name: [p.numel() * 4 for p in getattr(sd, name).parts]
+             for name in ("cp_rows", "sa_samples", "g_planes")}
+    whole = {name: getattr(dix, name).numel() * 4 for name in parts}
+    log("mesh, sharded index: per shard " + "; ".join(
+        f"{name} {parts[name][0] / 1e6:.3f} MB x {len(parts[name])} "
+        f"(replicated {whole[name] / 1e6:.3f} MB)" for name in parts)
+        + f"; whole on the group's first card: cbase, n, klt "
+        f"{sd.klt.numel() * 4 / 1e6:.3f} MB; one upload for both data "
+        f"slices: {sd.cp_rows.parts[0] is sh['se'].dix[1].cp_rows.parts[0]}")
+
+    # ---- the four main paths, each checked against its phase's records ----
+    paths = (   # key, what, mappers, run, start, records to equal
+        ("se_10mbp_mesh_dp", "data parallel, phase 4's reads", dp["se"],
+         se_run, 0, se["lines"]),
+        ("pe_10mbp_mesh_dp", "data parallel, phase 8's pairs", dp["pe"],
+         pe_run, 0, pe["lines"]),
+        ("se_10mbp_sharded", "sharded index, phase 4's last batch (its "
+         f"{N_LOWCX} low-complexity reads take the dense re-run)", sh["se"],
+         se_run, lo, se["lines"][lo:]),
+        ("pe_10mbp_sharded", "sharded index, phase 8's last batch (its "
+         f"{N_PE_RESCUE} seed-killed mates take rescue, its {N_PE_LOWCX} "
+         "low-complexity pairs the dense re-run)", sh["pe"], pe_run, plo,
+         pe["lines"][2 * plo:]),
+    )
+    launches, walls = {}, {}
+    for key, what, mappers, run, start, want in paths:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [r.line() for r in run(mappers, start)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[key] = dict(kernels.LAUNCHES)
+        assert got == want, f"mesh {key}: records differ from the " \
+            f"single-card run's"
+        log(f"mesh, {what}, {mappers.mesh.shape} on [cuda:0] x "
+            f"{sum(map(len, mappers.mesh.devices))}: {len(got)} records "
+            f"in {wall:.2f} s synced (first call; {card}), equal to the "
+            f"single-card run's; launches {launches[key]}")
+
+    # ---- per-batch walls: one card's pipeline beside the mesh's -----------
+    for kind, run, start, n, unit in (("SE", se_run, lo, BATCH, "reads"),
+                                      ("PE", pe_run, plo, PE_PAIRS, "pairs")):
+        for name, mappers in (("one card", None), ("data parallel x 2", dp),
+                              ("sharded 2 x 2", sh)):
+            m = mappers[kind.lower()] if mappers else None
+            ts = []
+            for _ in range(E2E_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(m, start)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            walls[f"{kind} {name}"] = statistics.median(ts)
+    log("mesh, per-batch wall of the last batch (" + f"{BATCH} reads / "
+        f"{PE_PAIRS} pairs, map_batch / map_batch_pe end to end, synced, "
+        f"median of {E2E_REPS}; {card}): " + "; ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in walls.items()))
+
+    # ---- rescue deciding on the sharded index: tandem-repeat pairs ---------
+    rep_idx = build_index(tandem_genome_fasta(31))
+    rep = straddling_pairs(rep_idx, N_REPEAT_PAIRS, seed=32,
+                           read_len=READ_LEN)
+    rsh = make_cli_mappers(rep_idx, pe_cfg, [dev] * 4, shard_index=2)
+    rep_lines = [r.line() for r in map_batch_pe(rep_idx, None, pe_cfg, rep,
+                                                mappers=rsh)]
+    assert rep_lines == [r.line() for r in oracle_pe(rep_idx, pe_cfg, rep)], \
+        "sharded tandem-repeat PE SAM differs from the oracle"
+    a1, l1 = prepare_batch([p[0] for p in rep], BUCKET, len(rep))
+    a2, l2 = prepare_batch([p[1] for p in rep], BUCKET, len(rep))
+    host = to_host(rsh.pe(a1, l1, a2, l2, int(l1.min()), int(l2.min())))
+    decided = int((host["resc_valid"] & ~host["pair_valid"]).sum())
+    assert decided == len(rep), f"rescue decided {decided} of {len(rep)}"
+    log(f"mesh, sharded index: {len(rep)} tandem-repeat pairs, SAM equal "
+        f"to the oracle, rescue decided {decided} of {len(rep)}")
+
+    # ---- what the paths launch ---------------------------------------------
+    whole_table = ("fm_search", "fm_extend", "fm_locate",
+                   "verify_fused_gather", "rescue_scan")
+    for key in ("se_10mbp_mesh_dp", "pe_10mbp_mesh_dp"):
+        assert launches[key]["gather_rows_shard"] == 0, launches[key]
+    for key, want in (("se_10mbp_sharded", ("verify_fused", "myers")),
+                      ("pe_10mbp_sharded", ("verify_fused", "myers",
+                                            "myers_scan"))):
+        for k in ("gather_rows_shard",) + want:
+            assert launches[key][k] > 0, f"{key}: {k} never launched"
+        for k in whole_table:
+            assert launches[key][k] == 0, f"{key}: {k} launched"
+    log(f"phase 11c: {time.perf_counter() - t_phase:.2f} s")
+    return kstat, launches
 
 
 def phase_gather_kernel(dix, flat_lanes: int) -> dict:
@@ -2453,6 +2702,8 @@ def run(card: str) -> dict:
         pe_launches, pe_gdrop, pe_cli = run_pe(idx, dix, card, prefix, d)
         wide_launches, kstats["rescue_scan"]["two_pass_pe_batch"] = \
             run_cli_extras(idx, dix, prefix, d, se_cli, pe_cli)
+    kstats["gather_rows_shard"], mesh_paths = run_mesh(idx, dix, card, se_cli,
+                                                       pe_cli)
 
     del idx, dix
     torch.cuda.empty_cache()
@@ -2467,8 +2718,10 @@ def run(card: str) -> dict:
                                 f"m {LONG_BUCKET}": gather_long,
                                 **gather_wide}}
 
-    # this slice's paths: the Gbp-config paths and the wide-insert PE batch
-    slice_paths = {**gbp_paths, "pe_10mbp_insert_100k": wide_launches}
+    # the slices' paths: the Gbp-config paths, the wide-insert PE batch and
+    # the mesh paths of phase 11c
+    slice_paths = {**gbp_paths, "pe_10mbp_insert_100k": wide_launches,
+                   **mesh_paths}
     by_path = {"se_10mbp": se_launches, "pe_10mbp": pe_launches,
                **slice_paths}
     launches = {name: sum(p[name] for p in slice_paths.values())
@@ -2479,11 +2732,9 @@ def run(card: str) -> dict:
         assert any(launches[name] > 0 for name in names), \
             f"no entry of {tpu_kernel} ({names}) launched on this slice's " \
             f"main paths"
-    # the entries no path calls any more stay checked against their plain
-    # versions above; everything else must launch
-    for name in set(KERNEL_SOURCES) - {"verify_fused", "myers_scan"}:
+    for name in KERNEL_SOURCES:
         assert launches[name] > 0, \
-            f"{name} never launched on this slice's main paths"
+            f"{name} never launched on the slices' main paths"
     return {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],

@@ -1,7 +1,8 @@
 """PyTorch port CLI: `search` SAM records equal the reference CLI's (single
 end and `--pe`), the GPU platform refuses to fall back to the CPU, `--pe`
 needs both mate files, `--oracle` and `--profile` work as the reference's,
-the one unported option exits 2, and the package never imports jax."""
+the mesh over several devices (replicated and `--shard-index`) writes the
+single device's records, and the package never imports jax."""
 import json
 import os
 import subprocess
@@ -107,13 +108,111 @@ def test_platform_auto_needs_a_gpu(workdir, capsys):
     assert not (d / "x.sam").exists()
 
 
-@pytest.mark.parametrize("flag", [["--shard-index", "2"]])
-def test_unported_options_exit_2(workdir, capsys, flag):
-    """Mapping over several local cards is the one option not ported."""
+@pytest.fixture
+def eight_devices(monkeypatch):
+    """The CLI's local devices: eight CPU devices, as the reference's tests
+    run its mesh on eight virtual CPU devices."""
+    from bitmapperbs_tpu_torch import cli
+
+    monkeypatch.setattr(cli, "_local_devices",
+                        lambda platform: [torch.device("cpu")] * 8)
+
+
+@pytest.mark.parametrize("pe", [False, True])
+def test_search_on_a_mesh_matches_single_device_and_reference(
+        workdir, capsys, eight_devices, pe):
+    """Over eight devices the CLI maps on the mesh by default, and with
+    --shard-index 4 on a 2 x 4 mesh with the index split; the records equal
+    --single-device's and the reference CLI's --shard-index 4 run's."""
+    d = workdir
+    tag = "pe" if pe else "se"
+    if pe:
+        common = ["search", str(d / "ref.fa"), "--pe", "--seq1",
+                  str(d / "pairs_1.fq"), "--seq2", str(d / "pairs_2.fq"),
+                  "--min", "100", "--max", "400"]
+    else:
+        common = ["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq")]
+    common += ["--batch-size", "8", "--read-bucket", "96", "--platform",
+               "cpu"]
+    runs = {"mesh": [], "shard": ["--shard-index", "4"],
+            "one": ["--single-device"]}
+    meshes = {"mesh": "{'data': 8}", "shard": "{'data': 2, 'idx': 4}"}
+    for name, extra in runs.items():
+        assert main([*common, *extra, "-o", str(d / f"m_{tag}_{name}.sam")
+                     ]) == 0
+        err = capsys.readouterr().err
+        if name in meshes:
+            assert f"mapping over 8 devices (mesh {meshes[name]})" in err
+        else:
+            assert "mapping over" not in err
+    assert jmain([*common, "--shard-index", "4", "-o",
+                  str(d / f"m_{tag}_ref.sam")]) == 0
+    want = records(d / f"m_{tag}_ref.sam")
+    for name in runs:
+        assert records(d / f"m_{tag}_{name}.sam") == want, name
+    assert sum(not ln.startswith("@") for ln in want) == (48 if pe else 40)
+
+
+def test_rate_groups_on_a_mesh_reuse_the_index(workdir, eight_devices,
+                                               monkeypatch):
+    """-e RATE maps each (budget, bucket) group with its own mappers on the
+    mesh that the first upload built: the index is uploaded once, and the
+    records equal --single-device's (the counterpart of the reference's
+    test_multichip_with_rate_groups)."""
+    from bitmapperbs_tpu_torch.parallel import shard
+
+    d = workdir
+    sims = simulate_reads(parse_fasta((d / "ref.fa").read_text()), 24,
+                          read_len=50, seed=41, sub_rate=0.02)
+    long = simulate_reads(parse_fasta((d / "ref.fa").read_text()), 24,
+                          read_len=100, seed=42, sub_rate=0.02)
+    reads = [s.codes for pair in zip(sims, long) for s in pair]
+    write_fastq(d / "mix.fq", reads, [f"m{i}" for i in range(48)],
+                ["I" * len(r) for r in reads])
+    uploads = []
+    real = shard.upload_mesh_index
+    monkeypatch.setattr(shard, "upload_mesh_index",
+                        lambda *a: uploads.append(a) or real(*a))
+    common = ["search", str(d / "ref.fa"), "--seq", str(d / "mix.fq"),
+              "--platform", "cpu", "--batch-size", "24", "--read-bucket",
+              "128", "-e", "0.04"]
+    assert main([*common, "--shard-index", "2", "-o",
+                 str(d / "rate_mesh.sam")]) == 0
+    assert len(uploads) == 1
+    assert main([*common, "--single-device", "-o",
+                 str(d / "rate_one.sam")]) == 0
+    assert len(uploads) == 1
+    got = records(d / "rate_mesh.sam")
+    assert got == records(d / "rate_one.sam")
+    assert sum(not ln.startswith("@") for ln in got) == 48
+
+
+@pytest.mark.parametrize("extra", [["--platform", "cpu"],
+                                   ["--single-device"]])
+def test_shard_index_needs_two_devices(workdir, capsys, extra):
+    """--shard-index on one device (the CPU platform's one, or
+    --single-device) exits 2 with the reference's message."""
+    d = workdir
+    args = ["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
+            "--read-bucket", "96", "--shard-index", "2", "-o",
+            str(d / "x_shard.sam"), *extra]
+    if "--single-device" in extra:
+        args += ["--platform", "cpu"]
+    assert main(args) == 2
+    err = capsys.readouterr().err
+    assert jmain([*args, "--single-device", "--platform", "cpu"]) == 2
+    assert err == capsys.readouterr().err == \
+        "error: --shard-index needs >1 local device\n"
+
+
+def test_shard_index_must_divide_the_devices(workdir, capsys,
+                                             eight_devices):
     d = workdir
     assert main(["search", str(d / "ref.fa"), "--seq", str(d / "reads.fq"),
-                 "--platform", "cpu", *flag]) == 2
-    assert "not yet ported (ROADMAP.md)" in capsys.readouterr().err
+                 "--platform", "cpu", "--shard-index", "3", "-o",
+                 str(d / "x_div.sam")]) == 2
+    assert capsys.readouterr().err.endswith(
+        "error: --shard-index 3 does not divide device count 8\n")
 
 
 @pytest.mark.parametrize("pe", [False, True])

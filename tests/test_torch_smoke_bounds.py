@@ -74,8 +74,9 @@ def test_counter_refuses(function):
 
 
 def test_every_kernel_has_a_listing_name():
-    assert set(chip_smoke.SASS_KERNELS) == \
-        set(chip_smoke.KERNEL_SOURCES) - {"gather_rows"}
+    # the two row gathers are bound by bytes: no operation count
+    assert set(chip_smoke.SASS_KERNELS) == set(chip_smoke.KERNEL_SOURCES) \
+        - {"gather_rows", "gather_rows_shard"}
     assert all(lib in ("verify", "fm")
                for lib, _ in chip_smoke.SASS_KERNELS.values())
 

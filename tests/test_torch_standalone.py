@@ -35,6 +35,8 @@ for m in mods:
     importlib.import_module(m)
 assert len(mods) >= 30, mods
 assert {'bitmapperbs_tpu_torch.parallel.multihost',
+        'bitmapperbs_tpu_torch.parallel.mesh',
+        'bitmapperbs_tpu_torch.parallel.shard',
         'bitmapperbs_tpu_torch.utils.profiling'} <= set(mods), mods
 
 from bitmapperbs_tpu_torch.cli import main
