@@ -68,8 +68,18 @@
 // btbs_dependent_load_chain is a measuring probe, not part of the mapping
 // path: one thread walks a chain of loads whose addresses depend on the
 // previous load, which gives the card's dependent-load latency on a table.
+//
+// On a sharded index (index/device.upload_index_sharded) the checkpoint rows
+// and SA samples are split into row ranges over the cards of an index group.
+// Each kernel has a SHARD instance for that case (csrc/shards.cuh): the row
+// fetch picks the shard that holds the row (a zero row outside every shard,
+// the reference's sharded fetch) and the step is the same, so a sharded
+// batch launches each FM kernel once, as one card does.  Only cp_row and the
+// SA-sample load differ between the instances.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "shards.cuh"
 
 namespace {
 
@@ -86,8 +96,12 @@ constexpr int kTpr = 2;                          // threads that share a row
 static_assert(kAlpha == kWords, "count word w and plane word w share a loop");
 static_assert(kWords % kTpr == 0 && 32 % (2 * kTpr) == 0, "whole groups");
 
+// The index as the step kernels read it.  SHARD false: cp holds the
+// checkpoint rows of both blocks, [R][kRowWords]; SHARD true: their shard
+// set (R unused).
+template <bool SHARD>
 struct Fm {
-  const uint32_t* cp;      // [R][kRowWords] checkpoint rows, both blocks
+  typename Table<SHARD>::type cp;
   const int64_t* cbase;    // [2][kAlpha]
   const int64_t* n;        // [2] text lengths
   int64_t R, rows_max;
@@ -113,11 +127,37 @@ __device__ __forceinline__ uint32_t pat_char(const Pat& p, const uint8_t* row,
   return row[q] & 3u;
 }
 
-__device__ __forceinline__ const uint32_t* cp_row(const Fm& fm, int64_t blk,
-                                                  uint32_t i) {
+// The checkpoint row of position i: clamped into a whole table (as
+// btbs_gather_rows clamps), a zero row past a shard set (as the reference's
+// sharded fetch gives).
+template <bool SHARD>
+__device__ __forceinline__ const uint32_t* cp_row(const Fm<SHARD>& fm,
+                                                  int64_t blk, uint32_t i) {
   int64_t r = int64_t(i / kCpBlock) + blk * fm.rows_max;
-  r = r < 0 ? 0 : (r >= fm.R ? fm.R - 1 : r);
-  return fm.cp + r * kRowWords;
+  if constexpr (SHARD) {
+    return shard_row<kRowWords>(fm.cp, r);
+  } else {
+    r = r < 0 ? 0 : (r >= fm.R ? fm.R - 1 : r);
+    return fm.cp + r * kRowWords;
+  }
+}
+
+// SA sample si: clamped into a whole table of n_samples; in a shard set
+// clamped below 2 * samples_max first, as ops/fm.fetch_sa_samples does,
+// then a zero row past the shards.
+__device__ __forceinline__ uint32_t sa_sample(const uint32_t* sa,
+                                              int64_t n_samples,
+                                              int64_t samples_max,
+                                              int64_t si) {
+  si = si < 0 ? 0 : (si >= n_samples ? n_samples - 1 : si);
+  return sa[si];
+}
+
+__device__ __forceinline__ uint32_t sa_sample(const ShardSet& sa, int64_t,
+                                              int64_t samples_max,
+                                              int64_t si) {
+  const int64_t top = 2 * samples_max - 1;
+  return *shard_row<1>(sa, si < top ? si : top);
 }
 
 // bits of plane word w that lie below position `within` of the row
@@ -162,8 +202,9 @@ __device__ __forceinline__ uint32_t occ_share(const uint32_t* __restrict__ row,
 
 // One backward-search step of a lane held by 2 x kTpr threads: side 0 counts
 // the row of sp, side 1 the row of ep, and the halves swap results.
+template <bool SHARD>
 __device__ __forceinline__ void backward_step(
-    const Fm& fm, int64_t blk, uint32_t c, int side, int j, unsigned gmask,
+    const Fm<SHARD>& fm, int64_t blk, uint32_t c, int side, int j, unsigned gmask,
     uint32_t sp, uint32_t ep, uint32_t& nsp, uint32_t& nep) {
   const uint32_t i = side ? ep : sp;
   const uint32_t* row = cp_row(fm, blk, i);
@@ -174,8 +215,9 @@ __device__ __forceinline__ void backward_step(
   nep = side ? v : o;
 }
 
+template <bool SHARD>
 __global__ void __launch_bounds__(kThreads) fm_search_kernel(
-    Fm fm, Pat pat, const int64_t* __restrict__ block,
+    Fm<SHARD> fm, Pat pat, const int64_t* __restrict__ block,
     const int64_t* __restrict__ starts, const int64_t* __restrict__ ends,
     const int64_t* __restrict__ sp0, const int64_t* __restrict__ ep0, int k,
     int max_len, int64_t* __restrict__ out_sp, int64_t* __restrict__ out_ep,
@@ -217,8 +259,9 @@ __global__ void __launch_bounds__(kThreads) fm_search_kernel(
   }
 }
 
+template <bool SHARD>
 __global__ void __launch_bounds__(kThreads) fm_extend_kernel(
-    Fm fm, Pat pat, const int64_t* __restrict__ block,
+    Fm<SHARD> fm, Pat pat, const int64_t* __restrict__ block,
     const int64_t* __restrict__ starts, const int64_t* __restrict__ sp_in,
     const int64_t* __restrict__ ep_in, int ext_max, uint32_t ext_occ,
     int64_t* __restrict__ out_sp, int64_t* __restrict__ out_ep,
@@ -252,8 +295,9 @@ __global__ void __launch_bounds__(kThreads) fm_extend_kernel(
   }
 }
 
+template <bool SHARD>
 __global__ void __launch_bounds__(kThreads) fm_locate_kernel(
-    Fm fm, const uint32_t* __restrict__ sa, int64_t n_samples,
+    Fm<SHARD> fm, typename Table<SHARD>::param sa, int64_t n_samples,
     int64_t samples_max, int sa_rate, const int64_t* __restrict__ block,
     const int64_t* __restrict__ pos, const uint8_t* __restrict__ valid,
     int64_t* __restrict__ out, int32_t* __restrict__ rows_out, int64_t L) {
@@ -312,9 +356,9 @@ __global__ void __launch_bounds__(kThreads) fm_locate_kernel(
     ++steps;
   }
   if (j == 0) {
-    int64_t si = blk * samples_max + int64_t(rank);
-    si = si < 0 ? 0 : (si >= n_samples ? n_samples - 1 : si);
-    out[lane] = int64_t(uint32_t(sa[si] + steps));
+    const int64_t si = blk * samples_max + int64_t(rank);
+    out[lane] = int64_t(uint32_t(sa_sample(sa, n_samples, samples_max, si) +
+                                 steps));
     if (rows_out) rows_out[lane] = rows;
   }
 }
@@ -336,8 +380,45 @@ bool grid_for(int64_t threads, unsigned* grid) {
   return true;
 }
 
-bool tables_ok(int64_t R, int64_t rows_max, int64_t L) {
-  return R >= 1 && rows_max >= 0 && L >= 1;
+// The index arguments of the three FM entries below (search and extend do
+// not read sa): cbase int64 [2][4] and n int64 [2]; nparts 0: cp uint32
+// [R][17] and sa uint32 [n_samples] are whole tables; nparts 1..kMaxShards:
+// cp_parts[s] and sa_parts[s] are shard s of each, R rows of 17 words and
+// n_samples words per shard.  rows_max / samples_max: the per-block strides.
+struct IndexArgs {
+  const void *cp, *sa;
+  const void* const* cp_parts;
+  const void* const* sa_parts;
+  int nparts;
+  int64_t R, n_samples, rows_max, samples_max;
+  const void *cbase, *n;
+};
+
+// Calls launch(fm, sa) with the whole-table or the shard-set Fm and SA
+// samples the arguments describe; returns the cudaError_t of the launch.
+template <typename Launch>
+int with_index(const IndexArgs& x, bool need_sa, int64_t L, Launch launch) {
+  if (x.R < 1 || x.rows_max < 0 || x.samples_max < 0 || L < 1 ||
+      (need_sa && x.n_samples < 1))
+    return int(cudaErrorInvalidValue);
+  auto cbase = static_cast<const int64_t*>(x.cbase);
+  auto n = static_cast<const int64_t*>(x.n);
+  if (x.nparts == 0) {
+    const Fm<false> fm{static_cast<const uint32_t*>(x.cp), cbase, n, x.R,
+                       x.rows_max};
+    launch(fm, static_cast<const uint32_t*>(x.sa));
+  } else {
+    Fm<true> fm{};
+    ShardSet sa{};
+    if (!make_shard_set(x.cp_parts, x.nparts, x.R, &fm.cp) ||
+        (need_sa && !make_shard_set(x.sa_parts, x.nparts, x.n_samples, &sa)))
+      return int(cudaErrorInvalidValue);
+    fm.cbase = cbase;
+    fm.n = n;
+    fm.rows_max = x.rows_max;
+    launch(fm, sa);
+  }
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -345,26 +426,29 @@ bool tables_ok(int64_t R, int64_t rows_max, int64_t L) {
 extern "C" {
 
 // Every function returns the cudaError_t of its launch (0 = launched).
-// cp uint32 [R][17]; cbase int64 [2][4]; n int64 [2]; pat uint8 with lane
-// dimensions [d0][d1][d2] (d0 * d1 * d2 == L) at element strides s0, s1, s2
-// and m contiguous characters per lane; lane tensors int64 [L]; rows_out:
-// null, or int32 [L] that receives the number of checkpoint rows each lane
-// fetched (for measuring).
+// The index as IndexArgs above; pat uint8 with lane dimensions [d0][d1][d2]
+// (d0 * d1 * d2 == L) at element strides s0, s1, s2 and m contiguous
+// characters per lane; lane tensors int64 [L]; rows_out: null, or int32 [L]
+// that receives the number of checkpoint rows each lane fetched (for
+// measuring).
+#define BTBS_INDEX_PARAMS                                                   \
+  const void *cp, const void *sa, const void *const *cp_parts,              \
+      const void *const *sa_parts, int nparts, int64_t R, int64_t n_samples, \
+      int64_t rows_max, int64_t samples_max, const void *cbase, const void *n
+#define BTBS_INDEX_ARGS                                                     \
+  IndexArgs{cp,       sa,        cp_parts,    sa_parts, nparts, R,          \
+            n_samples, rows_max, samples_max, cbase,    n}
 
-int btbs_fm_search(const void* cp, int64_t R, int64_t rows_max,
-                   const void* cbase, const void* n, const void* pat,
-                   int64_t d1, int64_t d2, int64_t s0, int64_t s1, int64_t s2,
-                   int m, const void* block, const void* starts,
-                   const void* ends, const void* sp0, const void* ep0, int k,
-                   int max_len, void* out_sp, void* out_ep, void* rows_out,
-                   int64_t L, void* stream) {
+int btbs_fm_search(BTBS_INDEX_PARAMS, const void* pat, int64_t d1, int64_t d2,
+                   int64_t s0, int64_t s1, int64_t s2, int m,
+                   const void* block, const void* starts, const void* ends,
+                   const void* sp0, const void* ep0, int k, int max_len,
+                   void* out_sp, void* out_ep, void* rows_out, int64_t L,
+                   void* stream) {
   unsigned grid;
-  if (!tables_ok(R, rows_max, L) || m < 1 || d1 < 1 || d2 < 1 || k < 0 ||
-      (k > 0 && (!sp0 || !ep0)) || !grid_for(L * 2 * kTpr, &grid))
+  if (m < 1 || d1 < 1 || d2 < 1 || k < 0 || (k > 0 && (!sp0 || !ep0)) ||
+      !grid_for(L * 2 * kTpr, &grid))
     return int(cudaErrorInvalidValue);
-  const Fm fm{static_cast<const uint32_t*>(cp),
-              static_cast<const int64_t*>(cbase),
-              static_cast<const int64_t*>(n), R, rows_max};
   const Pat p{static_cast<const uint8_t*>(pat), d1, d2, s0, s1, s2, m};
   auto st = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const int64_t*>(block);
@@ -375,26 +459,22 @@ int btbs_fm_search(const void* cp, int64_t R, int64_t rows_max,
   auto o0 = static_cast<int64_t*>(out_sp);
   auto o1 = static_cast<int64_t*>(out_ep);
   auto ro = static_cast<int32_t*>(rows_out);
-  fm_search_kernel<<<grid, kThreads, 0, st>>>(fm, p, b, s, e, a0, a1, k,
-                                             max_len, o0, o1, ro, L);
-  return int(cudaGetLastError());
+  return with_index(BTBS_INDEX_ARGS, false, L, [&](const auto& fm, auto) {
+    fm_search_kernel<<<grid, kThreads, 0, st>>>(fm, p, b, s, e, a0, a1, k,
+                                               max_len, o0, o1, ro, L);
+  });
 }
 
-int btbs_fm_extend(const void* cp, int64_t R, int64_t rows_max,
-                   const void* cbase, const void* n, const void* pat,
-                   int64_t d1, int64_t d2, int64_t s0, int64_t s1, int64_t s2,
-                   int m, const void* block, const void* starts,
-                   const void* sp_in, const void* ep_in, int ext_max,
-                   int64_t ext_occ, void* out_sp, void* out_ep, void* out_st,
-                   void* rows_out, int64_t L, void* stream) {
+int btbs_fm_extend(BTBS_INDEX_PARAMS, const void* pat, int64_t d1, int64_t d2,
+                   int64_t s0, int64_t s1, int64_t s2, int m,
+                   const void* block, const void* starts, const void* sp_in,
+                   const void* ep_in, int ext_max, int64_t ext_occ,
+                   void* out_sp, void* out_ep, void* out_st, void* rows_out,
+                   int64_t L, void* stream) {
   unsigned grid;
-  if (!tables_ok(R, rows_max, L) || m < 1 || d1 < 1 || d2 < 1 ||
-      ext_max < 0 || ext_occ < 0 || ext_occ > 0xFFFFFFFFll ||
-      !grid_for(L * 2 * kTpr, &grid))
+  if (m < 1 || d1 < 1 || d2 < 1 || ext_max < 0 || ext_occ < 0 ||
+      ext_occ > 0xFFFFFFFFll || !grid_for(L * 2 * kTpr, &grid))
     return int(cudaErrorInvalidValue);
-  const Fm fm{static_cast<const uint32_t*>(cp),
-              static_cast<const int64_t*>(cbase),
-              static_cast<const int64_t*>(n), R, rows_max};
   const Pat p{static_cast<const uint8_t*>(pat), d1, d2, s0, s1, s2, m};
   auto st = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const int64_t*>(block);
@@ -406,35 +486,34 @@ int btbs_fm_extend(const void* cp, int64_t R, int64_t rows_max,
   auto o2 = static_cast<int64_t*>(out_st);
   auto ro = static_cast<int32_t*>(rows_out);
   const uint32_t occ = uint32_t(ext_occ);
-  fm_extend_kernel<<<grid, kThreads, 0, st>>>(fm, p, b, s, a0, a1, ext_max,
-                                             occ, o0, o1, o2, ro, L);
-  return int(cudaGetLastError());
+  return with_index(BTBS_INDEX_ARGS, false, L, [&](const auto& fm, auto) {
+    fm_extend_kernel<<<grid, kThreads, 0, st>>>(fm, p, b, s, a0, a1, ext_max,
+                                               occ, o0, o1, o2, ro, L);
+  });
 }
 
-// sa uint32 [n_samples] (both blocks, samples_max each); valid uint8 [L].
-int btbs_fm_locate(const void* cp, int64_t R, int64_t rows_max,
-                   const void* cbase, const void* n, const void* sa,
-                   int64_t n_samples, int64_t samples_max, int sa_rate,
-                   const void* block, const void* pos, const void* valid,
-                   void* out, void* rows_out, int64_t L, void* stream) {
+// sa: both blocks, samples_max each; valid uint8 [L].
+int btbs_fm_locate(BTBS_INDEX_PARAMS, int sa_rate, const void* block,
+                   const void* pos, const void* valid, void* out,
+                   void* rows_out, int64_t L, void* stream) {
   unsigned grid;
-  if (!tables_ok(R, rows_max, L) || n_samples < 1 || samples_max < 0 ||
-      sa_rate < 0 || !grid_for(L * kTpr, &grid))
+  if (sa_rate < 0 || !grid_for(L * kTpr, &grid))
     return int(cudaErrorInvalidValue);
-  const Fm fm{static_cast<const uint32_t*>(cp),
-              static_cast<const int64_t*>(cbase),
-              static_cast<const int64_t*>(n), R, rows_max};
   auto st = static_cast<cudaStream_t>(stream);
-  auto s = static_cast<const uint32_t*>(sa);
   auto b = static_cast<const int64_t*>(block);
   auto i = static_cast<const int64_t*>(pos);
   auto v = static_cast<const uint8_t*>(valid);
   auto o = static_cast<int64_t*>(out);
   auto ro = static_cast<int32_t*>(rows_out);
-  fm_locate_kernel<<<grid, kThreads, 0, st>>>(fm, s, n_samples, samples_max,
-                                             sa_rate, b, i, v, o, ro, L);
-  return int(cudaGetLastError());
+  return with_index(BTBS_INDEX_ARGS, true, L,
+                    [&](const auto& fm, const auto& sa_t) {
+    fm_locate_kernel<<<grid, kThreads, 0, st>>>(
+        fm, sa_t, n_samples, samples_max, sa_rate, b, i, v, o, ro, L);
+  });
 }
+
+#undef BTBS_INDEX_PARAMS
+#undef BTBS_INDEX_ARGS
 
 // table uint32 [nwords]; out uint32 [1]: `steps` dependent loads, one thread,
 // the chain's first address taken from `seed`.

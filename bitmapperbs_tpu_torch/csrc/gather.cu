@@ -50,10 +50,16 @@
 //
 // The FM-index step loops do not come through here on the card: csrc/fm.cu
 // fuses their row fetches with the occ / LF step that consumes the row and
-// keeps the loop inside one launch, and csrc/verify.cu's gathering entry
-// fetches its own genome-plane window.  This kernel serves every other table
-// fetch: the k-mer table lookup, and the window gather of the dense and
-// paired-end paths.
+// keeps the loop inside one launch, and csrc/verify.cu's gathering entries
+// fetch their own genome-plane windows, on a whole table and on a shard set
+// alike.  This kernel serves every other table fetch: the k-mer table
+// lookup, and the window gather of the dense re-run and the mismatch-only
+// paths (on a sharded index one btbs_gather_rows_shard per shard).
+//
+// btbs_enable_peer_access lets the kernels launched on one card read a
+// shard that sits on another (the fused kernels' SHARD instances pick the
+// shard of each row themselves); index/device.upload_index_sharded and
+// parallel/shard._place call it for every card of an index group.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -149,6 +155,25 @@ int btbs_gather_rows_shard(const void* table, const void* idx, void* out,
                            int64_t R, int64_t L, int W, int64_t base,
                            void* stream) {
   return gather<true>(table, idx, out, R, L, W, base, stream);
+}
+
+// Lets kernels launched on card `dev` read memory of card `peer` (device
+// ordinals); returns the cudaError_t.  Idempotent: a pair already enabled
+// returns 0.  The caller has checked cudaDeviceCanAccessPeer; the calling
+// thread's current card is restored.
+int btbs_enable_peer_access(int dev, int peer) {
+  int was;
+  cudaError_t rc = cudaGetDevice(&was);
+  if (rc != cudaSuccess) return int(rc);
+  rc = cudaSetDevice(dev);
+  if (rc != cudaSuccess) return int(rc);
+  rc = cudaDeviceEnablePeerAccess(peer, 0);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();                    // clear it: not a fault here
+    rc = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(was);
+  return int(rc != cudaSuccess ? rc : back);
 }
 
 }  // extern "C"

@@ -78,8 +78,22 @@
 // compaction moves lane indices only: a compacted thread fetches its lane's
 // 12 (Wd + 2) bytes of planes and its read planes again (they are in the
 // L2) and builds the PEQ column in shared memory.
+//
+// On a sharded index (index/device.upload_index_sharded) the genome planes
+// are split into row ranges over the cards of an index group.  The gathering
+// entries (both verify kernels and the rescue scan) have a SHARD instance
+// for that case (csrc/shards.cuh): the row is clamped into its orientation's
+// block as before (ops/verify.window_planes), then read from the shard that
+// holds it instead of the whole table, so a sharded batch launches the same
+// kernels as one card.  Only the plane-row fetch differs between the
+// instances: the inline fetch of verify_fused_gather_kernel and
+// WindowReader::load_row.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "shards.cuh"
 
 namespace {
 
@@ -246,13 +260,33 @@ __device__ __forceinline__ uint32_t out_of_genome(uint32_t ws,
   return ~mask_lt(left < 32 ? uint32_t(left) : 32u);
 }
 
+// The genome-plane row r of the orientation block that starts at row `base`
+// (r clamped into the block first, as ops/verify.window_planes clamps): in
+// a whole table [2 * gwords][3] clamped into it, as btbs_gather_rows clamps;
+// in a shard set (the kernel's parameter, taken by reference) a zero row
+// outside every shard.
+__device__ __forceinline__ const uint32_t* plane_row(const uint32_t* gp,
+                                                     int64_t base, int64_t r,
+                                                     int64_t gwords) {
+  r = base + (r >= gwords ? gwords - 1 : r);
+  r = r < 0 ? 0 : (r >= 2 * gwords ? 2 * gwords - 1 : r);
+  return gp + r * 3;
+}
+
+__device__ __forceinline__ const uint32_t* plane_row(const ShardSet& gp,
+                                                     int64_t base, int64_t r,
+                                                     int64_t gwords) {
+  r = base + (r >= gwords ? gwords - 1 : r);
+  return shard_row<3>(gp, r);
+}
+
 // The gathering entry: one thread per lane through the window fetch and the
 // Hamming pass, then the block's ham > e lanes compacted onto its first
 // threads for the Myers loop.  WD: compile-time word count; the window is
-// WD + 1 words.
-template <int WD>
+// WD + 1 words.  SHARD: the genome planes are a shard set.
+template <int WD, bool SHARD>
 __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
-    const uint32_t* __restrict__ gp, const int64_t* __restrict__ orient,
+    typename Table<SHARD>::param gp, const int64_t* __restrict__ orient,
     const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
     const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
     int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
@@ -277,10 +311,7 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
     uint32_t raw[3][WW + 1];
 #pragma unroll
     for (int k = 0; k <= WW; ++k) {
-      int64_t r = wi + k;
-      r = base + (r >= gwords ? gwords - 1 : r);
-      r = r < 0 ? 0 : (r >= 2 * gwords ? 2 * gwords - 1 : r);
-      const uint32_t* q = gp + r * 3;
+      const uint32_t* q = plane_row(gp, base, wi + k, gwords);
       raw[0][k] = q[0];
       raw[1][k] = q[1];
       raw[2][k] = q[2];
@@ -379,29 +410,30 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
 // ops/verify.window_planes (rows ((start + 32) >> 5) + k and + k + 1 of the
 // orientation's plane block, clamped into it; funnel by start & 31;
 // positions outside [0, genome_len) and wrapped-negative starts marked N).
-// Keeps the upper raw row of a word as the lower row of the next.
+// Keeps the upper raw row of a word as the lower row of the next.  Every
+// call takes the genome planes (G: a whole table's pointer, or the kernel's
+// shard-set parameter), which the reader does not keep.
 struct WindowReader {
-  const uint32_t* gp;
   int64_t base, gwords, genome_len, wi;
   uint32_t st, sh;
   int k;
   uint32_t r0, r1, rn;                       // raw row wi + k
 
-  __device__ __forceinline__ void load_row(int64_t r, uint32_t& x0,
-                                           uint32_t& x1, uint32_t& xn) const {
-    r = base + (r >= gwords ? gwords - 1 : r);
-    r = r < 0 ? 0 : (r >= 2 * gwords ? 2 * gwords - 1 : r);
-    const uint32_t* q = gp + r * 3;
+  template <typename G>
+  __device__ __forceinline__ void load_row(const G& gp, int64_t r,
+                                           uint32_t& x0, uint32_t& x1,
+                                           uint32_t& xn) const {
+    const uint32_t* q = plane_row(gp, base, r, gwords);
     x0 = q[0];
     x1 = q[1];
     xn = q[2];
   }
 
   // the next call of next() returns word k0
-  __device__ __forceinline__ void init(const uint32_t* planes, int64_t orient,
+  template <typename G>
+  __device__ __forceinline__ void init(const G& gp, int64_t orient,
                                        uint32_t start, int64_t gw,
                                        int64_t glen, int k0) {
-    gp = planes;
     gwords = gw;
     genome_len = glen;
     base = orient * gw;
@@ -409,13 +441,14 @@ struct WindowReader {
     sh = start & 31u;
     wi = int64_t((start + 32u) >> 5);        // u32 add: wraps below 0
     k = k0;
-    load_row(wi + k0, r0, r1, rn);
+    load_row(gp, wi + k0, r0, r1, rn);
   }
 
-  __device__ __forceinline__ void next(uint32_t& a0, uint32_t& a1,
-                                       uint32_t& an) {
+  template <typename G>
+  __device__ __forceinline__ void next(const G& gp, uint32_t& a0,
+                                       uint32_t& a1, uint32_t& an) {
     uint32_t h0, h1, hn;
-    load_row(wi + k + 1, h0, h1, hn);
+    load_row(gp, wi + k + 1, h0, h1, hn);
     a0 = r0;
     a1 = r1;
     an = rn;
@@ -482,9 +515,9 @@ __device__ __forceinline__ void store_eq_column(
 // second launch bound (one block per SM is enough) lets ptxas take the
 // registers it wants: without it it held these kernels to 56-96 registers
 // and spilled 16-24 bytes around the column loop.
-template <int NW>
+template <int NW, bool SHARD>
 __global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
-    const uint32_t* __restrict__ gp, const int64_t* __restrict__ orient,
+    typename Table<SHARD>::param gp, const int64_t* __restrict__ orient,
     const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
     const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
     int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
@@ -505,10 +538,10 @@ __global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
     const int64_t* rp = rtab + rr * 3 * wd;
     const int64_t len = rlen[lane];
     uint32_t c0, c1, cn, n0, n1, nn;
-    win.next(c0, c1, cn);
+    win.next(gp, c0, c1, cn);
     int ham = 0;
     for (int k = 0; k < wd; ++k) {
-      win.next(n0, n1, nn);
+      win.next(gp, n0, n1, nn);
       const uint32_t a0 = e == 0 ? c0 : (c0 >> e) | (n0 << (32 - e));
       const uint32_t a1 = e == 0 ? c1 : (c1 >> e) | (n1 << (32 - e));
       const uint32_t an = e == 0 ? cn : (cn >> e) | (nn << (32 - e));
@@ -575,7 +608,7 @@ __global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
   int score = m, best = m;
   for (int j0 = 0; j0 < ncols; j0 += 32) {
     uint32_t a0, a1, an;
-    win.next(a0, a1, an);
+    win.next(gp, a0, a1, an);
     const int nb = min(32, ncols - j0);
 #pragma unroll 1
     for (int b = 0; b < nb; ++b) {
@@ -639,8 +672,7 @@ __global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
 // scores on the same columns (same split, same warm-up), and only S <= e
 // enters either minimum, so the result equals the one-pass kernel's at twice
 // its columns.  MODE 0 is the one-pass kernel.
-struct RescueArgs {
-  const uint32_t* gp;
+struct RescueLanes {
   const int64_t *block, *win_start, *a_lo, *span, *ms_len, *peq, *pad;
   const uint8_t* r_ok;
   // element strides: of the per-pair lanes, of peq [B][4][wd], of pad [B][wd]
@@ -652,14 +684,20 @@ struct RescueArgs {
   int wd, m, e, R, chunks, qstride;
 };
 
+// SHARD: the genome planes are a shard set.
+template <bool SHARD>
+struct RescueArgs : RescueLanes {
+  typename Table<SHARD>::type gp;
+};
+
 constexpr int kInfScore = 1 << 20;           // constants.INF_SCORE
 
 // NW: compile-time word count when !SHARED (PEQ in registers, wd == NW);
 // register capacity of VP / VN when SHARED (PEQ in shared memory, wd <= NW).
 // MODE: 0 one pass, 1 and 2 the passes of the two-pass mode (see above).
-template <int NW, bool SHARED, int MODE>
+template <int NW, bool SHARED, int MODE, bool SHARD>
 __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
-    const RescueArgs a) {
+    const RescueArgs<SHARD> a) {
   extern __shared__ uint32_t rescue_smem[];
   const int C = a.chunks;                    // a power of two <= 32
   const int pl = threadIdx.x / C, chunk = threadIdx.x % C;
@@ -727,7 +765,7 @@ __global__ void __launch_bounds__(kThreads) rescue_scan_kernel(
     int score = a.m;
     for (int w = j_first >> 5; w <= (j_last >> 5); ++w) {
       uint32_t a0, a1, an;
-      win.next(a0, a1, an);
+      win.next(a.gp, a0, a1, an);
       const int b_lo = max(j_first - 32 * w, 0);
       const int b_hi = min(j_last - 32 * w, 31);
 #pragma unroll 1
@@ -839,17 +877,21 @@ void launch_fused(const uint32_t* win, const uint32_t* rd, const uint32_t* lm,
                                                      ww, m, ncols, e);
 }
 
-template <int WD>
-void launch_fused_gather(const uint32_t* gp, const int64_t* orient,
-                         const int64_t* start, const int64_t* rtab,
-                         const int64_t* rrow, const int64_t* rlen, int32_t* out,
-                         int64_t L, int64_t R, int64_t gwords,
-                         int64_t genome_len, int m, int ncols, int e,
-                         cudaStream_t st) {
-  const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
-  verify_fused_gather_kernel<WD><<<grid, kThreads, 0, st>>>(
-      gp, orient, start, rtab, rrow, rlen, out, L, R, gwords, genome_len, m,
-      ncols, e);
+// The gathering verify's lanes (btbs_verify_fused_gather) past its table.
+struct GatherLanes {
+  const int64_t *orient, *start, *rtab, *rrow, *rlen;
+  int32_t* out;
+  int64_t L, R, gwords, genome_len;
+  int wd, m, ncols, e;
+};
+
+template <int WD, bool SHARD>
+void launch_fused_gather(const typename Table<SHARD>::type& gp,
+                         const GatherLanes& x, cudaStream_t st) {
+  const unsigned grid = unsigned((x.L + kThreads - 1) / kThreads);
+  verify_fused_gather_kernel<WD, SHARD><<<grid, kThreads, 0, st>>>(
+      gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.out, x.L, x.R,
+      x.gwords, x.genome_len, x.m, x.ncols, x.e);
 }
 
 template <int WD>
@@ -882,48 +924,105 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-template <int NW>
-cudaError_t launch_fused_gather_wide(
-    const uint32_t* gp, const int64_t* orient, const int64_t* start,
-    const int64_t* rtab, const int64_t* rrow, const int64_t* rlen,
-    int32_t* out, int64_t L, int64_t R, int64_t gwords, int64_t genome_len,
-    int wd, int m, int ncols, int e, cudaStream_t st) {
+template <int NW, bool SHARD>
+cudaError_t launch_fused_gather_wide(const typename Table<SHARD>::type& gp,
+                                     const GatherLanes& x, cudaStream_t st) {
   const size_t smem = size_t(5) * NW * kThreads * sizeof(uint32_t);
   const cudaError_t rc =
-      allow_shared(verify_fused_gather_wide_kernel<NW>, smem);
+      allow_shared(verify_fused_gather_wide_kernel<NW, SHARD>, smem);
   if (rc != cudaSuccess) return rc;
-  const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
-  verify_fused_gather_wide_kernel<NW><<<grid, kThreads, smem, st>>>(
-      gp, orient, start, rtab, rrow, rlen, out, L, R, gwords, genome_len, wd,
-      m, ncols, e);
+  const unsigned grid = unsigned((x.L + kThreads - 1) / kThreads);
+  verify_fused_gather_wide_kernel<NW, SHARD><<<grid, kThreads, smem, st>>>(
+      gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.out, x.L, x.R,
+      x.gwords, x.genome_len, x.wd, x.m, x.ncols, x.e);
   return cudaGetLastError();
 }
 
-template <int NW, bool SHARED, int MODE>
-cudaError_t launch_rescue_scan_mode(const RescueArgs& a, cudaStream_t st) {
+// One launch of the gathering verify at x.wd read words.
+template <bool SHARD>
+cudaError_t fused_gather(const typename Table<SHARD>::type& gp,
+                         const GatherLanes& x, cudaStream_t st) {
+  switch (x.wd) {
+    case 1: launch_fused_gather<1, SHARD>(gp, x, st); break;
+    case 2: launch_fused_gather<2, SHARD>(gp, x, st); break;
+    case 3: launch_fused_gather<3, SHARD>(gp, x, st); break;
+    case 4: launch_fused_gather<4, SHARD>(gp, x, st); break;
+    case 5: launch_fused_gather<5, SHARD>(gp, x, st); break;
+    case 6: launch_fused_gather<6, SHARD>(gp, x, st); break;
+    case 7: launch_fused_gather<7, SHARD>(gp, x, st); break;
+    case 8: launch_fused_gather<8, SHARD>(gp, x, st); break;
+    default: break;
+  }
+  if (x.wd <= 8) return cudaGetLastError();
+  if (x.wd <= 12) return launch_fused_gather_wide<12, SHARD>(gp, x, st);
+  if (x.wd <= 16) return launch_fused_gather_wide<16, SHARD>(gp, x, st);
+  if (x.wd <= 24) return launch_fused_gather_wide<24, SHARD>(gp, x, st);
+  return launch_fused_gather_wide<32, SHARD>(gp, x, st);
+}
+
+template <int NW, bool SHARED, int MODE, bool SHARD>
+cudaError_t launch_rescue_scan_mode(const RescueArgs<SHARD>& a,
+                                    cudaStream_t st) {
   const int pairs = kThreads / a.chunks;     // per block
   const size_t smem =
       (SHARED ? size_t(5) * NW * kThreads * sizeof(uint32_t) : 0) +
       (MODE == 0 ? size_t(pairs) * a.qstride : 0);
   const cudaError_t rc =
-      allow_shared(rescue_scan_kernel<NW, SHARED, MODE>, smem);
+      allow_shared(rescue_scan_kernel<NW, SHARED, MODE, SHARD>, smem);
   if (rc != cudaSuccess) return rc;
   const unsigned grid = unsigned((a.B + pairs - 1) / pairs);
-  rescue_scan_kernel<NW, SHARED, MODE><<<grid, kThreads, smem, st>>>(a);
+  rescue_scan_kernel<NW, SHARED, MODE, SHARD><<<grid, kThreads, smem, st>>>(
+      a);
   return cudaGetLastError();
 }
 
-template <int NW, bool SHARED>
-cudaError_t launch_rescue_scan(const RescueArgs& a, int mode,
+template <int NW, bool SHARED, bool SHARD>
+cudaError_t launch_rescue_scan(const RescueArgs<SHARD>& a, int mode,
                                cudaStream_t st) {
   if (mode == 1) return launch_rescue_scan_mode<NW, SHARED, 1>(a, st);
   if (mode == 2) return launch_rescue_scan_mode<NW, SHARED, 2>(a, st);
   return launch_rescue_scan_mode<NW, SHARED, 0>(a, st);
 }
 
+// One launch of the rescue scan (mode as btbs_rescue_scan) at a.wd words.
+template <bool SHARD>
+cudaError_t rescue_scan(const RescueArgs<SHARD>& a, int mode,
+                        cudaStream_t st) {
+  switch (a.wd) {
+    case 1: return launch_rescue_scan<1, false>(a, mode, st);
+    case 2: return launch_rescue_scan<2, false>(a, mode, st);
+    case 3: return launch_rescue_scan<3, false>(a, mode, st);
+    case 4: return launch_rescue_scan<4, false>(a, mode, st);
+    case 5: return launch_rescue_scan<5, false>(a, mode, st);
+    case 6: return launch_rescue_scan<6, false>(a, mode, st);
+    case 7: return launch_rescue_scan<7, false>(a, mode, st);
+    case 8: return launch_rescue_scan<8, false>(a, mode, st);
+    default: break;
+  }
+  if (a.wd <= 12) return launch_rescue_scan<12, true>(a, mode, st);
+  if (a.wd <= 16) return launch_rescue_scan<16, true>(a, mode, st);
+  if (a.wd <= 24) return launch_rescue_scan<24, true>(a, mode, st);
+  return launch_rescue_scan<32, true>(a, mode, st);
+}
+
 bool shapes_ok(int64_t L, int wd, int ww, int ncols) {
   return L > 0 && L <= int64_t(kThreads) * 0x7FFFFFFF && wd >= 1 &&
          wd <= kMaxWords && ww >= 1 && ncols >= 1 && ncols <= 32 * ww;
+}
+
+// The genome planes of the gathering entries below: nparts 0: gp uint32
+// [2 * gwords][3], a whole table (gp_parts and gp_rows unused); nparts
+// 1..kMaxShards: gp_parts[s] is shard s, gp_rows rows of 3 words each, of
+// the planes split into row ranges (index/device.Shards).  Calls
+// launch(table) with the pointer or the shard set.
+template <typename Launch>
+cudaError_t with_planes(const void* gp, const void* const* gp_parts,
+                        int nparts, int64_t gp_rows, Launch launch) {
+  if (nparts == 0) return launch(static_cast<const uint32_t*>(gp));
+  ShardSet gs;
+  if (!make_shard_set(gp_parts, nparts, gp_rows, &gs))
+    return cudaErrorInvalidValue;
+  return launch(gs);
 }
 
 }  // namespace
@@ -956,10 +1055,11 @@ int btbs_verify_fused(const void* win, const void* rd, const void* lm,
   return int(cudaGetLastError());
 }
 
-// gp uint32 [2 * gwords][3] genome planes; orient, start (u32 value), rrow,
+// The genome planes as with_planes above; orient, start (u32 value), rrow,
 // rlen int64 [L]; rtab int64 [R][3 * wd] read planes (u32 values); out int32
 // [L].  wd in 1..32 and a window of exactly wd + 1 words.
-int btbs_verify_fused_gather(const void* gp, const void* orient,
+int btbs_verify_fused_gather(const void* gp, const void* const* gp_parts,
+                             int nparts, int64_t gp_rows, const void* orient,
                              const void* start, const void* rtab,
                              const void* rrow, const void* rlen, void* out,
                              int64_t L, int64_t R, int64_t gwords,
@@ -968,47 +1068,24 @@ int btbs_verify_fused_gather(const void* gp, const void* orient,
   if (!shapes_ok(L, wd, wd + 1, ncols) || ncols <= 32 * wd ||
       e < 0 || e > 31 || R < 1 || gwords < 1 || genome_len < 0)
     return int(cudaErrorInvalidValue);
-  auto g = static_cast<const uint32_t*>(gp);
-  auto a = static_cast<const int64_t*>(orient);
-  auto s = static_cast<const int64_t*>(start);
-  auto t = static_cast<const int64_t*>(rtab);
-  auto r = static_cast<const int64_t*>(rrow);
-  auto n = static_cast<const int64_t*>(rlen);
-  auto o = static_cast<int32_t*>(out);
+  const GatherLanes x{static_cast<const int64_t*>(orient),
+                      static_cast<const int64_t*>(start),
+                      static_cast<const int64_t*>(rtab),
+                      static_cast<const int64_t*>(rrow),
+                      static_cast<const int64_t*>(rlen),
+                      static_cast<int32_t*>(out),
+                      L, R, gwords, genome_len, wd, m, ncols, e};
   auto st = static_cast<cudaStream_t>(stream);
-#define BTBS_FUSED_GATHER(WD)                                             \
-  case WD:                                                                \
-    launch_fused_gather<WD>(g, a, s, t, r, n, o, L, R, gwords, genome_len, \
-                            m, ncols, e, st);                             \
-    break;
-  switch (wd) {
-    BTBS_FUSED_GATHER(1)
-    BTBS_FUSED_GATHER(2)
-    BTBS_FUSED_GATHER(3)
-    BTBS_FUSED_GATHER(4)
-    BTBS_FUSED_GATHER(5)
-    BTBS_FUSED_GATHER(6)
-    BTBS_FUSED_GATHER(7)
-    BTBS_FUSED_GATHER(8)
-    default: break;
-  }
-#undef BTBS_FUSED_GATHER
-  if (wd <= 8) return int(cudaGetLastError());
-#define BTBS_FUSED_GATHER_WIDE(NW)                                           \
-  if (wd <= NW)                                                              \
-    return int(launch_fused_gather_wide<NW>(g, a, s, t, r, n, o, L, R,       \
-                                            gwords, genome_len, wd, m,       \
-                                            ncols, e, st));
-  BTBS_FUSED_GATHER_WIDE(12)
-  BTBS_FUSED_GATHER_WIDE(16)
-  BTBS_FUSED_GATHER_WIDE(24)
-#undef BTBS_FUSED_GATHER_WIDE
-  return int(launch_fused_gather_wide<32>(g, a, s, t, r, n, o, L, R, gwords,
-                                          genome_len, wd, m, ncols, e, st));
+  return int(with_planes(gp, gp_parts, nparts, gp_rows, [&](const auto& g) {
+    constexpr bool kShard =
+        !std::is_pointer<std::decay_t<decltype(g)>>::value;
+    return fused_gather<kShard>(g, x, st);
+  }));
 }
 
-// Mate rescue for B pairs (see the note above rescue_scan_kernel).  gp as
-// above; block, win_start (u32 value), a_lo (u32), span (u32), ms_len int64
+// Mate rescue for B pairs (see the note above rescue_scan_kernel).  The
+// genome planes as with_planes above; block, win_start (u32 value), a_lo
+// (u32), span (u32), ms_len int64
 // and r_ok bool (one byte) lanes, peq int64 [B][4][wd] and pad int64 [B][wd]
 // (u32 values), each with its element strides; rs_best, rs_second int32 [B],
 // rp_best int64 [B], contiguous.  chunks: threads per pair, a power of two up
@@ -1019,7 +1096,8 @@ int btbs_verify_fused_gather(const void* gp, const void* orient,
 // (ops/kernels.rescue_scan_chunks); mode 1 writes rs_best and rp_best only,
 // mode 2 reads them and writes rs_second only.  A block that does not fit is
 // refused with cudaErrorInvalidValue.
-int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
+int btbs_rescue_scan(const void* gp, const void* const* gp_parts, int nparts,
+                     int64_t gp_rows, const void* block, int64_t s_block,
                      const void* win_start, int64_t s_start, const void* r_ok,
                      int64_t s_ok, const void* a_lo, int64_t s_alo,
                      const void* span, int64_t s_span, const void* ms_len,
@@ -1034,8 +1112,7 @@ int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
       (chunks & (chunks - 1)) != 0 || gwords < 1 || genome_len < 0 ||
       mode < 0 || mode > 2)
     return int(cudaErrorInvalidValue);
-  RescueArgs a;
-  a.gp = static_cast<const uint32_t*>(gp);
+  RescueLanes a;
   a.block = static_cast<const int64_t*>(block);
   a.win_start = static_cast<const int64_t*>(win_start);
   a.a_lo = static_cast<const int64_t*>(a_lo);
@@ -1068,21 +1145,14 @@ int btbs_rescue_scan(const void* gp, const void* block, int64_t s_block,
   a.chunks = chunks;
   a.qstride = (R + e + 1 + 3) & ~3;          // one byte per output column
   auto st = static_cast<cudaStream_t>(stream);
-  switch (wd) {
-    case 1: return int(launch_rescue_scan<1, false>(a, mode, st));
-    case 2: return int(launch_rescue_scan<2, false>(a, mode, st));
-    case 3: return int(launch_rescue_scan<3, false>(a, mode, st));
-    case 4: return int(launch_rescue_scan<4, false>(a, mode, st));
-    case 5: return int(launch_rescue_scan<5, false>(a, mode, st));
-    case 6: return int(launch_rescue_scan<6, false>(a, mode, st));
-    case 7: return int(launch_rescue_scan<7, false>(a, mode, st));
-    case 8: return int(launch_rescue_scan<8, false>(a, mode, st));
-    default: break;
-  }
-  if (wd <= 12) return int(launch_rescue_scan<12, true>(a, mode, st));
-  if (wd <= 16) return int(launch_rescue_scan<16, true>(a, mode, st));
-  if (wd <= 24) return int(launch_rescue_scan<24, true>(a, mode, st));
-  return int(launch_rescue_scan<32, true>(a, mode, st));
+  return int(with_planes(gp, gp_parts, nparts, gp_rows, [&](const auto& g) {
+    constexpr bool kShard =
+        !std::is_pointer<std::decay_t<decltype(g)>>::value;
+    RescueArgs<kShard> args;
+    static_cast<RescueLanes&>(args) = a;
+    args.gp = g;
+    return rescue_scan<kShard>(args, mode, st);
+  }));
 }
 
 int btbs_myers(const void* win, const void* peq, const void* pad, void* out,

@@ -13,8 +13,11 @@ small ones (cbase, n) are int64.
 A sharded index (upload_index_sharded, the counterpart of the reference's
 parallel/shard.upload_index_sharded) holds cp_rows, sa_samples and g_planes
 as `Shards`: equal row ranges of the padded table, one per card of an index
-group, fetched by ops/kernels.gather_table.  cbase, n and klt stay whole
-tensors on the group's first card, where the lanes live.
+group.  cbase, n and klt stay whole tensors on the group's first card, where
+the lanes live.  The fused kernels (ops/kernels.py) read a shard set
+themselves, each row from the shard that holds it, through peer access
+where a shard sits on another card; the plain versions read it through
+ops/kernels.gather_table.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ PLANES_CACHE_VERSION = 1
 class Shards:
     """One table split into equal row ranges: parts[s], on its own device,
     holds the global rows [s * rows, (s + 1) * rows) (the reference's
-    P(idx_axis) sharding).  Not a tensor: only ops/kernels.gather_table
-    reads it, and the fused kernels refuse it."""
+    P(idx_axis) sharding); a row outside them reads as zeros.  Not a
+    tensor: ops/kernels' FM, gathering-verify and rescue wrappers take it
+    (at most kernels.MAX_SHARDS parts of one shape), and gather_table reads
+    it for the plain versions."""
     parts: tuple[torch.Tensor, ...]
 
     @property
@@ -208,8 +213,13 @@ def upload_index_sharded(idx: BSIndex, devices) -> DeviceIndex:
     and rows_max / samples_max become the padded strides, so every
     `block * rows_max + row` addresses the same row; g_planes is padded at
     its end (g_words, the per-block offset, is unchanged).  cbase, n and klt
-    are whole, on devices[0]."""
+    are whole, on devices[0].  The kernels launched on devices[0] read the
+    other cards' shards: peer access is enabled first, and a pair of cards
+    without it raises ValueError naming both (ops/kernels.enable_peer_access)."""
+    from bitmapperbs_tpu_torch.ops import kernels   # imports this module
+
     devices = [torch.device(d) for d in devices]
+    kernels.enable_peer_access(devices[0], devices[1:])
     ns = len(devices)
     arrays, static = _host_arrays(idx)
     rows_max = -(-static["rows_max"] // ns) * ns

@@ -8,10 +8,11 @@ the same (best, second) tuples as the reference.  u32 lanes are int64
 otherwise `map_batch_device` enqueues its work and returns, so the host
 loop can keep batches in flight.
 
-On a sharded index (index/device.upload_index_sharded) every table fetch
-goes shard by shard (ops/kernels.gather_table), the FM step loops run
-lockstep, the compact verify takes the window planes into
-kernels.verify_fused, and flat_chunks is off, as in the reference.
+On a sharded index (index/device.upload_index_sharded) the same kernels
+launch: the FM step kernels and the gathering verify read each row from
+the shard that holds it (ops/kernels.py); the dense re-run's and the
+mismatch-only path's windows go shard by shard (ops/kernels.gather_table),
+and flat_chunks is off, as in the reference.
 
 Fixed capacities (AlignerConfig): S = num_seeds seeds per (pattern, block)
 frame, O = max_seed_occ SA rows per seed, LB = locate_budget located rows
@@ -353,21 +354,15 @@ def candidate_grids_compact(dix: DeviceIndex, cfg: AlignerConfig, reads,
 
     def _verify_lanes(blk_, cand_, row_, len_):
         ncols = m + 2 * e
-        if cfg.indels and e > 0 and not dix.sharded:
-            # one kernel at every bucket width: window gather + funnel
-            # shifts + Hamming + PEQ + Myers
+        if cfg.indels and e > 0:
+            # one kernel at every bucket width, on a whole or a sharded
+            # index: window gather + funnel shifts + Hamming + PEQ + Myers
             return (kernels.verify_fused_gather(
                 dix.g_planes, blk_, wrap(cand_ - e), read_tab, row_, len_, L,
                 dix.g_words, m, ncols, e),)
         rp = read_tab[row_]                                       # lanes,3*Wd
         rp = (rp[:, :Wd], rp[:, Wd:2 * Wd], rp[:, 2 * Wd:])
         lenmask = verify.length_mask(len_, m)
-        if cfg.indels and e > 0:
-            # sharded index: the window fetched shard by shard, then the
-            # fused verify on the planes (the reference's compact path)
-            wide = verify.window_planes(dix.g_planes, blk_, wrap(cand_ - e),
-                                        -(-ncols // 32), L, dix.g_words)
-            return (kernels.verify_fused(wide, rp, lenmask, m, ncols, e),)
         ref = verify.window_planes(dix.g_planes, blk_, cand_, Wd, L,
                                    dix.g_words)
         return (verify.hamming(ref, rp, lenmask),)

@@ -5,8 +5,8 @@ conversion, oracle.pipeline.se_frames), then: proper-pair join over the
 compatible frame pairs, lexicographic pair selection, pair second-best,
 per-mate SE selection, and one windowed mate-rescue pass per pair (a Myers
 scan over the whole insert window with indels: kernels.rescue_scan, one
-launch on the card, or on a sharded index the window fetched shard by shard
-and kernels.myers_scan; per-offset Hamming without).
+launch on the card (two past ~58,000 offsets) on a whole or a sharded
+index; per-offset Hamming without).
 The host (models/host.map_batch_pe) applies oracle/paired.map_pair's
 decision order through models/pool, so SAM equality again
 reduces to equality of these tensors.
@@ -158,17 +158,9 @@ def _rescue_scan(dix: DeviceIndex, cfg: AlignerConfig, block, lo, hi, r_ok,
     a_lo = torch.where(block == 0, lo, wrap(L - hi - ms_len))
     span = wrap(hi - lo)                                  # == a_hi - a_lo
     win_start = torch.where(r_ok, wrap(a_lo - e), 0)      # wrap >= -e legal
-    if dix.sharded:
-        # the reference's sequence: the window fetched shard by shard, the
-        # scan's [B, R + m + 2e] scores, then the selection
-        ncols = R + m + 2 * e
-        win = verify.window_planes(dix.g_planes, block, win_start,
-                                   -(-ncols // 32), L, dix.g_words)
-        S = kernels.myers_scan(win, ms_peq, ms_pad, m, ncols)
-        return kernels.rescue_select(S, block, r_ok, a_lo, span, ms_len, L,
-                                     m, e)
-    # one launch on the card: the window fetch, the scan over R + m + 2e
-    # columns and the (best, lowest position, second) selection
+    # one launch on the card, on a whole or a sharded index: the window
+    # fetch, the scan over R + m + 2e columns and the (best, lowest
+    # position, second) selection
     return kernels.rescue_scan(dix.g_planes, block, win_start, r_ok, a_lo,
                                span, ms_len, ms_peq, ms_pad, L, dix.g_words,
                                m, e, R)

@@ -19,12 +19,13 @@ tensors, and the kernels are held to them.  Where the reference used
 where-chains to dodge its device's gather costs on SMALL tables (cbase, n),
 plain indexing gives the same values.
 
-On a sharded index (index/device.upload_index_sharded) the three step
-loops are the lockstep loops whatever the device, as the reference's
-sharded path runs them: every checkpoint row and SA sample is one
-kernels.gather_table call, one kernels.gather_rows_shard per shard with the
-partial rows summed on the lanes' device (the reference's psum), one merge
-per step.  The index's type decides, never a failure.
+On a sharded index (index/device.upload_index_sharded) the same three
+kernels launch once each: their SHARD instances read every checkpoint row
+and SA sample from the shard that holds it, a zero row past the table (the
+reference's sharded fetch, clip + where + psum).  The lockstep loops read a
+sharded table through kernels.gather_table (one gather per shard, the
+partial rows summed on the lanes' device), so they stay the plain versions
+there too.
 """
 from __future__ import annotations
 
@@ -102,10 +103,7 @@ def extend_backward(dix: DeviceIndex, block, sp, ep, c):
 
 def locate(dix: DeviceIndex, block, i, valid):
     """SA_block[i] per lane via <= dix.sa_rate LF steps; invalid lanes walk
-    garbage safely.  Returns u32 lanes.  One kernel on the card (the
-    lockstep loop on a sharded index)."""
-    if dix.sharded:
-        return locate_lockstep(dix, block, i, valid)
+    garbage safely.  Returns u32 lanes.  One kernel on the card."""
     return kernels.fm_locate(dix, block, i, valid)
 
 
@@ -157,9 +155,9 @@ def extend_seeds(dix: DeviceIndex, block, patterns, starts, sp, ep,
     ext_occ rows prepends the read character left of its start, up to
     ext_max characters, stopping at the read start or when a step would
     empty the interval.  Returns (sp, ep, starts).  One kernel on the
-    card (the lockstep loop on a sharded index)."""
-    fn = extend_lockstep if dix.sharded else kernels.fm_extend
-    return fn(dix, block, patterns, starts, sp, ep, ext_max, ext_occ)
+    card."""
+    return kernels.fm_extend(dix, block, patterns, starts, sp, ep, ext_max,
+                             ext_occ)
 
 
 def extend_lockstep(dix: DeviceIndex, block, patterns, starts, sp, ep,
@@ -214,8 +212,7 @@ def search_patterns(dix: DeviceIndex, block, patterns, starts, ends,
     (rolling_kmers at end-1 per lane), when given and the index has a KLT,
     replaces the first klt_k steps of every slice at least klt_k long with
     one table lookup (bit-identical).  Returns (sp, ep).  One gather (the
-    table lookup) and one kernel on the card (the lockstep loop on a
-    sharded index).
+    table lookup) and one kernel on the card.
 
     min_len is a lower bound on every slice length that the caller knows
     without a device sync (the host holds the read lengths); the lockstep
@@ -230,9 +227,8 @@ def search_patterns(dix: DeviceIndex, block, patterns, starts, ends,
     sp0 = ep0 = None
     if k:
         sp0, ep0 = klt_lookup(dix, block, end_kmers)
-    fn = search_lockstep if dix.sharded else kernels.fm_search
-    return fn(dix, block, patterns, starts, ends, sp0, ep0, k, max_len,
-              min_len)
+    return kernels.fm_search(dix, block, patterns, starts, ends, sp0, ep0, k,
+                             max_len, min_len)
 
 
 def search_lockstep(dix: DeviceIndex, block, patterns, starts, ends, sp0,

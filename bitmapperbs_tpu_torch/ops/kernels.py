@@ -18,19 +18,30 @@ bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
                             feeds, the step loops of ops/fm.search_patterns,
                             extend_seeds and locate inside one launch each
 
+verify_fused and myers_scan take planes gathered by the caller; no mapping
+path calls them since the gathering entries serve the sharded index too.
+
 The verify wrappers take u32 plane lanes as int64 tensors (ops/u32.py);
 gather_rows takes an int32 table and int64 row indices; the FM wrappers take
 the device index and int64 lanes.  On CPU tensors a wrapper runs its plain
 version (`*_ref`); on CUDA tensors it checks dtype, shape and device and
 launches its kernel from csrc/verify.cu, csrc/gather.cu or csrc/fm.cu, or
 raises.  `LAUNCHES` counts the kernel launches.  A launch goes to the card
-its tensors are on (`_launching` makes that card current for the call), and
-a table split over cards (index/device.Shards) is read by `gather_table`
-alone: the wrappers that take whole tables refuse it.
+its lanes are on (`_launching` makes that card current for the call).
+
+A table split over cards (index/device.Shards: the sharded index's
+checkpoint rows, SA samples and genome planes) goes to the fused kernels as
+it is: fm_search, fm_extend, fm_locate, verify_fused_gather and rescue_scan
+launch their SHARD instance, which reads each row from the shard that holds
+it (a zero row past the table, as the reference's sharded fetch gives) and
+reaches shards on other cards through peer access (`enable_peer_access`,
+called where a sharded index is placed).  Their plain versions read a shard
+set through `gather_table`.  gather_rows takes a whole table only.
 
 The kernels are built on first use with nvcc for sm_90a into _build/, one
 shared library per source (compiled side by side), each named by the hash
-of its source and the flags, and bound with ctypes.
+of its source, the shared header csrc/shards.cuh and the flags, and bound
+with ctypes.
 """
 from __future__ import annotations
 
@@ -63,6 +74,8 @@ _RESCUE_WIDE_WORDS = (12, 16, 24, 32)
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
            for name in ("verify", "gather", "fm")}
+HEADERS = (os.path.join(_PKG, "csrc", "shards.cuh"),)
+MAX_SHARDS = 8                  # parts of a shard set (csrc/shards.cuh)
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -88,9 +101,13 @@ def build() -> dict[str, str]:
     compiler's output (ptxas register/spill report) is kept beside each
     library as <name>.log."""
     paths, procs = {}, {}
+    headers = b""
+    for header in HEADERS:
+        with open(header, "rb") as f:
+            headers += f.read()
     for name, source in SOURCES.items():
         with open(source, "rb") as f:
-            src = f.read()
+            src = f.read() + headers
         tag = hashlib.sha256(
             src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         paths[name] = os.path.join(BUILD_DIR, f"libbtbs_{name}_{tag}.so")
@@ -125,9 +142,10 @@ def _lib():
         lib.btbs_verify_fused.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                           i32, i32, vp]
         lib.btbs_verify_fused.restype = ctypes.c_int
-        lib.btbs_verify_fused_gather.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32,
-            i32, vp]
+        planes = [vp, vp, i32, i64]       # gp, gp_parts, nparts, gp_rows
+        lib.btbs_verify_fused_gather.argtypes = planes + [
+            vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, i32,
+            vp]
         lib.btbs_verify_fused_gather.restype = ctypes.c_int
         lib.btbs_myers.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                    vp]
@@ -135,7 +153,7 @@ def _lib():
         lib.btbs_myers_scan.argtypes = lib.btbs_myers.argtypes
         lib.btbs_myers_scan.restype = ctypes.c_int
         lib.btbs_rescue_scan.argtypes = (
-            [vp] + [vp, i64] * 6 + [vp, i64, i64, i64, vp, i64, i64]
+            planes + [vp, i64] * 6 + [vp, i64, i64, i64, vp, i64, i64]
             + [vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp])
         lib.btbs_rescue_scan.restype = ctypes.c_int
         glib = ctypes.CDLL(paths["gather"])
@@ -144,10 +162,15 @@ def _lib():
         lib.btbs_gather_rows_shard = glib.btbs_gather_rows_shard
         lib.btbs_gather_rows_shard.argtypes = [vp, vp, vp, i64, i64, i32, i64,
                                                vp]
-        for fn in (lib.btbs_gather_rows, lib.btbs_gather_rows_shard):
+        lib.btbs_enable_peer_access = glib.btbs_enable_peer_access
+        lib.btbs_enable_peer_access.argtypes = [i32, i32]
+        for fn in (lib.btbs_gather_rows, lib.btbs_gather_rows_shard,
+                   lib.btbs_enable_peer_access):
             fn.restype = ctypes.c_int
         fmlib = ctypes.CDLL(paths["fm"])
-        index = [vp, i64, i64, vp, vp]          # cp, R, rows_max, cbase, n
+        # cp, sa, cp_parts, sa_parts, nparts, R, n_samples, rows_max,
+        # samples_max, cbase, n
+        index = [vp, vp, vp, vp, i32, i64, i64, i64, i64, vp, vp]
         pat = [vp, i64, i64, i64, i64, i64, i32]
         lib.btbs_fm_search = fmlib.btbs_fm_search
         lib.btbs_fm_search.argtypes = index + pat + [
@@ -157,7 +180,7 @@ def _lib():
             vp, vp, vp, vp, i32, i64, vp, vp, vp, vp, i64, vp]
         lib.btbs_fm_locate = fmlib.btbs_fm_locate
         lib.btbs_fm_locate.argtypes = index + [
-            vp, i64, i64, i32, vp, vp, vp, vp, vp, i64, vp]
+            i32, vp, vp, vp, vp, vp, i64, vp]
         lib.btbs_dependent_load_chain = fmlib.btbs_dependent_load_chain
         lib.btbs_dependent_load_chain.argtypes = [vp, i64, i32,
                                                   ctypes.c_uint32, vp, vp]
@@ -177,23 +200,71 @@ def _launching(dev: torch.device):
         yield torch.cuda.current_stream(dev).cuda_stream
 
 
-def _whole(**tables) -> None:
-    """Raise if a table is a shard set (index/device.Shards): the kernels
-    that take a table read the whole of it."""
-    for name, t in tables.items():
-        if isinstance(t, Shards):
-            raise ValueError(f"{name} is split over {len(t.parts)} shards; "
-                             f"this kernel reads a whole table")
+def _check_shards(t: Shards, name: str) -> None:
+    """Raise unless the kernels take this shard set: 1..MAX_SHARDS parts of
+    one shape, int32, contiguous, fewer than 2^32 rows in all."""
+    shapes = {tuple(p.shape) for p in t.parts}
+    if not 1 <= len(t.parts) <= MAX_SHARDS or len(shapes) != 1:
+        raise ValueError(f"{name}: the kernels take 1..{MAX_SHARDS} shards of "
+                         f"one shape, got {len(t.parts)} shards of shapes "
+                         f"{sorted(shapes)}")
+    if any(p.dtype != torch.int32 or not p.is_contiguous() or p.dim() < 1
+           for p in t.parts) or t.rows < 1 \
+            or t.rows * len(t.parts) > 0xFFFFFFFF:
+        raise ValueError(f"{name}: expected contiguous int32 shards of fewer "
+                         f"than 2^32 rows in all")
 
 
 def _on_cuda(*tensors) -> bool:
-    """True for all-CUDA inputs, False for all-CPU ones; raises otherwise."""
-    kinds = {t.device.type for t in tensors}
+    """True for all-CUDA inputs, False for all-CPU ones; raises otherwise.
+    The lanes and whole tables share one device; the parts of a shard set
+    (index/device.Shards) may sit on other cards, which the kernels reach
+    through peer access."""
+    flat = [t for t in tensors if not isinstance(t, Shards)]
+    kinds = {t.device.type for t in flat} | {
+        p.device.type for t in tensors if isinstance(t, Shards)
+        for p in t.parts}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    if kinds == {"cuda"} and len({t.device for t in flat}) == 1:
         return True
     raise ValueError(f"kernel inputs on mixed/unsupported devices: {kinds}")
+
+
+def _table_args(table) -> list:
+    """A checked table as the kernels take it: [pointer, parts, nparts,
+    rows].  A whole tensor: its pointer, no parts, its rows.  A shard set:
+    no pointer, a ctypes array of its parts' pointers, their count and the
+    rows of each (the caller holds the list until its launch is queued)."""
+    if not isinstance(table, Shards):
+        return [table.data_ptr(), None, 0, table.shape[0]]
+    ptrs = (ctypes.c_void_p * len(table.parts))(
+        *(p.data_ptr() for p in table.parts))
+    return [None, ptrs, len(table.parts), table.rows]
+
+
+def enable_peer_access(dev, peers) -> None:
+    """Lets the kernels launched on card `dev` read tensors on each card of
+    `peers` (an index group's shards, its lanes on `dev`).  Idempotent; no-op
+    for CPU devices and for `dev` itself.  Raises ValueError, naming both
+    cards, where the pair has no peer access: a sharded index is refused at
+    placement, never mapped some other way."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return
+    a = torch.cuda.current_device() if dev.index is None else dev.index
+    for peer in map(torch.device, peers):
+        if peer.type != "cuda":
+            continue
+        b = torch.cuda.current_device() if peer.index is None else peer.index
+        if b == a:
+            continue
+        if not torch.cuda.can_device_access_peer(a, b):
+            raise ValueError(
+                f"cuda:{a} cannot read cuda:{b} (no peer access): a sharded "
+                f"index keeps its lanes on cuda:{a} and a shard on cuda:{b}")
+        _check_rc(_lib().btbs_enable_peer_access(a, b),
+                  "btbs_enable_peer_access")
 
 
 def _rows_i32(planes, lanes, width: int) -> torch.Tensor:
@@ -265,6 +336,24 @@ def verify_fused(win, read_planes, lenmask, m: int, ncols: int, e: int):
 
 # ---- fused verify with the window gather inside ------------------------------
 
+def _check_planes(g_planes, g_words: int) -> None:
+    """Raise unless the gathering kernels take these genome planes: a shard
+    set of [rows, 3] parts (checked on any device: the plain versions take
+    what the kernels take), or on the card a contiguous int32 [2 * g_words,
+    3] tensor."""
+    if isinstance(g_planes, Shards):
+        _check_shards(g_planes, "g_planes")
+        if g_planes.parts[0].dim() != 2 or g_planes.parts[0].shape[1] != 3:
+            raise ValueError(f"expected [rows, 3] genome-plane shards, got "
+                             f"{tuple(g_planes.parts[0].shape)}")
+    elif g_planes.device.type == "cuda" and (
+            g_planes.dtype != torch.int32 or not g_planes.is_contiguous()
+            or tuple(g_planes.shape) != (2 * g_words, 3)):
+        raise ValueError(f"expected contiguous int32 [{2 * g_words}, 3] "
+                         f"genome planes, got {g_planes.dtype} "
+                         f"{tuple(g_planes.shape)}")
+
+
 def verify_fused_gather_fits(m: int, ncols: int) -> bool:
     """Whether the gathering entry takes these widths: 1..MAX_WORDS read
     words (every bucket up to 1,024 bp) and a window of exactly one word
@@ -292,13 +381,14 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
                         genome_len: int, g_words: int, m: int, ncols: int,
                         e: int):
     """verify_fused on windows it fetches itself.  g_planes: int32 bits
-    [2 * g_words, 3] (index/device.py); per lane (int64, one shape): orient
+    [2 * g_words, 3] (index/device.py), or their shard set; per lane (int64,
+    one shape): orient
     (0 fwd / 1 rc), start (u32 window start, anchor - e, possibly wrapped
     below 0), row (into read_tab) and lens (read length); read_tab: int64
     u32 [R, 3 * Wd] read planes (b0 | b1 | nmask words).  Returns int32
     lanes: ham if ham <= e else the semi-global Myers distance."""
     lane_t = (orient, start, row, lens)
-    _whole(g_planes=g_planes)
+    _check_planes(g_planes, g_words)
     _require(torch.int64, orient=orient, start=start, row=row, lens=lens,
              read_tab=read_tab)
     if not _on_cuda(g_planes, read_tab, *lane_t):
@@ -309,11 +399,6 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
         raise ValueError(f"verify_fused_gather takes 1..{MAX_WORDS} read "
                          f"words, a window of one more and e <= 31; got "
                          f"m {m}, ncols {ncols}, e {e}")
-    if g_planes.dtype != torch.int32 or not g_planes.is_contiguous() \
-            or tuple(g_planes.shape) != (2 * g_words, 3):
-        raise ValueError(f"expected contiguous int32 [{2 * g_words}, 3] "
-                         f"genome planes, got {g_planes.dtype} "
-                         f"{tuple(g_planes.shape)}")
     if read_tab.dim() != 2 \
             or read_tab.shape[1] != 3 * Wd or read_tab.shape[0] < 1 \
             or not read_tab.is_contiguous():
@@ -323,11 +408,11 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
     lanes = torch.broadcast_shapes(*(t.shape for t in lane_t))
     o, s, r, n = (_lanes_i64(t, lanes) for t in lane_t)
     L = o.numel()
-    out = torch.empty(L, dtype=torch.int32, device=g_planes.device)
+    out = torch.empty(L, dtype=torch.int32, device=o.device)
     if L:
-        with _launching(g_planes.device) as stream:
+        with _launching(o.device) as stream:
             _check_rc(_lib().btbs_verify_fused_gather(
-                g_planes.data_ptr(), o.data_ptr(), s.data_ptr(),
+                *_table_args(g_planes), o.data_ptr(), s.data_ptr(),
                 read_tab.data_ptr(), r.data_ptr(), n.data_ptr(),
                 out.data_ptr(), L, read_tab.shape[0], g_words, genome_len, Wd,
                 m, ncols, e, stream), "btbs_verify_fused_gather")
@@ -428,20 +513,10 @@ def rescue_scan_ref(g_planes, block, win_start, r_ok, a_lo, span, ms_len,
     """Plain version: ops/verify.window_planes over the whole insert window,
     ops/verify.myers_scan, then the selection on the [B, ncols] scores."""
     ncols = R + m + 2 * e
-    win = verify.window_planes(g_planes, block, win_start, -(-ncols // 32),
-                               genome_len, g_words)
-    S = verify.myers_scan(win, ms_peq, ms_pad, m, ncols)   # B, ncols
-    return rescue_select(S, block, r_ok, a_lo, span, ms_len, genome_len, m,
-                         e)
-
-
-def rescue_select(S, block, r_ok, a_lo, span, ms_len, genome_len: int,
-                  m: int, e: int):
-    """The selection behind the scan, on its int32 [B, ncols] scores S
-    (models/paired's frozen spec): (rs_best, rp_best, rs_second) as
-    `rescue_scan` returns them."""
-    ncols = S.shape[-1]
     L = genome_len
+    win = verify.window_planes(g_planes, block, win_start, -(-ncols // 32),
+                               L, g_words)
+    S = verify.myers_scan(win, ms_peq, ms_pad, m, ncols)   # B, ncols
     # real frame anchor of column j: a_lo + (j - (e + m - 1)); valid iff
     # j >= e+m-1 and j - (e+m-1) <= span, span read as int32 (as the
     # reference casts it)
@@ -471,7 +546,8 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
     exists), a_lo (u32 frame anchor of the window's first offset), span
     (u32, read as int32: offsets 0..span are valid), ms_len (the missing
     mate's length), ms_peq int64 u32 [B, 4, Wd] and ms_pad [B, Wd] (its PEQ
-    and pad words; any strides).  g_planes: int32 bits [2 * g_words, 3].
+    and pad words; any strides).  g_planes: int32 bits [2 * g_words, 3], or
+    their shard set.
     The window has R + m + 2e columns.
     Returns (rs_best int32, rp_best u32 as int64, rs_second int32), [B]
     each: the best semi-global score <= e over the valid end columns, the
@@ -481,7 +557,7 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
     range is too wide for one (`rescue_scan_chunks`)."""
     lane_t = dict(block=block, win_start=win_start, a_lo=a_lo, span=span,
                   ms_len=ms_len)
-    _whole(g_planes=g_planes)
+    _check_planes(g_planes, g_words)
     _require(torch.int64, ms_peq=ms_peq, ms_pad=ms_pad, **lane_t)
     _require(torch.bool, r_ok=r_ok)
     if not _on_cuda(g_planes, r_ok, ms_peq, ms_pad, *lane_t.values()):
@@ -500,12 +576,7 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
         raise ValueError(f"expected peq [{B}, 4, {Wd}] and pad [{B}, {Wd}], "
                          f"got {tuple(ms_peq.shape)} and "
                          f"{tuple(ms_pad.shape)}")
-    if g_planes.dtype != torch.int32 or not g_planes.is_contiguous() \
-            or tuple(g_planes.shape) != (2 * g_words, 3):
-        raise ValueError(f"expected contiguous int32 [{2 * g_words}, 3] "
-                         f"genome planes, got {g_planes.dtype} "
-                         f"{tuple(g_planes.shape)}")
-    dev = g_planes.device
+    dev = r_ok.device
     rs_best = torch.empty(B, dtype=torch.int32, device=dev)
     rp_best = torch.empty(B, dtype=torch.int64, device=dev)
     rs_second = torch.empty(B, dtype=torch.int32, device=dev)
@@ -517,7 +588,7 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
         for mode in ((1, 2) if two_pass else (0,)):
             with _launching(dev) as stream:
                 _check_rc(_lib().btbs_rescue_scan(
-                    g_planes.data_ptr(), *lanes, ms_peq.data_ptr(),
+                    *_table_args(g_planes), *lanes, ms_peq.data_ptr(),
                     *ms_peq.stride(), ms_pad.data_ptr(), *ms_pad.stride(),
                     rs_best.data_ptr(), rp_best.data_ptr(),
                     rs_second.data_ptr(), B, g_words, genome_len, Wd, m, e, R,
@@ -537,7 +608,9 @@ def gather_rows(table, idx):
     """table int32 [R, W] (contiguous); idx int64 lanes of any shape
     (contiguous).  Returns int32 [..., W]: row idx of the table per lane,
     idx clamped into [0, R - 1]."""
-    _whole(table=table)
+    if isinstance(table, Shards):
+        raise ValueError(f"table is split over {len(table.parts)} shards; "
+                         f"gather_rows reads a whole table")
     if not _on_cuda(table, idx):
         return gather_rows_ref(table, idx)
     if table.dtype != torch.int32 or table.dim() != 2 \
@@ -618,21 +691,46 @@ def gather_table(table, idx):
 
 # ---- FM-index step loops -------------------------------------------------------
 
-def _index_args(dix):
-    """The device index's tables as the FM kernels take them, checked."""
-    cp, cbase, n = dix.cp_rows, dix.cbase, dix.n
-    _whole(cp_rows=cp)
+def _check_index(dix) -> None:
+    """Raise unless the FM kernels take the index's checkpoint rows and SA
+    samples: both whole or both shard sets of as many parts (checked on any
+    device), on the card contiguous int32 [R, 17] and [N]."""
+    cp, sa = dix.cp_rows, dix.sa_samples
+    if isinstance(cp, Shards) or isinstance(sa, Shards):
+        if not (isinstance(cp, Shards) and isinstance(sa, Shards)) \
+                or len(cp.parts) != len(sa.parts):
+            raise ValueError("expected cp_rows and sa_samples both whole or "
+                             "both split over as many shards")
+        _check_shards(cp, "cp_rows")
+        _check_shards(sa, "sa_samples")
+        cp, sa = cp.parts[0], sa.parts[0]
+    elif cp.device.type != "cuda":
+        return
     if cp.dtype != torch.int32 or cp.dim() != 2 \
             or cp.shape[1] != K.CP_ROW_U32 or cp.shape[0] < 1 \
             or not cp.is_contiguous():
         raise ValueError(f"expected contiguous int32 [R, {K.CP_ROW_U32}] "
                          f"checkpoint rows, got {cp.dtype} {tuple(cp.shape)}")
+    if sa.dtype != torch.int32 or sa.dim() != 1 or sa.numel() < 1 \
+            or not sa.is_contiguous():
+        raise ValueError(f"expected contiguous int32 [N] SA samples, got "
+                         f"{sa.dtype} {tuple(sa.shape)}")
+
+
+def _index_args(dix):
+    """The device index as the FM kernels take it (csrc/fm.cu IndexArgs):
+    the checkpoint rows and SA samples, whole or as shard sets, the per-block
+    strides, cbase and n.  Checked."""
+    _check_index(dix)
+    cbase, n = dix.cbase, dix.n
     if cbase.dtype != torch.int64 or tuple(cbase.shape) != (2, K.CONV_ALPHA) \
             or not cbase.is_contiguous() or n.dtype != torch.int64 \
             or tuple(n.shape) != (2,) or not n.is_contiguous():
         raise ValueError("expected int64 cbase [2, 4] and n [2]")
-    return [cp.data_ptr(), cp.shape[0], dix.rows_max, cbase.data_ptr(),
-            n.data_ptr()]
+    cp, cp_parts, nparts, R = _table_args(dix.cp_rows)
+    sa, sa_parts, _, n_samples = _table_args(dix.sa_samples)
+    return [cp, sa, cp_parts, sa_parts, nparts, R, n_samples, dix.rows_max,
+            dix.samples_max, cbase.data_ptr(), n.data_ptr()]
 
 
 def _pattern_args(patterns, lanes):
@@ -684,9 +782,11 @@ def fm_search(dix, block, patterns, starts, ends, sp0, ep0, k: int,
     the lanes.  min_len is a hint for the plain version only; rows_out
     (here and in fm_extend / fm_locate): an int32 lane tensor that the kernel
     fills with the checkpoint rows each lane fetched, for measuring.
-    Returns (sp, ep) u32 lanes as int64."""
-    _whole(cp_rows=dix.cp_rows)
-    tensors = [dix.cp_rows, block, patterns, starts, ends] \
+    Returns (sp, ep) u32 lanes as int64.  Here and in fm_extend /
+    fm_locate, dix may be a sharded index (its tables index/device.Shards):
+    the kernels then read the shard of each row themselves."""
+    _check_index(dix)
+    tensors = [dix.cp_rows, dix.cbase, block, patterns, starts, ends] \
         + ([sp0, ep0] if k else [])
     _require(torch.int64, block=block, starts=starts, ends=ends,
              **({"sp0": sp0, "ep0": ep0} if k else {}))
@@ -729,10 +829,11 @@ def fm_extend(dix, block, patterns, starts, sp, ep, ext_max: int,
     than ext_occ rows and starts > 0, prepend patterns[starts - 1], at most
     ext_max times, stopping before a step that would empty the interval.
     Returns (sp, ep, starts) as int64 lanes."""
-    _whole(cp_rows=dix.cp_rows)
+    _check_index(dix)
     _require(torch.int64, block=block, starts=starts, sp=sp, ep=ep)
     _require(torch.uint8, patterns=patterns)
-    if not _on_cuda(dix.cp_rows, block, patterns, starts, sp, ep):
+    if not _on_cuda(dix.cp_rows, dix.cbase, block, patterns, starts, sp,
+                    ep):
         _rows_ptr(rows_out, None, False)
         return fm_extend_ref(dix, block, patterns, starts, sp, ep, ext_max,
                              ext_occ)
@@ -765,17 +866,13 @@ def fm_locate(dix, block, i, valid, rows_out=None):
     """SA_block[i] per lane: at most dix.sa_rate LF steps to the next sampled
     suffix, then the sample plus the steps taken (u32).  block, i: int64
     lanes; valid: bool lanes (invalid lanes walk from position 0)."""
-    _whole(cp_rows=dix.cp_rows, sa_samples=dix.sa_samples)
+    _check_index(dix)
     _require(torch.int64, block=block, i=i)
     _require(torch.bool, valid=valid)
-    if not _on_cuda(dix.cp_rows, dix.sa_samples, block, i, valid):
+    if not _on_cuda(dix.cp_rows, dix.sa_samples, dix.cbase, block, i,
+                    valid):
         _rows_ptr(rows_out, None, False)
         return fm_locate_ref(dix, block, i, valid)
-    sa = dix.sa_samples
-    if sa.dtype != torch.int32 or sa.dim() != 1 or sa.numel() < 1 \
-            or not sa.is_contiguous():
-        raise ValueError(f"expected contiguous int32 [N] SA samples, got "
-                         f"{sa.dtype} {tuple(sa.shape)}")
     lanes = torch.broadcast_shapes(block.shape, i.shape, valid.shape)
     b, pos = _lanes_i64(block, lanes), _lanes_i64(i, lanes)
     ok = valid.expand(lanes).contiguous()
@@ -783,8 +880,7 @@ def fm_locate(dix, block, i, valid, rows_out=None):
     if b.numel():
         with _launching(b.device) as stream:
             _check_rc(_lib().btbs_fm_locate(
-                *_index_args(dix), sa.data_ptr(), sa.numel(), dix.samples_max,
-                dix.sa_rate, b.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+                *_index_args(dix), dix.sa_rate, b.data_ptr(), pos.data_ptr(), ok.data_ptr(),
                 out.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
                 stream), "btbs_fm_locate")
         LAUNCHES["fm_locate"] += 1

@@ -6,9 +6,14 @@ Two modes, as the reference's:
   card; a batch is split into one row slice per card.
 - sharded index: mesh ('data', 'idx'); each data slice's index group holds
   cp_rows / sa_samples / g_planes split into row ranges over its cards
-  (index/device.upload_index_sharded), and every fetch of those tables is
-  one kernels.gather_rows_shard per shard, the partial rows summed on the
-  lanes' card (ops/kernels.gather_table), where the reference psums.
+  (index/device.upload_index_sharded).  The lanes live on the group's first
+  card, and the fused kernels launched there (FM steps, gathering verify,
+  mate rescue: the same launches as one card) read each row from the shard
+  that holds it, through peer access on the other cards of the group; the
+  dense re-run's and the mismatch-only windows take one
+  kernels.gather_rows_shard per shard, the partial rows summed on the
+  lanes' card (ops/kernels.gather_table), where the reference psums.  A
+  group whose cards lack peer access is refused when the index is placed.
 
 The slices are dispatched in turn from the calling thread with no host sync
 between them (kernel launches are asynchronous, so distinct cards overlap
@@ -30,13 +35,19 @@ from bitmapperbs_tpu_torch.index.device import (DeviceIndex, Shards,
                                                 upload_index_sharded)
 from bitmapperbs_tpu_torch.models.aligner import map_batch_device
 from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+from bitmapperbs_tpu_torch.ops import kernels
 from bitmapperbs_tpu_torch.parallel.mesh import Mesh, local_devices, \
     shard_batch
 
 
 def _place(dix: DeviceIndex, group) -> DeviceIndex:
     """dix's tables on another index group: the whole tables on its first
-    card, shard s on its card s (no copy where a device is the same)."""
+    card, shard s on its card s (no copy where a device is the same).  The
+    first card's kernels read the others' shards: peer access is enabled
+    first, and refused pairs raise (ops/kernels.enable_peer_access)."""
+    if dix.sharded:
+        kernels.enable_peer_access(group[0], group[1:])
+
     def move(t):
         if isinstance(t, Shards):
             return Shards(tuple(p.to(d) for p, d in zip(t.parts, group)))

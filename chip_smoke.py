@@ -111,24 +111,37 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      8b's repeat pairs, rescue deciding at least half, SAM equal to the
      oracle's
  11c. Several cards in one process, the card standing for each of them
-     (parallel/shard.make_cli_mappers; a device may repeat in a mesh): first
-     gather_rows_shard (the row-range gather of the sharded index) vs its
-     plain version on each shard of a 2-shard upload of this index, at the
-     lanes a data slice of 8,192 reads hands it (checkpoint rows W = 17 at a
-     search step's lanes, the record's headline; SA samples, genome
-     planes), lanes on both sides of every shard
-     boundary, in the padding, below 0 and past the end, the partial rows
-     summed equal to the whole table's; then phase 4's reads and phase
-     8's pairs on [cuda:0] x 2 (data parallel), and phase 4's and phase
-     8's last batches on [cuda:0] x 4 with --shard-index 2 (2 data slices,
+     (parallel/shard.make_cli_mappers; a device may repeat in a mesh).
+     First, as phase 3 additions on this index: gather_rows_shard (the
+     row-range gather of the sharded index) vs its plain version on each
+     shard of a 2-shard upload, at the lanes a data slice of 8,192 reads
+     hands it (genome planes W = 3 at [flat lanes, 5], the dense re-run's
+     window gather and the record's headline; checkpoint rows, SA
+     samples), lanes on both sides of every shard boundary, in the
+     padding, below 0 and past the end, the partial rows summed equal to
+     the whole table's; then the SHARD instances of the fused kernels
+     (each row read from the shard that holds it, a zero row past the
+     table) vs their plain versions and vs the whole-table instance, on
+     2- and 3-shard uploads: fm_search / fm_extend / fm_locate on the
+     arguments a data slice of phase 4's last batch hands them (seed
+     extension on), edge lanes and rows past the table planted;
+     verify_fused_gather at m 96 (163,840 lanes) and m 288;
+     rescue_scan in one pass (insert 0-500) and in two (100,001 offsets),
+     each timed inside beside the whole-table instance and its bound.
+     Then phase 4's reads and phase 8's pairs on [cuda:0] x 2 (data
+     parallel), and phase 4's and phase 8's last batches and phase 11b's
+     wide-insert batch on [cuda:0] x 4 with --shard-index 2 (2 data slices,
      each index split over 2 shards; their low-complexity reads take the
-     dense re-run, their seed-killed mates rescue): records equal phase 4's
-     and phase 8's; phase 8b's tandem-repeat pairs on the sharded mesh: SAM
-     equal to the oracle's, rescue deciding all 64.  The sharded paths
-     launch gather_rows_shard, verify_fused and myers (and PE myers_scan),
-     and no fm_*, verify_fused_gather or rescue_scan; each path's synced
-     wall, the last batches' per-batch walls on one card, data parallel
-     and sharded, and each shard's table bytes are printed
+     dense re-run, their seed-killed mates rescue): records equal phase
+     4's, phase 8's and phase 11b's, the wide batch's peak device memory
+     beside one card's; phase 8b's tandem-repeat pairs on the sharded
+     mesh: SAM equal to the oracle's, rescue deciding all 64.  The sharded
+     paths launch what one card launches (fm_search, fm_locate,
+     verify_fused_gather, and PE rescue_scan), gather_rows_shard and myers
+     only in the dense re-run, and no verify_fused or myers_scan; each
+     path's synced wall, the last batches' per-batch walls on one card,
+     data parallel and sharded (taking turns, 7 rounds), and each shard's
+     table bytes are printed
  12. SE, Gbp-scale configuration (what cli.autotune_for_genome sets above
      512 Mbp: seed extension 20 / occ 4, 128 candidates; batch 4,096) on a
      100 Mbp two-contig genome with planted human-profile repeats
@@ -161,7 +174,9 @@ kernels' record gives, per kernel, the launches of the slices' main paths
 SE and PE paths, phase 12's 96 bp batches, its 280 bp batch, counted on
 its own, and phase 13) with every path's beside them.
 Every TPU kernel of the reference has at least one entry point that those
-paths launch, and every entry point launches on one of them.
+paths launch, and every entry point launches on one of them but
+verify_fused and myers_scan, which no path takes any more: phase 3 holds
+them to their plain versions.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -231,6 +246,7 @@ PLAIN_LONG_REPS = 5                # the plain verify at 296 columns
 FM_KERNELS = ("fm_search", "fm_extend", "fm_locate")
 PLAIN_FM_REPS = 5                  # the lockstep loops are tens of ms
 E2E_REPS = 3                       # runs of each end-to-end timing
+MESH_WALL_ROUNDS = 7               # phase 11c: rounds of the per-batch walls
 CHASE_STEPS = 20_000               # dependent loads of the latency probe
 L2_EVICT_BYTES = 400_000_000       # written to push a table out of the 50 MB L2
 L2_RESIDENT_BYTES = 8_000_000      # a slice of a table that stays in the L2
@@ -250,19 +266,33 @@ INT32_PIPE = frozenset(
     "IABS POPC FLO BREV MOV SGXT BMSK".split())
 SASS_KERNELS = {        # kernel -> (library, what its mangled name contains)
     "verify_fused": ("verify", "verify_fused_kernelILi3E"),
-    "verify_fused_gather": ("verify", "verify_fused_gather_kernelILi3E"),
+    "verify_fused_gather": ("verify", "verify_fused_gather_kernelILi3ELb0E"),
     "myers": ("verify", "12myers_kernelILi3E"),
     "myers_scan": ("verify", "myers_scan_kernelILi3E"),
-    "rescue_scan": ("verify", "rescue_scan_kernelILi3ELb0ELi0E"),
-    "fm_search": ("fm", "fm_search_kernel"),
-    "fm_extend": ("fm", "fm_extend_kernel"),
-    "fm_locate": ("fm", "fm_locate_kernel"),
+    "rescue_scan": ("verify", "rescue_scan_kernelILi3ELb0ELi0ELb0E"),
+    "fm_search": ("fm", "fm_search_kernelILb0E"),
+    "fm_extend": ("fm", "fm_extend_kernelILb0E"),
+    "fm_locate": ("fm", "fm_locate_kernelILb0E"),
 }
 # the two passes of rescue_scan's mode for insert ranges past the bytes'
 # limit, counted apart from its one-pass kernel
 SASS_PASSES = {
-    "rescue_scan pass 1": ("verify", "rescue_scan_kernelILi3ELb0ELi1E"),
-    "rescue_scan pass 2": ("verify", "rescue_scan_kernelILi3ELb0ELi2E"),
+    "rescue_scan pass 1": ("verify", "rescue_scan_kernelILi3ELb0ELi1ELb0E"),
+    "rescue_scan pass 2": ("verify", "rescue_scan_kernelILi3ELb0ELi2ELb0E"),
+}
+# the SHARD instances, which read a sharded index (csrc/shards.cuh; their
+# last template argument true), counted apart from the whole-table ones
+SASS_SHARD = {
+    "verify_fused_gather shard": ("verify",
+                                  "verify_fused_gather_kernelILi3ELb1E"),
+    "rescue_scan shard": ("verify", "rescue_scan_kernelILi3ELb0ELi0ELb1E"),
+    "rescue_scan pass 1 shard": ("verify",
+                                 "rescue_scan_kernelILi3ELb0ELi1ELb1E"),
+    "rescue_scan pass 2 shard": ("verify",
+                                 "rescue_scan_kernelILi3ELb0ELi2ELb1E"),
+    "fm_search shard": ("fm", "fm_search_kernelILb1E"),
+    "fm_extend shard": ("fm", "fm_extend_kernelILb1E"),
+    "fm_locate shard": ("fm", "fm_locate_kernelILb1E"),
 }
 SASS_OPS: dict = {}     # kernel -> {"loop": n, "once": n}, set by build_native
 FM_THREADS_PER_ROW = 2  # csrc/fm.cu kTpr
@@ -299,6 +329,10 @@ KERNEL_SOURCES = {
     "fm_locate": ("bitmapperbs_tpu_torch/csrc/fm.cu",
                   "scripts/pallas_gather_proto.py:28"),
 }
+# the entries that launch on no main path, phase 3 only: there they stand
+# for TPU kernels 1 and 3 against their plain versions (the sharded index,
+# the last path that took them, runs the gathering entries)
+PHASE_3_ONLY = ("verify_fused", "myers_scan")
 # every TPU kernel (each function of the reference that reaches
 # pl.pallas_call) and the port's entry points that stand for it: at least
 # one entry of each must launch on a main path
@@ -476,7 +510,8 @@ def build_native() -> None:
                                    timeout=300).stdout
         with open(so + ".sass", "w") as f:
             f.write(sass[lib])
-    for name, (lib, function) in {**SASS_KERNELS, **SASS_PASSES}.items():
+    for name, (lib, function) in {**SASS_KERNELS, **SASS_PASSES,
+                                  **SASS_SHARD}.items():
         SASS_OPS[name] = sass_int32_ops(sass[lib], function)
         log(f"sass: {name} ({function}): {SASS_OPS[name]['loop']} INT32-pipe "
             f"instructions in its innermost loop, {SASS_OPS[name]['once']} "
@@ -868,9 +903,9 @@ def two_pass_record(args, want, r_ok, span, m: int, R: int) -> dict:
     call = lambda: kernels.rescue_scan(*args)        # noqa: E731
     return {"ms": median_ms(call, reps=5),
             "pass1_device_ms": device_ms(call, "rescue_scan_kernel<3, false, "
-                                               "1>", reps=3),
+                                               "1, ", reps=3),
             "pass2_device_ms": device_ms(call, "rescue_scan_kernel<3, false, "
-                                               "2>", reps=3),
+                                               "2, ", reps=3),
             **bound(nbytes, n * c0["once"] + needed * c0["loop"]),
             "pass1_bound_ms": bound(nbytes, n * c1["once"]
                                     + needed * c1["loop"])["bound_ms"],
@@ -1358,14 +1393,16 @@ def trace_kernels(trace_dir: str) -> dict:
 
 
 def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
-                   pe: dict) -> tuple[dict, dict]:
+                   pe: dict) -> tuple[dict, dict, dict]:
     """Phase 11b on the 10 Mbp index: --resume after a SIGKILL (SE SAM, PE
     BAM with -t 2; the resumed PE run, one batch, with --profile), two hosts
     on the one card (--dist-hosts 2, gloo on 127.0.0.1, bytes then records),
     then PE at insert 0-100,000, which takes the rescue kernel's two passes
     (a batch on this genome, phase 8b's pairs in a tandem repeat).  Returns
-    the launch counts of the last two, and the two passes' times on the
-    batch's own rescue_scan arguments (two_pass_record)."""
+    the launch counts of the last two, the two passes' times on the
+    batch's own rescue_scan arguments (two_pass_record), and the wide-insert
+    batch's configuration, records, wall and peak device memory, which
+    phase 11c maps again on the sharded mesh."""
     import ast
     import socket
 
@@ -1491,11 +1528,14 @@ def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
     assert kernels.rescue_scan_chunks(BUCKET, E, R) == (32, True)
     lo = (N_PE_MAIN_BATCHES - 1) * PE_PAIRS
     pairs, quals, qnames = (pe[k][lo:] for k in ("pairs", "quals", "qnames"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_launches()
     recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
     launches = dict(kernels.LAUNCHES)
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     assert launches["rescue_scan"] >= 2 and launches["rescue_scan"] % 2 == 0, \
         launches
     lines = [r.line() for r in recs]
@@ -1571,16 +1611,19 @@ def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
         f"rescue decided {decided} of {len(rep)} pairs in the two passes, SAM"
         f" equal to the oracle")
     log(f"phase 11b: {time.perf_counter() - t_phase:.2f} s")
-    return launches, batch_tp
+    wide = {"cfg": cfg, "start": lo, "lines": lines, "peak_bytes": peak,
+            "wall_s": wall}
+    return launches, batch_tp, wide
 
 
 def phase_shard_gather_kernel(sdix) -> dict:
     """gather_rows_shard vs its plain version on each shard of a 2-shard
     index of the 10 Mbp genome (phase 11c's), at the lanes that phase 11c's
-    data slices of BATCH // 2 reads hand it: checkpoint rows W = 17 at a
-    lockstep search step's 2 x reads x frames x seeds lanes (the record's
-    headline), SA samples W = 1 at the flat buffer's lanes (ragged) and
-    genome planes W = 3 at [flat lanes, 5]: the tables a sharded index
+    data slices of BATCH // 2 reads hand it: genome planes W = 3 at [flat
+    lanes, 5] (the window gather of the dense re-run, the record's
+    headline), checkpoint rows W = 17 at a search step's 2 x reads x frames
+    x seeds lanes and SA samples W = 1 at the flat buffer's lanes (ragged),
+    which the FM kernels now fetch themselves: the tables a sharded index
     splits (the k-mer table stays whole).  Lanes sit on both sides of every
     shard boundary, in the per-block padding rows, below 0 and past the
     end; the shards' partial rows, summed, are the whole table's rows."""
@@ -1594,17 +1637,18 @@ def phase_shard_gather_kernel(sdix) -> dict:
     gen.manual_seed(9)
     reads = BATCH // 2
     flat = reads * 10
-    headline = "cp_rows W=17, search step lanes"
+    headline = "g_planes W=3"
     cases = (          # name, shards, lane shape, global padding rows
-        (headline, sdix.cp_rows, (2 * reads * 2 * 5,),
+        ("cp_rows W=17, search step lanes", sdix.cp_rows,
+         (2 * reads * 2 * 5,),
          (sdix.rows_max - 1, 2 * sdix.rows_max - 1)),
         ("sa_samples W=1, ragged", Shards(tuple(
             p[:, None] for p in sdix.sa_samples.parts)), (flat - 3,),
          (sdix.samples_max - 1, 2 * sdix.samples_max - 1)),
-        ("g_planes W=3", sdix.g_planes, (flat, 5),
+        (headline, sdix.g_planes, (flat, 5),
          (2 * sdix.g_words - 1 + len(sdix.g_planes.parts) - 1,)),
     )
-    out = None
+    shapes = {}
     for name, shards, shape, pad_rows in cases:
         rows, W = shards.parts[0].shape
         total = rows * len(shards.parts)
@@ -1653,24 +1697,201 @@ def phase_shard_gather_kernel(sdix) -> dict:
             f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
             f"{b['bound_by']}; no single PyTorch call zeroes the rows of "
             f"other shards")
-        rec = {"lanes": L, "lanes_on_shard": n_in, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": None, **b,
-               "device_ms": inside_ms}
-        if name == headline:
-            out = {"max_abs_err": 0, **rec, "shapes": {}}
-        out["shapes"][name] = rec
+        shapes[name] = {"lanes": L, "lanes_on_shard": n_in, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": None, **b,
+                         "device_ms": inside_ms}
+    return {"max_abs_err": 0, **shapes[headline], "shapes": shapes}
+
+
+def shard_edges(name: str, args: tuple) -> tuple:
+    """plant_fm_edges' lanes with rows past the table planted as well: a
+    search slice whose table interval and an extension whose interval end
+    lie past every shard, where the SHARD fetch reads a zero row."""
+    args = list(args)
+    if name == "fm_search" and args[5] is not None:
+        sp0, ep0 = args[5].clone(), args[6].clone()
+        sp0.view(-1)[13::113] = 0xFFFF0000
+        ep0.view(-1)[13::113] = 0xFFFFFF00
+        args[5:7] = sp0, ep0
+    elif name == "fm_extend":
+        ep = args[5].clone()
+        ep.view(-1)[11::109] = 0xFFFFFF00
+        args[5] = ep
+    return tuple(args)
+
+
+def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
+    """Phase 3 addition: the SHARD instances of the fused kernels (a sharded
+    index: each row read from the shard that holds it) vs their plain
+    versions, torch.equal, on a 2-shard and a 3-shard upload of the 10 Mbp
+    index on [cuda:0] x 2 / x 3, and vs the whole-table instance on the same
+    lanes: fm_search / fm_extend / fm_locate on the arguments a sharded data
+    slice of `batch` hands them (its reads, on the sharded index) with edge
+    lanes planted (plant_fm_edges, and rows past the table);
+    verify_fused_gather at m 96 (the headline lanes) and m 288;
+    rescue_scan in one pass (insert 0-500) and in two (100,001 offsets).
+    Each timed inside the kernel beside the whole-table instance on the same
+    lanes and its bound (the SHARD instance's own instruction counts).
+    Returns {kernel: {"2 shards": record, "3 shards": record}}."""
+    import numpy as np
+    import torch
+
+    from bitmapperbs_tpu_torch.index.device import Shards, \
+        upload_index_sharded
+    from bitmapperbs_tpu_torch.ops import kernels, verify
+
+    dev = dix.device
+    out: dict = {}
+
+    def record(name, ns, kern, whole, plain, b, extra="", plain_ms=None):
+        ms = median_ms(kern)
+        inside = device_ms(kern, name)
+        whole_inside = device_ms(whole, name)
+        if plain_ms is None:
+            plain_ms = median_ms(plain, reps=PLAIN_FM_REPS)
+        log(f"kernel {name} on {ns} shards{extra}: equal to plain and to the "
+            f"whole-table instance; median {ms:.4f} ms ({fmt_ms(inside)} "
+            f"inside the kernel; the whole-table instance "
+            f"{fmt_ms(whole_inside)} on the same lanes) vs plain "
+            f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}")
+        return {"ms": ms, "device_ms": inside,
+                "whole_device_ms": whole_inside, "plain_ms": plain_ms, **b}
+
+    def check(got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: {int((g != w).sum())} of "
+                                     f"{g.numel()} lanes differ")
+
+    refs = {"fm_search": kernels.fm_search_ref,
+            "fm_extend": kernels.fm_extend_ref,
+            "fm_locate": kernels.fm_locate_ref}
+    lane_bytes = {"fm_search": 5 * 8 + 2 * 8, "fm_extend": 4 * 8 + 3 * 8,
+                  "fm_locate": 2 * 8 + 1 + 4 + 8}
+    for ns in (2, 3):
+        sdix = upload_index_sharded(idx, [dev] * ns)
+        key = f"{ns} shards"
+        # ---- the FM step kernels on a sharded data slice's own arguments
+        calls = capture_fm_calls(sdix, cfg, batch)
+        for name in FM_KERNELS:
+            kern, args = getattr(kernels, name), calls[name]
+            planted = shard_edges(name, plant_fm_edges(sdix, name, args))
+            check(kern(*planted), refs[name](*planted),
+                  f"{name} on {ns} shards, edge lanes")
+            check(kern(*args), refs[name](*args), f"{name} on {ns} shards")
+            whole = (dix,) + args[1:]
+            check(kern(*args), kern(*whole),
+                  f"{name} on {ns} shards vs the whole table")
+            rows = torch.zeros(args[1].shape, dtype=torch.int32, device=dev)
+            kern(*args, rows_out=rows)
+            n_rows = int(rows.sum())
+            steps = n_rows / (1 if name == "fm_locate" else 2)
+            b = bound(n_rows * CP_ROW_BYTES + rows.numel() * lane_bytes[name]
+                      + (steps if name != "fm_locate" else 0),
+                      n_rows * FM_THREADS_PER_ROW
+                      * SASS_OPS[name + " shard"]["loop"])
+            out.setdefault(name, {})[key] = {
+                **record(name, ns, lambda: kern(*args),
+                         lambda: kern(*whole), lambda: refs[name](*args), b,
+                         f", {rows.numel()} lanes ({n_rows} rows)"),
+                "lanes": rows.numel(), "rows_fetched": n_rows}
+        # ---- the gathering verify, narrow (m 96) and wide (m 288) kernels
+        for m, n in ((BUCKET, KERNEL_LANES), (LONG_BUCKET, 10_240)):
+            ncols, Wd = m + 2 * E, m // 32
+            wide, rp, lm, _, _, lanes = kernel_inputs(
+                idx, sdix, n, seed=7, m=m, read_len=m - 6)
+            g_args = (sdix.g_planes, lanes["orient"], lanes["start"],
+                      lanes["read_tab"], lanes["row"], lanes["lens"],
+                      sdix.genome_len, sdix.g_words, m, ncols, E)
+            w_args = (dix.g_planes,) + g_args[1:]
+            got = kernels.verify_fused_gather(*g_args)
+            check(got, kernels.verify_fused_gather_ref(*g_args),
+                  f"verify_fused_gather m {m} on {ns} shards")
+            check(got, kernels.verify_fused_gather(*w_args),
+                  f"verify_fused_gather m {m} on {ns} shards vs whole")
+            ham = verify.hamming(verify.shift_planes(wide, E, Wd), rp, lm)
+            n_myers = int((ham > E).sum())
+            Ww = Wd + 1
+            b = bound(n * (12 * (Ww + 1) + 4 * 8 + 8 * 3 * Wd + 4),
+                      verify_ops("verify_fused_gather shard", n, n_myers,
+                                 ncols, Wd))
+            out.setdefault("verify_fused_gather", {})[f"{key}, m {m}"] = {
+                **record("verify_fused_gather", ns,
+                         lambda: kernels.verify_fused_gather(*g_args),
+                         lambda: kernels.verify_fused_gather(*w_args),
+                         lambda: kernels.verify_fused_gather_ref(*g_args), b,
+                         f", m {m}, {n} lanes ({n_myers} run Myers)"),
+                "lanes": n, "m": m}
+        # ---- mate rescue: one pass at insert 0-500, two at 100,001 offsets
+        for R, n in ((MAX_INSERT - MIN_INSERT + 1, PE_PAIRS),
+                     (WIDE_PE_MAX_INSERT + 1, 64)):
+            chunks, two_pass = kernels.rescue_scan_chunks(BUCKET, E, R)
+            assert two_pass == (R > 58_107)
+            args, r_ok, span = rescue_inputs(idx, sdix, n, BUCKET, R)
+            w_args = (dix.g_planes,) + args[1:]
+            got = kernels.rescue_scan(*args)
+            plain_ms = None
+            if two_pass:
+                # on copies on the host's CPU, as phase 3 runs this plain
+                # version (a loop of ~30 small ops per column)
+                t0 = time.perf_counter()
+                cpu = Shards(tuple(p.cpu() for p in args[0].parts))
+                with torch.inference_mode():
+                    want = tuple(t.to(dev) for t in kernels.rescue_scan_ref(
+                        cpu, *(a.cpu() if isinstance(a, torch.Tensor) else a
+                               for a in args[1:])))
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            else:
+                want = kernels.rescue_scan_ref(*args)
+            check(got, want, f"rescue_scan at {R} offsets on {ns} shards")
+            check(got, kernels.rescue_scan(*w_args),
+                  f"rescue_scan at {R} offsets on {ns} shards vs whole")
+            Ww = -(-(R + BUCKET + 2 * E) // 32)
+            nbytes = n * (41 + 40 * (BUCKET // 32) + 12 * (Ww + 1) + 16)
+            needed = rescue_columns_run(r_ok, span, BUCKET, E, R, 1)
+            if two_pass:
+                hit = np.asarray(want[0].cpu()) <= E
+                c1, c2 = (SASS_OPS[f"rescue_scan pass {k} shard"]
+                          for k in (1, 2))
+                ops = n * (c1["once"] + c2["once"]) + needed * c1["loop"] \
+                    + rescue_columns_run(r_ok & hit, span, BUCKET, E, R,
+                                         1) * c2["loop"]
+            else:
+                c = SASS_OPS["rescue_scan shard"]
+                ops = n * c["once"] + needed * c["loop"]
+            b = bound(nbytes, ops)
+            out.setdefault("rescue_scan", {})[
+                f"{key}, {R} offsets" + (", two passes" if two_pass
+                                         else "")] = {
+                **record("rescue_scan", ns,
+                         lambda: kernels.rescue_scan(*args),
+                         lambda: kernels.rescue_scan(*w_args),
+                         lambda: kernels.rescue_scan_ref(*args), b,
+                         f", {n} pairs at {R} offsets ({chunks} threads per "
+                         f"pair{', two passes' if two_pass else ''}; "
+                         f"{needed} columns needed)", plain_ms),
+                "pairs": n, "insert_range": R, "two_pass": two_pass}
+        del sdix
     return out
 
 
-def run_mesh(idx, dix, card: str, se: dict, pe: dict) -> dict:
+def run_mesh(idx, dix, card: str, se: dict, pe: dict, wide: dict):
     """Phase 11c on the 10 Mbp index: the multi-card paths with one card
-    standing for the mesh (a device may appear more than once).  Data
+    standing for the mesh (a device may appear more than once).  First the
+    sharded-index kernels against their plain versions (phase 3 additions:
+    gather_rows_shard, and the SHARD instances of the fused kernels).  Data
     parallel on [cuda:0] x 2 (the index replicated): phase 4's reads and
     phase 8's pairs.  Sharded index on [cuda:0] x 4 with --shard-index 2
     (2 data slices, the index split over 2 shards each): phase 4's 4th
-    batch and phase 8's 4th batch, and phase 8b's tandem-repeat pairs for
-    rescue deciding.  Returns gather_rows_shard's record and the launch
-    counts of the four main paths, each counted from 0 over its own run."""
+    batch and phase 8's 4th batch, phase 8b's tandem-repeat pairs for
+    rescue deciding, and phase 11b's wide-insert batch (`wide`, insert
+    0-100,000: rescue in two passes).  Returns gather_rows_shard's record,
+    the launch counts of the five main paths, each counted from 0 over its
+    own run, and the SHARD instances' records (phase_shard_kernels)."""
     import torch
 
     from bitmapperbs_tpu_torch.index.build import build_index
@@ -1696,10 +1917,20 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict) -> dict:
                             pe["pairs"][lo:], pe["quals"][lo:],
                             pe["qnames"][lo:], mappers=mappers)
 
-    # ---- phase 3 addition: the row-range gather on a 2-shard index --------
+    # ---- phase 3 additions: the row-range gather on a 2-shard index, the
+    # fused kernels' SHARD instances on 2- and 3-shard ones, the FM kernels
+    # on a data slice of phase 4's last batch
     sdix = upload_index_sharded(idx, [dev] * 2)
     kstat = phase_shard_gather_kernel(sdix)
     del sdix
+    half = BATCH // 2
+    a, ln = prepare_batch(se["reads"][lo:lo + half], BUCKET, half)
+    # seed extension on (as the Gbp configuration sets it), so that the
+    # slice launches fm_extend as well
+    shard_stats = phase_shard_kernels(
+        idx, dix, cfg.replace(batch_size=half, seed_ext_max=20),
+        (torch.from_numpy(a).to(dev), torch.from_numpy(ln).to(dev),
+         int(ln.min())))
 
     dp = {"se": make_cli_mappers(idx, cfg, [dev] * 2)}
     dp["pe"] = make_cli_mappers(idx, pe_cfg, reuse=dp["se"])
@@ -1718,7 +1949,13 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict) -> dict:
         f"{sd.klt.numel() * 4 / 1e6:.3f} MB; one upload for both data "
         f"slices: {sd.cp_rows.parts[0] is sh['se'].dix[1].cp_rows.parts[0]}")
 
-    # ---- the four main paths, each checked against its phase's records ----
+    def wide_run(mappers, lo):
+        return map_batch_pe(idx, None if mappers else dix, wide["cfg"],
+                            pe["pairs"][lo:], pe["quals"][lo:],
+                            pe["qnames"][lo:], mappers=mappers)
+
+    # ---- the five main paths, each checked against its phase's records ----
+    sh["wide"] = make_cli_mappers(idx, wide["cfg"], reuse=sh["se"])
     paths = (   # key, what, mappers, run, start, records to equal
         ("se_10mbp_mesh_dp", "data parallel, phase 4's reads", dp["se"],
          se_run, 0, se["lines"]),
@@ -1731,41 +1968,55 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict) -> dict:
          f"{N_PE_RESCUE} seed-killed mates take rescue, its {N_PE_LOWCX} "
          "low-complexity pairs the dense re-run)", sh["pe"], pe_run, plo,
          pe["lines"][2 * plo:]),
+        ("pe_10mbp_sharded_insert_100k", "sharded index, phase 11b's "
+         f"wide-insert batch (insert {wide['cfg'].min_insert}-"
+         f"{wide['cfg'].max_insert}: rescue in two passes)", sh["wide"],
+         wide_run, wide["start"], wide["lines"]),
     )
     launches, walls = {}, {}
     for key, what, mappers, run, start, want in paths:
         reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         got = [r.line() for r in run(mappers, start)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         launches[key] = dict(kernels.LAUNCHES)
         assert got == want, f"mesh {key}: records differ from the " \
             f"single-card run's"
+        extra = ""
+        if key == "pe_10mbp_sharded_insert_100k":
+            extra = (f"; peak device memory {peak / 1e9:.3f} GB (one card "
+                     f"in phase 11b: {wide['peak_bytes'] / 1e9:.3f} GB, "
+                     f"{wide['wall_s']:.2f} s)")
         log(f"mesh, {what}, {mappers.mesh.shape} on [cuda:0] x "
             f"{sum(map(len, mappers.mesh.devices))}: {len(got)} records "
             f"in {wall:.2f} s synced (first call; {card}), equal to the "
-            f"single-card run's; launches {launches[key]}")
+            f"single-card run's; launches {launches[key]}{extra}")
 
-    # ---- per-batch walls: one card's pipeline beside the mesh's -----------
-    for kind, run, start, n, unit in (("SE", se_run, lo, BATCH, "reads"),
-                                      ("PE", pe_run, plo, PE_PAIRS, "pairs")):
-        for name, mappers in (("one card", None), ("data parallel x 2", dp),
-                              ("sharded 2 x 2", sh)):
-            m = mappers[kind.lower()] if mappers else None
-            ts = []
-            for _ in range(E2E_REPS):
+    # ---- per-batch walls: one card's pipeline beside the mesh's, in turns
+    # (the host's dispatch and finalize move these walls by up to 2x from
+    # run to run, so the three meshes take turns within each round)
+    for kind, run, start in (("SE", se_run, lo), ("PE", pe_run, plo)):
+        meshes = {"one card": None, "data parallel x 2": dp[kind.lower()],
+                  "sharded 2 x 2": sh[kind.lower()]}
+        ts = {name: [] for name in meshes}
+        for _ in range(MESH_WALL_ROUNDS):
+            for name, m in meshes.items():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 run(m, start)
                 torch.cuda.synchronize()
-                ts.append(time.perf_counter() - t0)
-            walls[f"{kind} {name}"] = statistics.median(ts)
+                ts[name].append(time.perf_counter() - t0)
+        for name, t in ts.items():
+            walls[f"{kind} {name}"] = (statistics.median(t), min(t), max(t))
     log("mesh, per-batch wall of the last batch (" + f"{BATCH} reads / "
         f"{PE_PAIRS} pairs, map_batch / map_batch_pe end to end, synced, "
-        f"median of {E2E_REPS}; {card}): " + "; ".join(
-            f"{k} {v * 1e3:.1f} ms" for k, v in walls.items()))
+        f"median and range of {MESH_WALL_ROUNDS} rounds in turns; {card}): "
+        + "; ".join(f"{k} {v[0] * 1e3:.1f} ms ({v[1] * 1e3:.1f}-"
+                    f"{v[2] * 1e3:.1f})" for k, v in walls.items()))
 
     # ---- rescue deciding on the sharded index: tandem-repeat pairs ---------
     rep_idx = build_index(tandem_genome_fasta(31))
@@ -1784,20 +2035,26 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict) -> dict:
     log(f"mesh, sharded index: {len(rep)} tandem-repeat pairs, SAM equal "
         f"to the oracle, rescue decided {decided} of {len(rep)}")
 
-    # ---- what the paths launch ---------------------------------------------
-    whole_table = ("fm_search", "fm_extend", "fm_locate",
-                   "verify_fused_gather", "rescue_scan")
+    # ---- what the paths launch: on a sharded index what one card launches
+    # (the FM step kernels, the gathering verify, mate rescue), and the
+    # row-range gather only for the dense re-run's windows (with myers)
     for key in ("se_10mbp_mesh_dp", "pe_10mbp_mesh_dp"):
         assert launches[key]["gather_rows_shard"] == 0, launches[key]
-    for key, want in (("se_10mbp_sharded", ("verify_fused", "myers")),
-                      ("pe_10mbp_sharded", ("verify_fused", "myers",
-                                            "myers_scan"))):
-        for k in ("gather_rows_shard",) + want:
+    fused = ("fm_search", "fm_locate", "verify_fused_gather")
+    for key, want in (("se_10mbp_sharded", fused + ("gather_rows_shard",
+                                                    "myers")),
+                      ("pe_10mbp_sharded", fused + ("rescue_scan",
+                                                    "gather_rows_shard",
+                                                    "myers")),
+                      ("pe_10mbp_sharded_insert_100k",
+                       fused + ("rescue_scan",))):
+        for k in want:
             assert launches[key][k] > 0, f"{key}: {k} never launched"
-        for k in whole_table:
+        for k in ("verify_fused", "myers_scan"):
             assert launches[key][k] == 0, f"{key}: {k} launched"
+    assert launches["pe_10mbp_sharded_insert_100k"]["rescue_scan"] % 2 == 0
     log(f"phase 11c: {time.perf_counter() - t_phase:.2f} s")
-    return kstat, launches
+    return kstat, launches, shard_stats
 
 
 def phase_gather_kernel(dix, flat_lanes: int) -> dict:
@@ -2700,10 +2957,10 @@ def run(card: str) -> dict:
         save_index(idx, prefix)            # for the CLI phases 6, 10, 11b
         se_launches, se_gdrop, se_cli = run_se(idx, dix, card, prefix, d)
         pe_launches, pe_gdrop, pe_cli = run_pe(idx, dix, card, prefix, d)
-        wide_launches, kstats["rescue_scan"]["two_pass_pe_batch"] = \
+        wide_launches, kstats["rescue_scan"]["two_pass_pe_batch"], wide = \
             run_cli_extras(idx, dix, prefix, d, se_cli, pe_cli)
-    kstats["gather_rows_shard"], mesh_paths = run_mesh(idx, dix, card, se_cli,
-                                                       pe_cli)
+    kstats["gather_rows_shard"], mesh_paths, shard_stats = run_mesh(
+        idx, dix, card, se_cli, pe_cli, wide)
 
     del idx, dix
     torch.cuda.empty_cache()
@@ -2732,9 +2989,13 @@ def run(card: str) -> dict:
         assert any(launches[name] > 0 for name in names), \
             f"no entry of {tpu_kernel} ({names}) launched on this slice's " \
             f"main paths"
-    for name in KERNEL_SOURCES:
-        assert launches[name] > 0, \
-            f"{name} never launched on the slices' main paths"
+    idle = {name for name in KERNEL_SOURCES if launches[name] == 0}
+    assert idle == set(PHASE_3_ONLY), \
+        f"entries that no main path launched: {sorted(idle)}; phase 3 " \
+        f"only: {PHASE_3_ONLY}"
+    # the SHARD instances' records beside each kernel's own
+    for name, rec in shard_stats.items():
+        kstats[name]["shard"] = rec
     return {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],

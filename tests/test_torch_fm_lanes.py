@@ -6,17 +6,28 @@ flow is written out here lane by lane in plain Python (own loop, early exit,
 u32 arithmetic with & 0xFFFFFFFF, the table clamps, the split of a checkpoint
 row over two cooperating threads) and held exactly equal to the
 lockstep plain versions the wrappers run on CPU tensors and to the JAX
-functions, on lanes that include the edge cases named in each test."""
+functions, on lanes that include the edge cases named in each test.  The
+kernels' SHARD instances (a sharded index: the row fetch picks the shard that
+holds the row, a zero row past the table) are modelled the same way and held
+to the plain versions on a sharded index of 2 and 3 CPU devices and to the
+JAX package's sharded functions under shard_map."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax import shard_map  # noqa: E402
+from jax.sharding import Mesh as JMesh  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from bitmapperbs_tpu.index.build import build_index  # noqa: E402
 from bitmapperbs_tpu.index.device import upload_index  # noqa: E402
 from bitmapperbs_tpu.ops import fm as jfm  # noqa: E402
+from bitmapperbs_tpu.parallel.shard import _dix_specs  # noqa: E402
+from bitmapperbs_tpu.parallel.shard import \
+    upload_index_sharded as jupload_sharded  # noqa: E402
 from bitmapperbs_tpu.utils import dna  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import random_genome_fasta  # noqa: E402
 from bitmapperbs_tpu_torch import constants as K  # noqa: E402
@@ -55,16 +66,50 @@ def same(got, want, msg=""):
 
 # ---- the scalar models (one lane at a time, as a thread group runs it) -----
 
+def u32_rows(t):
+    return t.numpy().view(np.uint32).astype(np.int64)
+
+
 class Tables:
-    """The index tables as the kernels see them: u32 words and int64s."""
+    """The index tables as the kernels see them: u32 words and int64s.  A
+    whole index (SHARD false): rows and SA samples clamped into their
+    tables.  A sharded one (SHARD true, csrc/shards.cuh): the part that
+    holds the row, a zero row outside every part."""
 
     def __init__(self, td):
-        self.cp = td.cp_rows.numpy().view(np.uint32).astype(np.int64)
-        self.sa = td.sa_samples.numpy().view(np.uint32).astype(np.int64)
+        self.shard = td.sharded
+        if self.shard:
+            self.cp = [u32_rows(p) for p in td.cp_rows.parts]
+            self.sa = [u32_rows(p) for p in td.sa_samples.parts]
+        else:
+            self.cp = u32_rows(td.cp_rows)
+            self.sa = u32_rows(td.sa_samples)
         self.cbase = td.cbase.numpy()
         self.n = td.n.numpy()
         self.rows_max, self.samples_max = td.rows_max, td.samples_max
         self.sa_rate = td.sa_rate
+
+    @staticmethod
+    def shard_row(parts, r):
+        """shard_row<W>: part r // rows at r % rows (one 32-bit division),
+        the zero row outside [0, n * rows)."""
+        rows = len(parts[0])
+        if not 0 <= r < rows * len(parts):
+            return np.zeros_like(parts[0][0])
+        return parts[r // rows][r % rows]
+
+    def row(self, r):
+        """The checkpoint row at flat row r (csrc/fm.cu cp_row)."""
+        if self.shard:
+            return self.shard_row(self.cp, r)
+        return self.cp[min(max(r, 0), len(self.cp) - 1)]
+
+    def sample(self, si):
+        """The SA sample at flat index si (csrc/fm.cu sa_sample)."""
+        if self.shard:
+            return int(self.shard_row(self.sa, min(si,
+                                                   2 * self.samples_max - 1)))
+        return int(self.sa[min(max(si, 0), len(self.sa) - 1)])
 
 
 def lower_mask(within, w):
@@ -73,8 +118,7 @@ def lower_mask(within, w):
 
 
 def cp_row(ix, blk, i):
-    r = i // K.CP_BLOCK + blk * ix.rows_max
-    return ix.cp[min(max(r, 0), len(ix.cp) - 1)]
+    return ix.row(i // K.CP_BLOCK + blk * ix.rows_max)
 
 
 def popc(x):
@@ -160,8 +204,7 @@ def locate_model(ix, blk, i, valid):
         nxt = (int(ix.cbase[blk, c]) + occ_model(ix, blk, c, cur)) & U32
         cur = min(nxt, last)
         steps += 1
-    si = min(max(blk * ix.samples_max + rank, 0), len(ix.sa) - 1)
-    return (int(ix.sa[si]) + steps) & U32, steps, found
+    return (ix.sample(blk * ix.samples_max + rank) + steps) & U32, steps, found
 
 
 # ---- lanes --------------------------------------------------------------------
@@ -370,3 +413,166 @@ def test_fm_wrappers_count_no_launch_and_raise(setup, seeds, which):
                 kernels.fm_extend(d, blk, pat.to(torch.int64), st, st, en, 4,
                                   2)
     assert kernels.LAUNCHES == before
+
+
+# ---- the SHARD instances: a sharded index ----------------------------------
+
+@pytest.fixture(scope="module")
+def sharded(setup):
+    """The index split over 2 and 3 devices: the port's on CPU devices, the
+    JAX package's on a 1-D 'idx' mesh, with a runner of JAX functions under
+    shard_map (lanes replicated, the partial rows psummed)."""
+    idx = setup[0]
+    out = {}
+    for ns in (2, 3):
+        td = tdev.upload_index_sharded(idx, [torch.device("cpu")] * ns)
+        mesh = JMesh(np.array(jax.devices()[:ns]), ("idx",))
+        jd = jupload_sharded(idx, mesh, "idx")
+
+        def run(fn, *lanes, jd=jd, mesh=mesh):
+            f = shard_map(fn, mesh=mesh,
+                          in_specs=(_dix_specs(jd, "idx"),)
+                          + (P(),) * len(lanes),
+                          out_specs=P(), check_vma=False)
+            return jax.jit(f)(jd, *lanes)
+        out[ns] = td, run
+    return out
+
+
+@pytest.mark.parametrize("ns", [2, 3])
+def test_shard_fetch_model(setup, sharded, ns):
+    """cp_row and the SA-sample load of the SHARD instances: the row of the
+    part that holds it on both sides of every shard boundary and in the
+    per-block padding, a zero row past the table; SA indices clamped below
+    2 * samples_max first.  Equal to ops/fm's fetches on the sharded index
+    (what the plain versions read) and to the JAX package's sharded fetch;
+    the rows, put end to end, are the whole index's."""
+    _, _, whole = setup
+    td, run = sharded[ns]
+    ix = Tables(td)
+    rng = np.random.default_rng(40 + ns)
+    rows = td.cp_rows.rows
+    total = rows * ns
+    assert td.rows_max % ns == 0 and total == 2 * td.rows_max
+    pad = [whole.rows_max, td.rows_max - 1, td.rows_max + whole.rows_max,
+           total - 1]                              # per-block padding rows
+    past = [total, total + 1, total + 12_345, 1 << 30]
+    r = np.concatenate([[b + d for b in range(rows, total, rows)
+                         for d in (-1, 0)], [0], pad, past,
+                        rng.integers(0, total, 200)]).astype(np.int64)
+    model = np.stack([ix.row(int(x)) for x in r])
+    assert not model[-200 - len(past):-200].any()          # zero past it
+    same(tfm.fetch_cp_rows(td, T(r)), model, "plain vs model")
+    same(run(jfm.fetch_cp_rows, jnp.asarray(r, jnp.int32)), model,
+         "JAX sharded fetch vs model")
+    # block 1 starts at the padded stride: row r of block 1 there is row
+    # r of block 1 in the whole index
+    b1 = rng.integers(0, whole.rows_max, 50)
+    same(tfm.fetch_cp_rows(td, T(b1 + td.rows_max)),
+         tfm.fetch_cp_rows(whole, T(b1 + whole.rows_max)), "block 1")
+    srows = td.sa_samples.rows
+    si = np.concatenate([[b + d for b in range(srows, srows * ns, srows)
+                          for d in (-1, 0)],
+                         [0, whole.samples_max, td.samples_max - 1,
+                          2 * td.samples_max - 1, 2 * td.samples_max,
+                          2 * td.samples_max + 99],
+                         rng.integers(0, 2 * td.samples_max, 200)])
+    model = np.array([ix.sample(int(x)) for x in si])
+    same(tfm.fetch_sa_samples(td, T(si)), model, "plain SA vs model")
+    same(run(jfm.fetch_sa_samples, jnp.asarray(si, jnp.int32)), model,
+         "JAX sharded SA fetch vs model")
+
+
+def _planted_extend_lanes(td, seeds):
+    """extend_seeds' lanes with intervals past the table planted: the rows
+    of sp or ep lie past every shard (a zero row), in the per-block
+    padding, or both."""
+    pats, starts, ends, blocks = seeds
+    n = len(starts)
+    rng = np.random.default_rng(77)
+    sp = rng.integers(0, 3000, n)
+    ep = sp + rng.integers(1, 400, n)
+    top = 2 * td.rows_max * K.CP_BLOCK
+    sp[:8] = rng.integers(0, 3000, 8)
+    ep[:8] = U32 - rng.integers(0, 1000, 8)                # ep past it
+    sp[8:16] = top + rng.integers(0, 5000, 8)              # both past it
+    ep[8:16] = sp[8:16] + 500
+    pad = td.rows_max * K.CP_BLOCK - rng.integers(1, 64, 8)
+    sp[16:24], ep[16:24] = pad - 200, pad                  # block-0 padding
+    blocks = blocks.copy()
+    blocks[16:24] = 0
+    starts = np.maximum(starts, 6)
+    return pats, starts, blocks, sp, ep
+
+
+@pytest.mark.parametrize("ns", [2, 3])
+@pytest.mark.parametrize("which", ["search", "extend", "locate"])
+def test_shard_lane_models(setup, seeds, sharded, ns, which):
+    """fm_search / fm_extend / fm_locate on a sharded index: the scalar
+    model with the SHARD fetch equals the wrapper (on CPU tensors: the
+    lockstep loop reading the shard set through gather_table) and the JAX
+    package's function under shard_map, lane for lane, on the edge lanes of
+    the whole-index tests and, for extend, intervals whose rows lie past the
+    table, where the zero row gives another result than a clamp would."""
+    idx, _, whole = setup
+    td, run = sharded[ns]
+    ix = Tables(td)
+    pats, starts, ends, blocks = seeds
+    bj = jnp.asarray(blocks, dtype=jnp.int32)
+    if which == "search":
+        ek = _end_kmers(td, pats, ends)
+        sp0, ep0 = tfm.klt_lookup(td, T(blocks), ek)
+        model = np.array([
+            search_model(ix, int(blocks[i]), pats[i], int(starts[i]),
+                         int(ends[i]), int(sp0[i]), int(ep0[i]), td.klt_k, 26)
+            for i in range(len(starts))]).T
+        got = kernels.fm_search(td, T(blocks), torch.from_numpy(pats),
+                                T(starts), T(ends), sp0, ep0, td.klt_k, 26)
+        want = run(lambda d, *a: jfm.search_patterns(
+            d, *a, max_len=26, end_kmers=jnp.asarray(ek.numpy(), jnp.int32)),
+            bj, jnp.asarray(pats), jnp.asarray(starts, jnp.int32),
+            jnp.asarray(ends, jnp.int32))
+    elif which == "extend":
+        pats, starts, blocks, sp, ep = _planted_extend_lanes(td, seeds)
+        rows = [extend_model(ix, int(blocks[i]), pats[i], int(starts[i]),
+                             int(sp[i]), int(ep[i]), 12, 2)
+                for i in range(len(sp))]
+        model = np.array([r[:3] for r in rows]).T
+        # the whole index clamps the rows past its table to its last row
+        clamp = Tables(whole)
+        clamped = np.array([extend_model(clamp, int(blocks[i]), pats[i],
+                                         int(starts[i]), int(sp[i]),
+                                         int(ep[i]), 12, 2)[:3]
+                            for i in range(16)]).T
+        assert clamp.row(1 << 30).any()
+        assert (clamped != model[:, :16]).any(), "a zero row is no clamp"
+        got = kernels.fm_extend(td, T(blocks), torch.from_numpy(pats),
+                                T(starts), T(sp), T(ep), 12, 2)
+        want = run(lambda d, *a: jfm.extend_seeds(d, *a, 12, 2),
+                   jnp.asarray(blocks, jnp.int32), jnp.asarray(pats),
+                   jnp.asarray(starts, jnp.int32),
+                   jnp.asarray(sp.astype(np.uint32)),
+                   jnp.asarray(ep.astype(np.uint32)))
+    else:
+        rng = np.random.default_rng(23)
+        n = 400
+        block = rng.integers(0, 2, n)
+        i = np.array([rng.integers(0, idx.blocks[b].n) for b in block])
+        i[:40] = np.array([idx.blocks[b].n for b in block[:40]]) \
+            + rng.integers(0, 5000, 40)
+        i[40:44] = U32
+        valid = rng.random(n) < 0.85
+        rows = [locate_model(ix, int(block[a]), int(i[a]), bool(valid[a]))
+                for a in range(n)]
+        assert {r[1] for r in rows if r[2]} == set(range(td.sa_rate))
+        model = np.array([[r[0] for r in rows]])
+        got = (kernels.fm_locate(td, T(block), T(i),
+                                 torch.from_numpy(valid)),)
+        want = (run(jfm.locate, jnp.asarray(block, jnp.int32),
+                    jnp.asarray(i.astype(np.uint32)), jnp.asarray(valid)),)
+        same(got[0], kernels.fm_locate(whole, T(block), T(i),
+                                       torch.from_numpy(valid)),
+             "sharded vs whole index")
+    for col in range(len(model)):
+        same(model[col], want[col], f"model vs JAX, output {col}")
+        same(got[col], want[col], f"wrapper vs JAX, output {col}")

@@ -15,6 +15,10 @@ so three things are held here on the CPU, all with exact equality:
    columns before a column gives that column the full scan's score wherever
    either is <= e.
 
+On a sharded index the kernel's SHARD instance reads each plane row from the
+shard that holds it (WindowModel on a list of parts); 2 and 3 shards are held
+to the plain version on the shard set and to the whole table's result.
+
 The window and Myers-column models are shared with
 tests/test_torch_verify_gather.py (the gathering verify for reads over
 256 bp runs the same device code)."""
@@ -33,7 +37,7 @@ from bitmapperbs_tpu.models.host import map_batch_pe_tpu  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import simulate_pairs  # noqa: E402
 from bitmapperbs_tpu_torch import constants as K  # noqa: E402
 from bitmapperbs_tpu_torch.index.device import (  # noqa: E402
-    _device_layout_planes, upload_index)
+    Shards, _device_layout_planes, upload_index)
 from bitmapperbs_tpu_torch.models import paired as tpaired  # noqa: E402
 from bitmapperbs_tpu_torch.models.host import (map_batch_pe as tmap_pe,  # noqa: E402
                                                prepare_batch)
@@ -55,10 +59,21 @@ def mask_lt(nb: int) -> int:
     return U32 if nb >= 32 else (1 << nb) - 1
 
 
+def split_planes(gp, ns: int):
+    """Genome planes uint32 [rows, 3] split as upload_index_sharded splits
+    them (zero rows at the end to a multiple of ns): the parts as numpy (for
+    the models) and as a Shards of int32 tensors (for the wrappers)."""
+    gp = np.concatenate([gp, np.zeros((-len(gp) % ns, 3), gp.dtype)])
+    parts = np.split(gp, ns)
+    return parts, Shards(tuple(torch.from_numpy(p.view(np.int32).copy())
+                               for p in parts))
+
+
 class WindowModel:
     """csrc/verify.cu WindowReader: word k of the window at u32 `start`,
     fetched from the plane rows when asked for, the upper raw row kept as the
-    next word's lower one."""
+    next word's lower one.  gp: the whole planes, or a list of their parts
+    (the SHARD instance)."""
 
     def __init__(self, gp, orient, start, gwords, genome_len, k0=0):
         self.gp, self.gwords, self.genome_len = gp, gwords, genome_len
@@ -69,7 +84,15 @@ class WindowModel:
         self.raw = self.row(self.wi + k0)
 
     def row(self, r):
+        """plane_row: r clamped into the orientation's block, then clamped
+        into a whole table, or a zero row outside every part of a shard
+        set."""
         r = self.base + (self.gwords - 1 if r >= self.gwords else r)
+        if isinstance(self.gp, list):
+            rows = len(self.gp[0])
+            if not 0 <= r < rows * len(self.gp):
+                return [0, 0, 0]
+            return [int(x) for x in self.gp[r // rows][r % rows]]
         r = min(max(r, 0), 2 * self.gwords - 1)
         return [int(x) for x in self.gp[r]]
 
@@ -266,10 +289,12 @@ def rescue_lanes(rng, n, m, e, R, genome):
             "reads": reads, "planted": planted}
 
 
-def check_model(m, e, R, runs, n, seed):
+def check_model(m, e, R, runs, n, seed, ns=0):
     """rescue_lanes' n pairs through the wrapper on the CPU (its plain
     version) and through the scalar model with each (threads per pair, two
-    passes) of `runs`; returns the lanes and the plain outputs."""
+    passes) of `runs`; returns the lanes and the plain outputs.  ns > 0:
+    the genome planes split over ns shards (the SHARD instance), the
+    outputs also equal to the whole table's."""
     rng = np.random.default_rng(seed)
     genome = toy_genome(rng, tail=R if R > 500 else 0)
     L = genome.length
@@ -277,13 +302,20 @@ def check_model(m, e, R, runs, n, seed):
     gwords = gp.shape[0] // 2
     ln = rescue_lanes(rng, n, m, e, R, genome)
     peq, pad = tv.build_peq(torch.from_numpy(ln["reads"]), T(ln["lens"]), m)
+    lanes = (T(ln["blk"]), T(ln["win_start"]), torch.from_numpy(ln["r_ok"]),
+             T(ln["a_lo"]), T(ln["span"]), T(ln["lens"]), peq, pad, L,
+             gwords, m, e, R)
+    table = torch.from_numpy(gp.view(np.int32))
+    if ns:
+        whole = kernels.rescue_scan(table, *lanes)
+        gp, table = split_planes(gp, ns)
     before = dict(kernels.LAUNCHES)
-    rs, rp, r2 = kernels.rescue_scan(
-        torch.from_numpy(gp.view(np.int32)), T(ln["blk"]), T(ln["win_start"]),
-        torch.from_numpy(ln["r_ok"]), T(ln["a_lo"]), T(ln["span"]),
-        T(ln["lens"]), peq, pad, L, gwords, m, e, R)
+    rs, rp, r2 = kernels.rescue_scan(table, *lanes)
     assert kernels.LAUNCHES == before                  # plain version ran
     assert rs.dtype == r2.dtype == torch.int32 and rp.dtype == torch.int64
+    if ns:
+        for got, want in zip((rs, rp, r2), whole):
+            assert torch.equal(got, want), "shard set vs whole table"
     rs, rp, r2 = rs.numpy(), rp.numpy(), r2.numpy()
     peq_n, pad_n = peq.numpy(), pad.numpy()
     for C, two_pass in runs:
@@ -332,6 +364,19 @@ def test_kernel_model_matches_plain(m, e, R, chunks, n):
     assert (rs < INF).sum() > n // 2 and (r2 < INF).any()
     # somewhere a hit has only neighbours within e: no second
     assert ((rs <= e) & (r2 == INF)).any()
+
+
+@pytest.mark.parametrize("ns", [2, 3])
+def test_shard_model_matches_plain(ns):
+    """The SHARD instance on genome planes split over 2 and 3 shards: the
+    scalar model, one pass (8 threads per pair) and two passes (32), equals
+    the plain version on the shard set, which equals the whole table's,
+    on every planted lane (wrapped window starts, windows past the genome
+    end, both blocks)."""
+    ln, rs, _, r2 = check_model(32, 3, 61, [(8, False), (32, True)], 72,
+                                seed=300 + ns, ns=ns)
+    assert (rs <= 3).sum() > 36 and (r2 <= 3).any()
+    assert (ln["win_start"] >= 0xFFFFF000).any()
 
 
 @pytest.mark.parametrize("m,e,R,chunks,n", [

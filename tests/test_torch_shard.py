@@ -4,7 +4,12 @@ parallel/shard.py, index/device.upload_index_sharded): on a mesh of CPU
 the JAX package's single-device tuples (the reference's own mesh tests,
 tests/test_sharding.py, hold its shard_map path to the same); the sharded
 tables are the reference's global sharded arrays byte for byte; the row-range
-gather and the sharded fetches equal their replicated counterparts."""
+gather and the sharded fetches equal their replicated counterparts; the fused
+kernels' wrappers take a sharded index (and refuse one they cannot take), the
+mapping paths call them on it, and placing it needs peer access."""
+import dataclasses
+import types
+
 import numpy as np
 import pytest
 
@@ -291,24 +296,128 @@ def test_sharded_fetches_match_replicated(setup):
 
 
 def test_kernels_refuse_a_sharded_table(setup):
-    """A fused kernel never takes a shard set for a whole table: the
-    wrappers raise before they look at a device."""
+    """gather_rows reads a whole table and refuses a shard set.  The fused
+    wrappers take one: on CPU tensors their plain versions read it and
+    equal the whole index's results; a set of more than MAX_SHARDS parts,
+    or of parts of unequal shapes, is refused before any device is looked
+    at."""
     idx = setup[0]
-    d = upload_index_sharded(idx, mesh_devices(2))
-    lanes = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(ValueError, match="shards"):
-        kernels.fm_locate(d, lanes, lanes, lanes > 0)
-    with pytest.raises(ValueError, match="shards"):
-        kernels.fm_search(d, lanes, torch.ones((4, 8), dtype=torch.uint8),
-                          lanes, lanes + 8, None, None, 0, 8)
-    with pytest.raises(ValueError, match="shards"):
-        kernels._index_args(d)
-    with pytest.raises(ValueError, match="shards"):
-        kernels.verify_fused_gather(
-            d.g_planes, lanes, lanes, torch.zeros((1, 6), dtype=torch.int64),
-            lanes, lanes, d.genome_len, d.g_words, 64, 70, 3)
+    whole = upload_index(idx)
+    d = upload_index_sharded(idx, mesh_devices(3))
+    rng = np.random.default_rng(5)
+    lanes = torch.from_numpy(rng.integers(0, int(whole.n.min()), 64))
+    blk = torch.from_numpy(rng.integers(0, 2, 64))
+    pats = torch.from_numpy(rng.integers(1, 4, (64, 16)).astype(np.uint8))
     with pytest.raises(ValueError, match="shards"):
         kernels.gather_rows(d.cp_rows, lanes)
+    calls = {
+        "fm_locate": lambda x: kernels.fm_locate(x, blk, lanes, lanes > 9),
+        "fm_search": lambda x: kernels.fm_search(
+            x, blk, pats, lanes % 4, lanes % 4 + 12, None, None, 0, 16),
+        "fm_extend": lambda x: kernels.fm_extend(
+            x, blk, pats, lanes % 16, lanes,
+            (lanes + 900).clamp(max=int(whole.n.min())), 6, 2),
+        "verify_fused_gather": lambda x: kernels.verify_fused_gather(
+            x.g_planes, blk, wrap(lanes - 3), torch.zeros((1, 6),
+                                                          dtype=torch.int64),
+            lanes * 0, lanes % 64, x.genome_len, x.g_words, 64, 70, 3),
+        "rescue_scan": lambda x: kernels.rescue_scan(
+            x.g_planes, blk, wrap(lanes - 3), lanes > 5, lanes,
+            lanes % 200, lanes * 0 + 60, torch.zeros((64, 4, 2),
+                                                     dtype=torch.int64),
+            torch.zeros((64, 2), dtype=torch.int64), x.genome_len,
+            x.g_words, 64, 3, 200),
+    }
+    for name, call in calls.items():
+        got, want = call(d), call(whole)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), name
+    nine = upload_index_sharded(idx, mesh_devices(9))
+    cut = Shards(d.g_planes.parts[:2] + (d.g_planes.parts[2][:-1],))
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="shards"):
+            call(nine)
+        bad = dataclasses.replace(d, g_planes=cut) \
+            if name in ("verify_fused_gather", "rescue_scan") \
+            else dataclasses.replace(d, cp_rows=Shards(
+                d.cp_rows.parts[:2] + (d.cp_rows.parts[2][:-1],)))
+        with pytest.raises(ValueError, match="shards"):
+            call(bad)
+
+
+def test_sharded_paths_launch_the_fused_kernels(setup, pe_setup, monkeypatch):
+    """On a sharded index the mapping paths call what one card calls:
+    map_batch_device and map_batch_pe_device (with rescue by the Myers
+    scan) reach kernels.fm_search / fm_extend / fm_locate /
+    verify_fused_gather / rescue_scan, never kernels.verify_fused or
+    kernels.myers_scan, and no lockstep loop but as the fused wrappers'
+    plain versions (one call each per wrapper call)."""
+    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+
+    names = ("fm_search", "fm_extend", "fm_locate", "verify_fused_gather",
+             "rescue_scan", "verify_fused", "myers_scan", "search_lockstep",
+             "extend_lockstep", "locate_lockstep")
+    calls = dict.fromkeys(names, 0)
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def call(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, call)
+
+    for name in names:
+        spy(fm if name.endswith("lockstep") else kernels, name)
+    idx, reads, lengths, want = setup
+    d = upload_index_sharded(idx, mesh_devices(2))
+    got = map_batch_device(d, EXT, torch.from_numpy(reads),
+                           torch.from_numpy(lengths))
+    assert_same(as_np(got), want["ext"])
+    pidx, jd, batch = pe_setup
+    cfg = pe_cfg(True)
+    got = map_batch_pe_device(upload_index_sharded(pidx, mesh_devices(2)),
+                              cfg, *(torch.from_numpy(x) for x in batch))
+    assert_same(as_np(got), as_np(jpaired.map_batch_pe_device(
+        jd, cfg, *(jnp.asarray(x) for x in batch))))
+    for name in ("fm_search", "fm_extend", "fm_locate",
+                 "verify_fused_gather", "rescue_scan"):
+        assert calls[name] > 0, (name, calls)
+    assert calls["verify_fused"] == calls["myers_scan"] == 0, calls
+    for k in ("search", "extend", "locate"):
+        assert calls[f"{k}_lockstep"] == calls[f"fm_{k}"], calls
+
+
+def test_peer_access_at_placement(setup, monkeypatch):
+    """A sharded index whose cards lack peer access is refused where it is
+    placed, with both cards named; where they have it, peer access is
+    enabled once per (lanes' card, other shard card) pair, and not for a
+    card that appears twice or for the CPU."""
+    idx = setup[0]
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: False)
+    with pytest.raises(ValueError, match="cuda:0.*cuda:1"):
+        upload_index_sharded(idx, cards)
+    with pytest.raises(ValueError, match="cuda:0.*cuda:1"):
+        upload_mesh_index(idx, Mesh.grid(cards, 1, 2))
+    d = upload_index_sharded(idx, mesh_devices(2))
+    with pytest.raises(ValueError, match="cuda:0.*cuda:1"):
+        from bitmapperbs_tpu_torch.parallel import shard
+        shard._place(d, cards)
+    enabled = []
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: True)
+    monkeypatch.setattr(kernels, "_lib", lambda: types.SimpleNamespace(
+        btbs_enable_peer_access=lambda a, b: enabled.append((a, b)) or 0))
+    kernels.enable_peer_access(cards[0], [cards[0], cards[1], cards[1],
+                                          torch.device("cuda", 2)])
+    assert enabled == [(0, 1), (0, 1), (0, 2)]
+    kernels.enable_peer_access(CPU, [CPU] * 3)
+    kernels.enable_peer_access(cards[1], [cards[1]])
+    assert len(enabled) == 3
 
 
 def test_mesh_and_batch_split():

@@ -7,13 +7,23 @@ end, come from both orientations and carry short reads.  For buckets over 256
 bp (9..32 read words) a scalar per-lane model of the CUDA kernel's control
 flow (window words fetched as the Hamming words and the Myers columns
 advance, the match table indexed by the column's symbol) is held to the plain
-version as well."""
+version as well.  On genome planes split over 2 and 3 shards (a sharded
+index) the kernels' SHARD instances are modelled the same way: the inline
+window fetch of the narrow kernel and the streamed one of the wide kernel
+read each row from the shard that holds it, equal to the plain version on
+the shard set, to the whole table's result and to the JAX package's sharded
+window gather."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax import shard_map  # noqa: E402
+from jax.sharding import Mesh as JMesh  # noqa: E402
+from jax.sharding import NamedSharding  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from bitmapperbs_tpu import constants as K  # noqa: E402
 from bitmapperbs_tpu.index.build import parse_fasta  # noqa: E402
@@ -26,7 +36,7 @@ from bitmapperbs_tpu_torch.index.device import \
 from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
 from bitmapperbs_tpu_torch.ops import verify as tv  # noqa: E402
 from test_torch_rescue_scan import (WindowModel, mask_lt,  # noqa: E402
-                                    myers_column_words)
+                                    myers_column_words, split_planes)
 
 U32 = 0xFFFFFFFF
 
@@ -249,3 +259,79 @@ def test_long_bucket_takes_the_planes_entry():
                                       np.asarray(want[k]).astype(np.int64),
                                       err_msg=k)
     assert int((got["best_score"] < (1 << 20)).sum()) > B // 2
+
+
+def inline_window(gp, gwords, L, orient, start, ww):
+    """verify_fused_gather_kernel's inline fetch: raw rows wi .. wi + ww of
+    the orientation's block through plane_row (WindowModel.row: a whole
+    table or a list of shards), then the start & 31 funnel and the
+    out-of-genome N marking, word by word.  Returns (b0, b1, nmask)."""
+    w = WindowModel(gp, orient, start, gwords, L)
+    raw = [w.row(w.wi + k) for k in range(ww + 1)]
+    sh, words = start & 31, []
+    for k in range(ww):
+        a = raw[k] if not sh else [
+            ((lo >> sh) | (hi << (32 - sh))) & U32
+            for lo, hi in zip(raw[k], raw[k + 1])]
+        ws = (start + 32 * k) & U32
+        if ws >= 0xFFFFF000:
+            oob = mask_lt(min((-ws) & U32, 32))
+        elif ws >= L:
+            oob = U32
+        else:
+            oob = ~mask_lt(min(L - ws, 32)) & U32
+        words.append((a[0] & ~oob & U32, a[1] & ~oob & U32, a[2] | oob))
+    return tuple(list(p) for p in zip(*words))
+
+
+@pytest.mark.parametrize("ns", [2, 3])
+@pytest.mark.parametrize("m,e,n", [(96, 4, 300), (288, 4, 64)])
+def test_gathering_verify_on_a_shard_set(rng, ns, m, e, n):
+    """verify_fused_gather on genome planes split over ns shards: the
+    window words of the inline fetch model (narrow kernel) and the streamed
+    one (wide kernel) read from the parts equal window_planes on the shard
+    set and the JAX package's sharded window_planes under shard_map; the
+    wrapper's result equals the whole table's and, lane by lane, the scalar
+    model on the parts.  Lanes: both orientations, starts that wrap below 0,
+    windows past the genome end, and the last window words of each block."""
+    Wd, ncols = m // 32, m + 2 * e
+    Ww = Wd + 1
+    gp, L, reads, lens_r, row, orient, start = lanes(rng, n, m, e)
+    gwords = gp.shape[0] // 2
+    start[2:4] = (32 * gwords + rng.integers(0, 64, 2)) & U32   # past it
+    parts, shards = split_planes(gp, ns)
+    mesh = JMesh(np.array(jax.devices()[:ns]), ("idx",))
+    padded = np.concatenate(parts)
+    gj = jax.device_put(jnp.asarray(padded), NamedSharding(mesh, P("idx")))
+    want_win = jax.jit(shard_map(
+        lambda g, o, s: jv.window_planes(g, o, s, Ww, L, idx_axis="idx",
+                                         g_words=gwords),
+        mesh=mesh, in_specs=(P("idx"), P(), P()), out_specs=P(),
+        check_vma=False))(gj, jnp.asarray(orient, jnp.int32),
+                          jnp.asarray(start.astype(np.uint32)))
+    plain_win = tv.window_planes(shards, T(orient), T(start), Ww, L, gwords)
+    for p in range(3):
+        same(plain_win[p], want_win[p], f"plain vs JAX sharded, plane {p}")
+    for i in range(n):
+        model = inline_window(parts, gwords, L, int(orient[i]),
+                              int(start[i]), Ww)
+        stream = WindowModel(parts, int(orient[i]), int(start[i]), gwords, L)
+        streamed = [stream.next() for _ in range(Ww)]
+        for p in range(3):
+            assert model[p] == [w[p] for w in streamed], (i, p)
+            same(plain_win[p][i], model[p], f"lane {i}, plane {p}")
+    tab = torch.stack(tv.pack_codes(torch.from_numpy(reads)), dim=1).reshape(
+        len(reads), 3 * Wd)
+    lane_args = (T(orient), T(start), tab, T(row), T(lens_r[row]), L, gwords,
+                 m, ncols, e)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.verify_fused_gather(shards, *lane_args)
+    assert kernels.LAUNCHES == before
+    assert torch.equal(got, kernels.verify_fused_gather(
+        torch.from_numpy(gp.view(np.int32)), *lane_args))
+    if Wd > 8:
+        tab_n = tab.numpy()
+        same(got, [wide_lane_model(
+            parts, gwords, L, int(orient[i]), int(start[i]),
+            [int(x) for x in tab_n[row[i]]], int(lens_r[row[i]]), m, ncols,
+            e) for i in range(n)])
