@@ -24,28 +24,38 @@ constexpr int kMaxRowWords = 17;       // the widest table row (checkpoints)
 
 struct ShardSet {
   const uint32_t* part[kMaxShards];    // part s: rows [s * rows, (s + 1) * rows)
+  // first[s]: the first row of part s, s * rows, for s < n; 0xFFFFFFFF for
+  // the unused s >= n, which no row below n * rows < 2^32 reaches
+  uint32_t first[kMaxShards];
   int64_t rows;                        // rows per part
   int n;                               // parts
 };
 
 __device__ const uint32_t kZeroRow[kMaxRowWords] = {};
 
-// Row r (W words) of a shard set; n * rows < 2^32 (checked at the entry), so
-// the shard is one 32-bit division.  The part is picked by a select over
-// the kMaxShards pointers, not by indexing part[s]: a kernel takes the set
-// as a parameter, and an index computed at run time would make the
-// compiler copy the whole parameter into each thread's local memory.
+// Row r (W words) of a shard set; n * rows < 2^32 (checked at the entry).
+// The part is the last s whose first row r reaches: a compare against each
+// part's first row, folded into the select over the kMaxShards pointers (no
+// division on the chain of dependent rows an FM step loop walks).  The
+// select is not an index into part[]: a kernel takes the set as a
+// parameter, and an index computed at run time would make the compiler
+// copy the whole parameter into each thread's local memory.
 template <int W>
 __device__ __forceinline__ const uint32_t* shard_row(const ShardSet& t,
                                                      int64_t r) {
   static_assert(W <= kMaxRowWords, "zero row too short");
   if (r < 0 || r >= t.rows * t.n) return kZeroRow;
-  const uint32_t s = uint32_t(r) / uint32_t(t.rows);
+  const uint32_t u = uint32_t(r);
   const uint32_t* p = t.part[0];
+  uint32_t lo = 0u;
 #pragma unroll
-  for (int k = 1; k < kMaxShards; ++k)
-    if (s == uint32_t(k)) p = t.part[k];
-  return p + (r - int64_t(s) * t.rows) * W;
+  for (int k = 1; k < kMaxShards; ++k) {
+    if (u >= t.first[k]) {
+      p = t.part[k];
+      lo = t.first[k];
+    }
+  }
+  return p + size_t(u - lo) * W;
 }
 
 // The host side: nparts device pointers of `rows` rows each -> ShardSet.
@@ -54,9 +64,11 @@ inline bool make_shard_set(const void* const* parts, int nparts, int64_t rows,
   if (parts == nullptr || nparts < 1 || nparts > kMaxShards || rows < 1 ||
       rows * nparts > int64_t(0xFFFFFFFFll))
     return false;
-  for (int s = 0; s < kMaxShards; ++s)
+  for (int s = 0; s < kMaxShards; ++s) {
     out->part[s] = s < nparts ? static_cast<const uint32_t*>(parts[s])
                               : nullptr;
+    out->first[s] = s < nparts ? uint32_t(s * rows) : 0xFFFFFFFFu;
+  }
   out->rows = rows;
   out->n = nparts;
   return true;

@@ -32,7 +32,8 @@
 //   plane exists and returns the three lanes the path needs; see the note
 //   above rescue_scan_kernel.
 //
-// Layout: one thread per lane; each lane's words are contiguous int32 bits
+// Layout: one thread per lane (the wide gathering kernel: a group of
+// threads per lane, see there); each lane's words are contiguous int32 bits
 // (lane-major, as the port's tensors come): win [L][3][Ww], read planes
 // [L][3][Wd], lenmask / pad [L][Wd], peq [L][4][Wd]; out int32 [L], and for
 // the scan int32 [ncols][L] (column-major).  A scan lane reads ~3 Ww + 5 Wd
@@ -67,17 +68,16 @@
 // `count` threads then run the column loop on full warps and the other
 // warps leave.  The staging area holds 7 Wd + 3 words per thread, so it
 // serves the compile-time word counts 1..8 (reads up to 256 bp).  Longer
-// buckets (9..32 read words) take verify_fused_gather_wide_kernel: there a
-// lane's state would be 7 * 32 words, so the PEQ table and the pad row
-// (5 Wd words) live in shared memory, one column of a [5][NW][threads]
-// table per thread (conflict-free: a warp's threads read neighbouring
-// words), indexed by the column's symbol; only VP and VN stay in registers,
-// in compile-time capacities NW = 12, 16, 24, 32 so the word loops unroll.
-// Window words are fetched from the genome planes as the Hamming words and
-// the Myers columns advance (WindowReader), never held whole, and the
-// compaction moves lane indices only: a compacted thread fetches its lane's
-// 12 (Wd + 2) bytes of planes and its read planes again (they are in the
-// L2) and builds the PEQ column in shared memory.
+// buckets (9..32 read words) take verify_fused_gather_wide_kernel: one
+// thread would hold 7 * 32 words of state and walk a column as a serial
+// chain of up to 32 add-with-carries, on a card that few such threads fill.
+// There a lane runs on a group of threads of a warp, each holding a few
+// words of the state; a column's carry crosses the group by two warp votes
+// and one add on their bits (carry lookahead), its hp / hn top bits by one
+// shuffle.  Window words are fetched from the genome planes as the
+// Hamming words and the Myers columns advance (WindowReader), never held
+// whole, and the compaction moves lane indices only: a compacted group
+// fetches its lane's planes and read planes again (they are in the L2).
 //
 // On a sharded index (index/device.upload_index_sharded) the genome planes
 // are split into row ranges over the cards of an index group.  The gathering
@@ -510,99 +510,158 @@ __device__ __forceinline__ void store_eq_column(
   col[(4 * nw + k) * kThreads] = pad;
 }
 
-// The gathering entry for 9..32 read words (see the note at the top): NW is
-// the register capacity of VP / VN, wd <= NW the bucket's word count.  The
-// second launch bound (one block per SM is enough) lets ptxas take the
-// registers it wants: without it it held these kernels to 56-96 registers
-// and spilled 16-24 bytes around the column loop.
-template <int NW, bool SHARD>
-__global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
+// The gathering entry for 9..32 read words (see the note at the top).  A lane
+// runs on a group of T = ceil(wd / K) consecutive threads of a warp; each
+// thread holds K read words (K compile-time; the caller picks it per bucket,
+// kernels.WIDE_WORDS) of VP and VN in registers, and of the four PEQ rows
+// and the pad row in its own column of a shared table.  The words are
+// aligned at the top: thread t holds words wd - T K + t K + j (j < K), so
+// word wd - 1, whose top bit is the last row, is always thread T - 1's last
+// word.  The words below 0 (in thread 0 only) match nothing (eq = 0) and
+// start at vp = ~0, vn = 0, which a column leaves as they are with no carry
+// and no hp / hn bit out: they never touch the words above.  A warp holds
+// floor(32 / T) groups; its spare threads run along as a group without a
+// lane.  T is not held to a power of two: at the 288 bucket (9 words) a
+// group of 4 threads of 3 words would idle a quarter of its threads on every
+// column.
+//
+// A column's add is one carry chain over the lane's words; the group cuts it
+// at its threads.  Each thread adds its K words with carry in 0 and ballots
+// whether its block generates a carry out (g) and whether it carries out or
+// propagates one (g | p; p: the sum is all ones).  With A the g bits from
+// the group's first thread up and B the g | p bits, the carry into thread
+// t's first word is bit t of (A + B) ^ A ^ B (no carry can start below the
+// group, where A is 0, and the groups above cannot reach down); the thread
+// adds it in.  The top bits of hp / hn cross to the next thread's first
+// word by one __shfl_up_sync, and the last thread keeps the score and its
+// minimum.  Every vote and shuffle takes the whole warp: groups of one warp
+// that each synced on their own mask would run one after another.
+//
+// A block takes one lane per group: the Hamming pass (each thread its own
+// words, then a shuffle sum), then the lanes with ham > e compacted in
+// shared memory onto the block's first groups, which run Myers; a warp runs
+// while any of its groups has a lane (the others run its first lane again
+// and store nothing), the warps past the last lane leave.  Every thread of
+// a group streams the same window words through WindowReader (one load per
+// warp and word), the Hamming pass from its own first word on.
+template <int K, bool SHARD>
+__global__ void __launch_bounds__(kThreads) verify_fused_gather_wide_kernel(
     typename Table<SHARD>::param gp, const int64_t* __restrict__ orient,
     const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
     const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
     int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
     int64_t genome_len, int wd, int m, int ncols, int e) {
-  extern __shared__ uint32_t eq_table[];     // [5][NW][kThreads]
-  __shared__ int slot_thread[kThreads];
-  __shared__ int warp_count[kThreads / 32];
-  const int64_t first = int64_t(blockIdx.x) * kThreads;
-  int64_t lane = first + threadIdx.x;
+  static_assert(5 * K * kThreads * 4 + 4 * kThreads + 4 <= 48 * 1024,
+                "the match table outgrows a block's static shared memory");
+  __shared__ uint32_t eq_table[5 * K * kThreads];   // [5][K][kThreads]
+  __shared__ int need_slot[kThreads];
+  __shared__ int n_need;
+  const int T = (wd + K - 1) / K;            // threads per lane
+  const int per_warp = 32 / T;               // groups per warp
+  const int G = (kThreads / 32) * per_warp;  // groups (lanes) per block
+  const int lid = threadIdx.x & 31;
+  const int q = lid / T, t = lid - q * T;    // group in the warp, thread in it
+  const bool spare = q >= per_warp;
+  const int grp = (threadIdx.x >> 5) * per_warp + q;
+  const unsigned above = 0xFFFFFFFFu << (lid - t);
+  const int k0 = wd - T * K + t * K;         // this thread's first word
+  const int64_t first = int64_t(blockIdx.x) * G;
+  if (threadIdx.x == 0) n_need = 0;
+  __syncthreads();
 
-  bool need = false;
-  if (lane < L) {
-    // anchored Hamming from the e-shifted window, one word at a time
-    WindowReader win;
-    win.init(gp, orient[lane], uint32_t(start[lane]), gwords, genome_len, 0);
-    int64_t rr = rrow[lane];
-    rr = rr < 0 ? 0 : (rr >= R ? R - 1 : rr);
-    const int64_t* rp = rtab + rr * 3 * wd;
-    const int64_t len = rlen[lane];
-    uint32_t c0, c1, cn, n0, n1, nn;
-    win.next(gp, c0, c1, cn);
+  // anchored Hamming from the e-shifted window: each thread its words
+  {
+    const int64_t lane = first + grp;
+    const bool live = !spare && lane < L;
     int ham = 0;
-    for (int k = 0; k < wd; ++k) {
-      win.next(gp, n0, n1, nn);
-      const uint32_t a0 = e == 0 ? c0 : (c0 >> e) | (n0 << (32 - e));
-      const uint32_t a1 = e == 0 ? c1 : (c1 >> e) | (n1 << (32 - e));
-      const uint32_t an = e == 0 ? cn : (cn >> e) | (nn << (32 - e));
-      const uint32_t d0 = uint32_t(rp[k]), d1 = uint32_t(rp[wd + k]),
-                     dn = uint32_t(rp[2 * wd + k]);
-      const int64_t nb = len - 32 * k;
-      const uint32_t lmask =
-          mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
-      const uint32_t eqb = ~(a0 ^ d0) & ~(a1 ^ d1);
-      const uint32_t match = (eqb | ((a0 & ~a1) & (d0 & d1))) & ~an & ~dn;
-      ham += __popc(~match & lmask);
-      c0 = n0;
-      c1 = n1;
-      cn = nn;
-    }
-    need = ham > e;
-    if (!need) out[lane] = ham;
-  }
-
-  // compact the indices of the lanes that need Myers onto the first threads
-  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, need);
-  const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31;
-  if (lid == 0) warp_count[wid] = __popc(ballot);
-  __syncthreads();
-  int before = 0, count = 0;
+    if (live) {
+      int64_t rr = rrow[lane];
+      rr = rr < 0 ? 0 : (rr >= R ? R - 1 : rr);
+      const int64_t* rp = rtab + rr * 3 * wd;
+      const int64_t len = rlen[lane];
+      WindowReader win;
+      win.init(gp, orient[lane], uint32_t(start[lane]), gwords, genome_len,
+               max(k0, 0));
+      uint32_t c0, c1, cn;
+      win.next(gp, c0, c1, cn);
 #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    if (w < wid) before += warp_count[w];
-    count += warp_count[w];
+      for (int j = 0; j < K; ++j) {
+        const int k = k0 + j;
+        if (k >= 0) {
+          uint32_t n0, n1, nn;
+          win.next(gp, n0, n1, nn);
+          const uint32_t a0 = e == 0 ? c0 : (c0 >> e) | (n0 << (32 - e));
+          const uint32_t a1 = e == 0 ? c1 : (c1 >> e) | (n1 << (32 - e));
+          const uint32_t an = e == 0 ? cn : (cn >> e) | (nn << (32 - e));
+          const uint32_t d0 = uint32_t(rp[k]), d1 = uint32_t(rp[wd + k]),
+                         dn = uint32_t(rp[2 * wd + k]);
+          const int64_t nb = len - 32 * k;
+          const uint32_t lmask =
+              mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
+          const uint32_t eqb = ~(a0 ^ d0) & ~(a1 ^ d1);
+          const uint32_t match = (eqb | ((a0 & ~a1) & (d0 & d1))) & ~an & ~dn;
+          ham += __popc(~match & lmask);
+          c0 = n0;
+          c1 = n1;
+          cn = nn;
+        }
+      }
+    }
+    // the group's sum on its first thread
+    for (int d = 1; d < T; d <<= 1) {
+      const int x = __shfl_down_sync(0xFFFFFFFFu, ham, d);
+      if (t + d < T) ham += x;
+    }
+    if (live && t == 0) {
+      if (ham <= e)
+        out[lane] = ham;
+      else
+        need_slot[atomicAdd(&n_need, 1)] = grp;
+    }
   }
-  if (need)
-    slot_thread[before + __popc(ballot & ((1u << lid) - 1u))] = threadIdx.x;
   __syncthreads();
-  if (int(threadIdx.x) >= count) return;
-  lane = first + slot_thread[threadIdx.x];
+  const int count = n_need;
+  const int wfirst = (threadIdx.x >> 5) * per_warp;
+  if (wfirst >= count) return;               // the whole warp: no lane left
 
-  // the lane's match table: PEQ from its read planes (asymmetric match; pad
-  // rows always match) and the pad row, into this thread's shared column
-  uint32_t* col = eq_table + threadIdx.x;
+  // the lanes that need Myers, one per group
+  const bool has = !spare && grp < count;
+  const int64_t lane = first + need_slot[has ? grp : wfirst];
+  uint32_t* eqt = eq_table + threadIdx.x;    // this thread's column
+  // this thread's words of the match table: PEQ rows 0..3 from the read
+  // planes (asymmetric match; pad rows always match), the pad row 4; all
+  // zero below word 0
+  uint32_t vp[K], vn[K];
   {
     int64_t rr = rrow[lane];
     rr = rr < 0 ? 0 : (rr >= R ? R - 1 : rr);
     const int64_t* rp = rtab + rr * 3 * wd;
     const int64_t len = rlen[lane];
-    for (int k = 0; k < wd; ++k) {
-      const uint32_t r0 = uint32_t(rp[k]), r1 = uint32_t(rp[wd + k]),
-                     rn = uint32_t(rp[2 * wd + k]);
-      const int64_t nb = len - 32 * k;
-      const uint32_t p =
-          ~mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
-      store_eq_column(col, NW, k, (~r0 & ~r1 & ~rn) | p,
-                      ((r0 & ~r1 & ~rn) | (r0 & r1 & ~rn)) | p,
-                      (~r0 & r1 & ~rn) | p, (r0 & r1 & ~rn) | p, p);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int k = k0 + j;
+      uint32_t r0 = 0u, r1 = 0u, rn = 0u, p = 0u, live = 0u;
+      if (k >= 0) {
+        r0 = uint32_t(rp[k]);
+        r1 = uint32_t(rp[wd + k]);
+        rn = uint32_t(rp[2 * wd + k]);
+        const int64_t nb = len - 32 * k;
+        p = ~mask_lt(nb <= 0 ? 0u : (nb >= 32 ? 32u : uint32_t(nb)));
+        live = 0xFFFFFFFFu;
+      }
+      eqt[(0 * K + j) * kThreads] = ((~r0 & ~r1 & ~rn) | p) & live;
+      eqt[(1 * K + j) * kThreads] =
+          (((r0 & ~r1 & ~rn) | (r0 & r1 & ~rn)) | p) & live;
+      eqt[(2 * K + j) * kThreads] = ((~r0 & r1 & ~rn) | p) & live;
+      eqt[(3 * K + j) * kThreads] = ((r0 & r1 & ~rn) | p) & live;
+      eqt[(4 * K + j) * kThreads] = p;
+      vp[j] = 0xFFFFFFFFu;
+      vn[j] = 0u;
     }
   }
-  uint32_t vp[NW], vn[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    vp[k] = 0xFFFFFFFFu;
-    vn[k] = 0u;
-  }
+  // the window's raw rows one word ahead: a row's load is in flight
+  // through the 32 columns of the word before it
+  const uint32_t from_below = t == 0 ? 0u : 0xFFFFFFFFu;
   WindowReader win;
   win.init(gp, orient[lane], uint32_t(start[lane]), gwords, genome_len, 0);
   int score = m, best = m;
@@ -610,15 +669,58 @@ __global__ void __launch_bounds__(kThreads, 1) verify_fused_gather_wide_kernel(
     uint32_t a0, a1, an;
     win.next(gp, a0, a1, an);
     const int nb = min(32, ncols - j0);
-#pragma unroll 1
+#pragma unroll 2
     for (int b = 0; b < nb; ++b) {
-      const uint32_t sym =
-          ((an >> b) & 1u) ? 4u : (((a0 >> b) & 1u) | (((a1 >> b) & 1u) << 1));
-      score += myers_column_shared<NW>(vp, vn, col + sym * NW * kThreads, wd);
+      // the column's match row: PEQ row of its base, the pad row at N
+      const uint32_t* eqrow =
+          eqt + (((an >> b) & 1u) ? 4u
+                 : (((a0 >> b) & 1u) | (((a1 >> b) & 1u) << 1))) *
+                    (K * kThreads);
+      // this thread's words of ((eq & vp) + vp) with carry in 0
+      uint32_t eq[K], s[K];
+      uint32_t c = 0u, ones = 0xFFFFFFFFu;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        eq[j] = eqrow[j * kThreads];
+        const uint64_t x = uint64_t(eq[j] & vp[j]) + vp[j] + c;
+        s[j] = uint32_t(x);
+        c = uint32_t(x >> 32);
+        ones &= s[j];
+      }
+      // the carry into this thread's first word, from the group's g / p
+      const unsigned gen = __ballot_sync(0xFFFFFFFFu, c != 0u) & above;
+      const unsigned prop =
+          __ballot_sync(0xFFFFFFFFu, c != 0u || ones == 0xFFFFFFFFu);
+      c = (((gen + prop) ^ gen ^ prop) >> lid) & 1u;
+      uint32_t d0[K], hp[K], hn[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const uint64_t x = uint64_t(s[j]) + c;
+        c = uint32_t(x >> 32);
+        d0[j] = (uint32_t(x) ^ vp[j]) | eq[j] | vn[j];
+        hp[j] = vn[j] | ~(d0[j] | vp[j]);
+        hn[j] = vp[j] & d0[j];
+      }
+      // the top bits of hp (bit 31) and hn (bit 0) of the word below this
+      // thread's first (shift-in 0 at word 0: free start, D[0][j] = 0)
+      const uint32_t below =
+          __shfl_up_sync(0xFFFFFFFFu,
+                         (hp[K - 1] & 0x80000000u) | (hn[K - 1] >> 31), 1) &
+          from_below;
+      uint32_t hp_in = below >> 31, hn_in = below & 1u;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const uint32_t x = (hp[j] << 1) | hp_in;
+        vp[j] = ((hn[j] << 1) | hn_in) | ~(d0[j] | x);
+        vn[j] = d0[j] & x;
+        hp_in = hp[j] >> 31;
+        hn_in = hn[j] >> 31;
+      }
+      score += int(hp_in) - int(hn_in);      // word wd - 1 on thread T - 1
       best = min(best, score);
     }
   }
-  out[lane] = best;
+  if (has && t == T - 1) out[lane] = best;
 }
 
 // ---- paired-end mate rescue: window fetch + Myers scan + selection ---------
@@ -883,6 +985,7 @@ struct GatherLanes {
   int32_t* out;
   int64_t L, R, gwords, genome_len;
   int wd, m, ncols, e;
+  int k;                                     // words per thread at wd > 8
 };
 
 template <int WD, bool SHARD>
@@ -924,21 +1027,23 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-template <int NW, bool SHARD>
+// The wide kernel at K read words per thread: a block of kThreads threads
+// takes one lane per group, (kThreads / 32) * floor(32 / ceil(wd / K)).
+template <int K, bool SHARD>
 cudaError_t launch_fused_gather_wide(const typename Table<SHARD>::type& gp,
                                      const GatherLanes& x, cudaStream_t st) {
-  const size_t smem = size_t(5) * NW * kThreads * sizeof(uint32_t);
-  const cudaError_t rc =
-      allow_shared(verify_fused_gather_wide_kernel<NW, SHARD>, smem);
-  if (rc != cudaSuccess) return rc;
-  const unsigned grid = unsigned((x.L + kThreads - 1) / kThreads);
-  verify_fused_gather_wide_kernel<NW, SHARD><<<grid, kThreads, smem, st>>>(
-      gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.out, x.L, x.R,
-      x.gwords, x.genome_len, x.wd, x.m, x.ncols, x.e);
+  const int G = (kThreads / 32) * (32 / ((x.wd + K - 1) / K));
+  const int64_t grid = (x.L + G - 1) / G;
+  if (grid > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  verify_fused_gather_wide_kernel<K, SHARD>
+      <<<unsigned(grid), kThreads, 0, st>>>(
+          gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.out, x.L, x.R,
+          x.gwords, x.genome_len, x.wd, x.m, x.ncols, x.e);
   return cudaGetLastError();
 }
 
-// One launch of the gathering verify at x.wd read words.
+// One launch of the gathering verify at x.wd read words (x.k words per
+// thread over 8: the builds kernels.WIDE_WORDS picks from).
 template <bool SHARD>
 cudaError_t fused_gather(const typename Table<SHARD>::type& gp,
                          const GatherLanes& x, cudaStream_t st) {
@@ -954,10 +1059,13 @@ cudaError_t fused_gather(const typename Table<SHARD>::type& gp,
     default: break;
   }
   if (x.wd <= 8) return cudaGetLastError();
-  if (x.wd <= 12) return launch_fused_gather_wide<12, SHARD>(gp, x, st);
-  if (x.wd <= 16) return launch_fused_gather_wide<16, SHARD>(gp, x, st);
-  if (x.wd <= 24) return launch_fused_gather_wide<24, SHARD>(gp, x, st);
-  return launch_fused_gather_wide<32, SHARD>(gp, x, st);
+  switch (x.k) {
+    case 4: return launch_fused_gather_wide<4, SHARD>(gp, x, st);
+    case 5: return launch_fused_gather_wide<5, SHARD>(gp, x, st);
+    case 6: return launch_fused_gather_wide<6, SHARD>(gp, x, st);
+    case 8: return launch_fused_gather_wide<8, SHARD>(gp, x, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int NW, bool SHARED, int MODE, bool SHARD>
@@ -1057,14 +1165,15 @@ int btbs_verify_fused(const void* win, const void* rd, const void* lm,
 
 // The genome planes as with_planes above; orient, start (u32 value), rrow,
 // rlen int64 [L]; rtab int64 [R][3 * wd] read planes (u32 values); out int32
-// [L].  wd in 1..32 and a window of exactly wd + 1 words.
+// [L].  wd in 1..32 and a window of exactly wd + 1 words; k: the wide
+// kernel's read words per thread at wd > 8 (4, 5, 6 or 8), unused below.
 int btbs_verify_fused_gather(const void* gp, const void* const* gp_parts,
                              int nparts, int64_t gp_rows, const void* orient,
                              const void* start, const void* rtab,
                              const void* rrow, const void* rlen, void* out,
                              int64_t L, int64_t R, int64_t gwords,
                              int64_t genome_len, int wd, int m, int ncols,
-                             int e, void* stream) {
+                             int e, int k, void* stream) {
   if (!shapes_ok(L, wd, wd + 1, ncols) || ncols <= 32 * wd ||
       e < 0 || e > 31 || R < 1 || gwords < 1 || genome_len < 0)
     return int(cudaErrorInvalidValue);
@@ -1074,7 +1183,7 @@ int btbs_verify_fused_gather(const void* gp, const void* const* gp_parts,
                       static_cast<const int64_t*>(rrow),
                       static_cast<const int64_t*>(rlen),
                       static_cast<int32_t*>(out),
-                      L, R, gwords, genome_len, wd, m, ncols, e};
+                      L, R, gwords, genome_len, wd, m, ncols, e, k};
   auto st = static_cast<cudaStream_t>(stream);
   return int(with_planes(gp, gp_parts, nparts, gp_rows, [&](const auto& g) {
     constexpr bool kShard =

@@ -65,6 +65,11 @@ LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
             "fm_locate": 0}
 
 MAX_WORDS = 32                  # read words the kernels take (1,024 bp)
+# verify_fused_gather over 8 read words: a lane on ceil(words / K) threads
+# of one warp, K read words per thread from the first bucket capacity that
+# holds the words (csrc/verify.cu builds K = 4, 5, 6, 8; chosen by timing on
+# the H100, PERF.md section 6)
+WIDE_WORDS = {12: 5, 16: 4, 24: 6, 32: 8}
 # btbs_rescue_scan's launch shape (csrc/verify.cu: kThreads, kSharedLimit and
 # the word capacities of the instances that keep PEQ in shared memory)
 _RESCUE_BLOCK = 128
@@ -145,7 +150,7 @@ def _lib():
         planes = [vp, vp, i32, i64]       # gp, gp_parts, nparts, gp_rows
         lib.btbs_verify_fused_gather.argtypes = planes + [
             vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, i32,
-            vp]
+            i32, vp]
         lib.btbs_verify_fused_gather.restype = ctypes.c_int
         lib.btbs_myers.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                    vp]
@@ -377,9 +382,15 @@ def verify_fused_gather_ref(g_planes, orient, start, read_tab, row, lens,
         verify.length_mask(lens, m), m, ncols, e)
 
 
+def wide_words(words: int) -> int:
+    """The read words per thread K of verify_fused_gather's kernel for a
+    bucket of 9..32 read words (a lane on ceil(words / K) threads)."""
+    return next(k for nw, k in WIDE_WORDS.items() if words <= nw)
+
+
 def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
                         genome_len: int, g_words: int, m: int, ncols: int,
-                        e: int):
+                        e: int, words_per_thread: int | None = None):
     """verify_fused on windows it fetches itself.  g_planes: int32 bits
     [2 * g_words, 3] (index/device.py), or their shard set; per lane (int64,
     one shape): orient
@@ -415,7 +426,9 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
                 *_table_args(g_planes), o.data_ptr(), s.data_ptr(),
                 read_tab.data_ptr(), r.data_ptr(), n.data_ptr(),
                 out.data_ptr(), L, read_tab.shape[0], g_words, genome_len, Wd,
-                m, ncols, e, stream), "btbs_verify_fused_gather")
+                m, ncols, e, words_per_thread or (
+                    wide_words(Wd) if Wd > 8 else 0), stream),
+                "btbs_verify_fused_gather")
         LAUNCHES["verify_fused_gather"] += 1
     return out.reshape(lanes)
 

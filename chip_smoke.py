@@ -15,8 +15,16 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      myers at 163,840 lanes (m = 96, e = 4); verify_fused and
      verify_fused_gather again at the 288 bucket of reads over 256 bp
      (before phase 12: 9 read words, 296 columns, 1,024 reads x flat cap
-     lanes; the gathering entry's shared-memory kernel, whose 16- and
-     32-word builds are checked at buckets 512 and 1,024); myers_scan at
+     lanes; the gathering entry's thread-group kernel, a lane of wd words
+     on ceil(wd / K) threads of K words, one K per bucket
+     (kernels.WIDE_WORDS): checked at buckets 512, 768 and 1,024 at 8,192
+     lanes and at 288 at 43,008 on the 10 Mbp genome too (their SHARD
+     instances in phase 11c); each bucket's words per thread, threads per
+     lane, ptxas registers and resident warps per SM printed beside its
+     time, a second timing from a CUDA graph of 20 launches, and every
+     build's K timed at the bucket, held to the bucket's own; the 288
+     bucket's lanes once more on planes tiled to ten times the genome,
+     which spreads the same windows over 75 MB); myers_scan at
      4,096 lanes (one per pair; insert 0-500 -> 605 columns, 19 window
      words) and at a ragged 4,093; rescue_scan (the scan with its window
      fetch in front and its selection behind) on the same pairs, planted
@@ -125,9 +133,11 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      2- and 3-shard uploads: fm_search / fm_extend / fm_locate on the
      arguments a data slice of phase 4's last batch hands them (seed
      extension on), edge lanes and rows past the table planted;
-     verify_fused_gather at m 96 (163,840 lanes) and m 288;
-     rescue_scan in one pass (insert 0-500) and in two (100,001 offsets),
-     each timed inside beside the whole-table instance and its bound.
+     verify_fused_gather at m 96 (163,840 lanes) and m 288 (10,240;
+     the 512, 768 and 1,024 buckets at 1,024 lanes held to both, not
+     timed); rescue_scan in one pass (insert 0-500) and in two (100,001
+     offsets), each timed inside beside the whole-table instance and its
+     bound (the FM and verify rows also from a CUDA graph).
      Then phase 4's reads and phase 8's pairs on [cuda:0] x 2 (data
      parallel), and phase 4's and phase 8's last batches and phase 11b's
      wide-insert batch on [cuda:0] x 4 with --shard-index 2 (2 data slices,
@@ -150,7 +160,7 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      inside mid-copy satellite arrays, which overflow the flat buffer and
      take the dense re-run at 128 candidates; then 1,024 reads of 280 bp in
      a 288 bucket, whose 9 plane words take the gathering verify's
-     shared-memory kernel (one launch, no window_planes, no verify_fused).
+     thread-group kernel (one launch, no window_planes, no verify_fused).
      SAM
      of a sample equals the oracle's; recall, mapped share, overflow and
      gdrop counts; one batch
@@ -185,6 +195,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -212,11 +223,21 @@ N_PE_TIMED_BATCHES = 8
 MIN_INSERT, MAX_INSERT = 0, 500    # bench.py:150-151
 SCAN_LANES = (PE_PAIRS, PE_PAIRS - 3)  # one lane per pair; a ragged count
 # widths no main path here reaches, checked on the card all the same: the
-# gathering verify's 16- and 32-word kernels (bucket, read length, lanes) and
+# gathering verify's 16-, 24- and 32-word kernels (bucket, read length,
+# lanes), and its 288 bucket at the Gbp phase's lane count on the 10 Mbp
+# genome; and
 # the rescue scan (bucket, insert range, pairs, threads per pair) with its
 # PEQ in shared memory, at the command line's default insert range, and at
 # ranges whose bytes per output column make a block hold fewer pairs
-WIDE_VERIFY_SHAPES = ((512, 500, 8_192), (1_024, 1_000, 8_192))
+WIDE_VERIFY_SHAPES = ((512, 500, 8_192), (768, 750, 8_192),
+                      (1_024, 1_000, 8_192), (288, 280, 43_008))
+# the SHARD instances of the wide gathering verify past the 288 bucket's
+# (bucket, lanes), held to plain and to the whole-table instance in phase
+# 11c beside the timed m 96 / 288 rows, on 2 and 3 shards
+WIDE_SHARD_SHAPES = ((512, 1_024), (768, 1_024), (1_024, 1_024))
+# copies of the 10 Mbp genome planes laid end to end for phase 3's span
+# check: the 288 bucket's windows spread over the Gbp index's 75 MB
+SPAN_TILES = 10
 WIDE_RESCUE_SHAPES = ((288, 301, 1_024, 8), (96, 1_001, 1_024, 8),
                       (1_024, 1_001, 512, 8), (96, 20_000, 128, 16),
                       (288, 13_000, 64, 16), (96, 40_000, 64, 32),
@@ -295,6 +316,13 @@ SASS_SHARD = {
     "fm_locate shard": ("fm", "fm_locate_kernelILb1E"),
 }
 SASS_OPS: dict = {}     # kernel -> {"loop": n, "once": n}, set by build_native
+# (K words per thread, SHARD) -> {"registers", "spill", "smem",
+# "resident_warps", "local_in_loops"} of each build of the wide gathering
+# verify, set by build_native
+WIDE_BUILDS: dict = {}
+# the H100's register file per SM sub-partition, shared memory per SM and
+# what each block reserves of it (CUDA occupancy rules, sm_90)
+REGS_PER_SMSP, SMEM_PER_SM, SMEM_PER_BLOCK = 16_384, 233_472, 1_024
 FM_THREADS_PER_ROW = 2  # csrc/fm.cu kTpr
 CP_ROW_BYTES = 68
 # 32-byte sectors under the words a kernel reads of a 68-byte row at a
@@ -417,6 +445,76 @@ def device_ms(fn, kernel: str = "", reps: int = 10, tries: int = 3):
     return None
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 7):
+    """Device ms per call of fn() from CUDA events around a CUDA graph of
+    `calls` calls (the median of `replays` replays): the launches back to
+    back with no host in between, a second reading beside device_ms's
+    profiler rows."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return statistics.median(times)
+
+
+def clocked_graph_ms(fn, replays: int = 200) -> tuple:
+    """graph_ms over `replays` replays (about a second for a 0.2 ms call)
+    and the median SM clock in MHz that nvidia-smi read every 100 ms
+    meanwhile (None if it read none): whether the card ran at the same
+    clock where two timings of one kernel part."""
+    reader = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        ms = graph_ms(fn, replays=replays)
+    finally:
+        reader.terminate()
+        text, _ = reader.communicate(timeout=60)
+    mhz = [int(x) for x in text.split() if x.isdigit()]
+    return ms, statistics.median(mhz) if mhz else None
+
+
+def wide_build(words: int, shard: bool = False):
+    """The wide gathering verify's build that takes a bucket of `words` read
+    words (None at 1..8 words: the narrow kernel): its words per thread, the
+    threads a lane runs on, its ptxas record."""
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    if words <= 8:
+        return None
+    k = kernels.wide_words(words)
+    return {"words": k, "threads": -(-words // k), **WIDE_BUILDS[k, shard]}
+
+
+def resident_warps(regs: int, smem: int, threads: int = 128) -> int:
+    """Warps per SM that blocks of `threads` threads with these registers
+    per thread and bytes of static shared memory per block leave room for
+    (registers allocated per warp in 256s; 64 warps, 32 blocks per SM)."""
+    wpb = threads // 32
+    warp_regs = -(-regs * 32 // 256) * 256
+    blocks = min(4 * (REGS_PER_SMSP // warp_regs) // wpb,
+                 SMEM_PER_SM // (smem + SMEM_PER_BLOCK), 64 // wpb, 32)
+    return blocks * wpb
+
+
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
@@ -429,12 +527,10 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if by >= op else "operations"}
 
 
-def sass_int32_ops(sass: str, function: str) -> dict:
-    """INT32-pipe instructions of the kernel whose mangled name contains
-    `function`, from cuobjdump's listing: {"loop": in its innermost loop (the
-    span of the first backward branch), "once": outside every loop}."""
-    import re
-
+def sass_code(sass: str, function: str) -> tuple[list, list]:
+    """The kernel whose mangled name contains `function` in cuobjdump's
+    listing: its instructions (address, opcode, branch target or None) and
+    its loops (the spans of its backward branches, first branch first)."""
     body = [part for part in sass.split("Function : ")[1:]
             if function in part.split("\n", 1)[0]]
     assert len(body) == 1, (function, len(body))
@@ -447,6 +543,23 @@ def sass_int32_ops(sass: str, function: str) -> dict:
                      int(to.group(1), 16) if to else None))
     loops = [(to, at) for at, _, to in code if to is not None and to < at]
     assert loops, f"{function}: no loop in the machine code"
+    return code, loops
+
+
+def sass_local_in_loops(sass: str, function: str) -> int:
+    """Local-memory loads and stores (LDL / STL: spills) inside any loop of
+    the kernel whose mangled name contains `function`."""
+    code, loops = sass_code(sass, function)
+    return sum(op in ("LDL", "STL") and any(lo <= at <= hi
+                                            for lo, hi in loops)
+               for at, op, _ in code)
+
+
+def sass_int32_ops(sass: str, function: str) -> dict:
+    """INT32-pipe instructions of the kernel whose mangled name contains
+    `function`, from cuobjdump's listing: {"loop": in its innermost loop (the
+    span of the first backward branch), "once": outside every loop}."""
+    code, loops = sass_code(sass, function)
     lo, hi = loops[0]
     first, last = min(a for a, _ in loops), max(b for _, b in loops)
     out = {"loop": sum(op in INT32_PIPE for at, op, _ in code
@@ -499,7 +612,21 @@ def build_native() -> None:
                 elif "Used" in ln and "registers" in ln and name:
                     regs = ln.split("Used")[1].split(",")[0].strip()
                     log(f"ptxas: {name}: {regs}, {spill}")
+                    # verify_fused_gather_wide_kernel<K, SHARD>
+                    wide = re.search(r"wide_kernelILi(\d+)ELb([01])E", name)
+                    if wide:
+                        smem = re.search(r"(\d+) bytes smem", ln)
+                        smem = int(smem[1]) if smem else 0
+                        WIDE_BUILDS[int(wide[1]), wide[2] == "1"] = {
+                            "function": wide[0],
+                            "registers": int(regs.split()[0]),
+                            "spill": spill, "smem": smem,
+                            "resident_warps": resident_warps(
+                                int(regs.split()[0]), smem)}
                     name = None
+    assert sorted(WIDE_BUILDS) == sorted(
+        (k, shard) for k in set(kernels.WIDE_WORDS.values())
+        for shard in (False, True)), WIDE_BUILDS
     # the machine code beside each library (<library>.sass), and from it the
     # instruction counts of the operation bounds
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -516,6 +643,16 @@ def build_native() -> None:
         log(f"sass: {name} ({function}): {SASS_OPS[name]['loop']} INT32-pipe "
             f"instructions in its innermost loop, {SASS_OPS[name]['once']} "
             f"outside its loops")
+    for b in WIDE_BUILDS.values():
+        b["local_in_loops"] = sass_local_in_loops(sass["verify"],
+                                                  b["function"])
+    log("wide gathering verify (a lane of wd words on ceil(wd / K) "
+        "threads): " + "; ".join(
+            f"K {k}{' SHARD' if shard else ''}: {b['registers']} registers, "
+            f"{b['smem']} bytes of shared memory, {b['resident_warps']} "
+            f"resident warps per SM, {b['spill']}, {b['local_in_loops']} "
+            f"local-memory instructions in its loops"
+            for (k, shard), b in sorted(WIDE_BUILDS.items())))
 
 
 def kernel_inputs(idx, dix, n: int, seed: int, span: int = 0,
@@ -640,6 +777,13 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
             extra = f", result <= e on {frac:.3f} of lanes"
         else:
             extra = ""
+        build = wide_build(Wd) if name == "verify_fused_gather" else None
+        if build:
+            extra += (f"; thread-group kernel: "
+                      f"{build['words']} words per thread, "
+                      f"{build['threads']} threads per lane, "
+                      f"{build['registers']} registers, "
+                      f"{build['resident_warps']} resident warps per SM")
         b = bounds[name]
         log(f"kernel {name}: {L} lanes (m {m}: {Wd} read words, {Ww} window "
             f"words, {ncols} columns) equal to plain (max_abs_err {err}"
@@ -651,7 +795,117 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                      "library_ms": None, "device_ms": inside, "lanes": L,
                      "read_words": Wd}
+        if build:
+            g, mhz = clocked_graph_ms(kern)
+            log(f"kernel {name} m {m}, {L} lanes: CUDA graph {g:.4f} ms per "
+                f"launch at {mhz} MHz (median SM clock meanwhile)")
+            out[name].update(graph_ms=g, sm_mhz=mhz, myers_lanes=n_myers,
+                             words_per_thread=build["words"],
+                             threads_per_lane=build["threads"],
+                             registers=build["registers"],
+                             resident_warps=build["resident_warps"],
+                             by_words_per_thread=wide_sweep(g_args, got, m))
     return out
+
+
+def wide_sweep(g_args, want, m: int) -> dict:
+    """Every build of the wide gathering verify on one bucket's lanes: its
+    result held to the bucket's own build's (torch.equal), and its device
+    ms per call from a CUDA graph, keyed by words per thread K (a lane on
+    ceil(wd / K) threads)."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    Wd, out = m // 32, {}
+    for k in sorted({k for k, _ in WIDE_BUILDS}):
+        run = lambda k=k: kernels.verify_fused_gather(  # noqa: E731
+            *g_args, words_per_thread=k)
+        got = run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"verify_fused_gather m {m}, K {k}: "
+                                 f"{int((got != want).sum())} lanes differ "
+                                 f"from K {kernels.wide_words(Wd)}")
+        out[k] = graph_ms(run)
+    log(f"kernel verify_fused_gather m {m}, {want.numel()} lanes, each "
+        f"build (equal results; CUDA graph, ms per launch): " + ", ".join(
+            f"K {k} ({-(-Wd // k)} threads per lane) {ms:.4f}"
+            for k, ms in out.items()))
+    return out
+
+
+def phase_wide_span(idx, dix, m: int = LONG_BUCKET,
+                    read_len: int = LONG_READ_LEN,
+                    n: int = 43_008) -> tuple[dict, tuple]:
+    """The wide gathering verify on the same lanes over the 10 Mbp genome
+    planes and over SPAN_TILES copies of them laid end to end, each lane's
+    window moved into one copy (lane i into copy i mod SPAN_TILES): the same
+    windows, the same results, the reads spread over ten times the bytes.
+    Lanes whose window touches the genome's ends are left out of both (in a
+    copy they would read the next copy, not N).  Returns the record and the
+    one-copy call's arguments, which the Gbp phase times again."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    ncols, gw = m + 2 * E, dix.g_words
+    Ww = -(-ncols // 32)
+    _, _, _, _, _, lanes = kernel_inputs(idx, dix, n, seed=7, m=m,
+                                         read_len=read_len)
+    s = lanes["start"]
+    keep = ((s >= 64) & (s + 32 * (Ww + 2) < dix.genome_len)).nonzero()[:, 0]
+    o, s, r, ln = (lanes[k][keep] for k in ("orient", "start", "row",
+                                            "lens"))
+    tiled = dix.g_planes.view(2, gw, 3).repeat(1, SPAN_TILES, 1).reshape(
+        2 * SPAN_TILES * gw, 3).contiguous()
+    copy = torch.arange(keep.numel(), device=s.device) % SPAN_TILES
+    one = (dix.g_planes, o, s, lanes["read_tab"], r, ln, dix.genome_len, gw,
+           m, ncols, E)
+    spread = (tiled, o, s + copy * 32 * gw, lanes["read_tab"], r, ln,
+              SPAN_TILES * 32 * gw, SPAN_TILES * gw, m, ncols, E)
+    want = kernels.verify_fused_gather_ref(*one)
+    for args, what in ((one, "one copy"), (spread, f"{SPAN_TILES} copies")):
+        got = kernels.verify_fused_gather(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"verify_fused_gather m {m} on {what}: "
+                                 f"{int((got != want).sum())} lanes differ")
+
+    def sector_mb(orient, start, gwords):
+        # the 32-byte sectors under the plane rows the lanes' windows read
+        # (rows (start + 32) / 32 + k, k <= Ww, 12 bytes each)
+        rows = orient[:, None] * gwords + ((start[:, None] + 32) >> 5) \
+            + torch.arange(Ww + 1, device=start.device)
+        first = rows * 12 // 32
+        return torch.unique(torch.cat([first, (rows * 12 + 11) // 32],
+                                      dim=1)).numel() * 32 / 1e6
+
+    times = {"one": [], "spread": []}
+    for _ in range(2):                  # in turns: one, spread, one, spread
+        times["one"].append(graph_ms(lambda: kernels.verify_fused_gather(
+            *one)))
+        times["spread"].append(graph_ms(lambda: kernels.verify_fused_gather(
+            *spread)))
+    clocked = clocked_graph_ms(lambda: kernels.verify_fused_gather(*one))
+    out = {"lanes": int(keep.numel()), "m": m, "clocked_one": clocked,
+           "plane_mb": [dix.g_planes.numel() * 4 / 1e6,
+                        tiled.numel() * 4 / 1e6],
+           "sector_mb": [sector_mb(o, s, gw),
+                         sector_mb(o, spread[2], SPAN_TILES * gw)],
+           "graph_ms_one": times["one"], "graph_ms_spread": times["spread"]}
+    log(f"kernel verify_fused_gather m {m}, {out['lanes']} lanes equal to "
+        f"plain on the genome planes ({out['plane_mb'][0]:.1f} MB) and on "
+        f"{SPAN_TILES} copies ({out['plane_mb'][1]:.1f} MB, the lanes spread "
+        f"over them; {out['sector_mb'][0]:.2f} / {out['sector_mb'][1]:.2f} "
+        f"MB of 32-byte sectors read): CUDA graph, ms per launch, in turns: "
+        f"one copy "
+        + " / ".join(f"{t:.4f}" for t in times["one"]) + f", {SPAN_TILES} "
+        "copies " + " / ".join(f"{t:.4f}" for t in times["spread"])
+        + f"; one copy over {200 * 20} launches {clocked[0]:.4f} at "
+        f"{clocked[1]} MHz")
+    del tiled
+    return out, one
 
 
 def phase_scan_kernel(idx, dix) -> dict:
@@ -1743,12 +1997,20 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
     dev = dix.device
     out: dict = {}
 
-    def record(name, ns, kern, whole, plain, b, extra="", plain_ms=None):
+    def record(name, ns, kern, whole, plain, b, extra="", plain_ms=None,
+               graphs=False):
         ms = median_ms(kern)
         inside = device_ms(kern, name)
         whole_inside = device_ms(whole, name)
         if plain_ms is None:
             plain_ms = median_ms(plain, reps=PLAIN_FM_REPS)
+        graph = {}
+        if graphs:      # a second reading of both instances, no profiler
+            graph = {"graph_ms": graph_ms(kern),
+                     "whole_graph_ms": graph_ms(whole)}
+            extra += (f"; CUDA graph of 20 launches: {graph['graph_ms']:.4f}"
+                      f" ms per launch, the whole-table instance "
+                      f"{graph['whole_graph_ms']:.4f}")
         log(f"kernel {name} on {ns} shards{extra}: equal to plain and to the "
             f"whole-table instance; median {ms:.4f} ms ({fmt_ms(inside)} "
             f"inside the kernel; the whole-table instance "
@@ -1756,7 +2018,8 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
             f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by "
             f"{b['bound_by']}")
         return {"ms": ms, "device_ms": inside,
-                "whole_device_ms": whole_inside, "plain_ms": plain_ms, **b}
+                "whole_device_ms": whole_inside, "plain_ms": plain_ms, **b,
+                **graph}
 
     def check(got, want, what):
         got = got if isinstance(got, tuple) else (got,)
@@ -1797,10 +2060,13 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
             out.setdefault(name, {})[key] = {
                 **record(name, ns, lambda: kern(*args),
                          lambda: kern(*whole), lambda: refs[name](*args), b,
-                         f", {rows.numel()} lanes ({n_rows} rows)"),
+                         f", {rows.numel()} lanes ({n_rows} rows)",
+                         graphs=True),
                 "lanes": rows.numel(), "rows_fetched": n_rows}
-        # ---- the gathering verify, narrow (m 96) and wide (m 288) kernels
-        for m, n in ((BUCKET, KERNEL_LANES), (LONG_BUCKET, 10_240)):
+        # ---- the gathering verify, narrow (m 96) and wide (m 288) kernels,
+        # timed; the wider buckets' builds held to plain
+        for m, n in ((BUCKET, KERNEL_LANES), (LONG_BUCKET, 10_240),
+                     *WIDE_SHARD_SHAPES):
             ncols, Wd = m + 2 * E, m // 32
             wide, rp, lm, _, _, lanes = kernel_inputs(
                 idx, sdix, n, seed=7, m=m, read_len=m - 6)
@@ -1813,6 +2079,15 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
                   f"verify_fused_gather m {m} on {ns} shards")
             check(got, kernels.verify_fused_gather(*w_args),
                   f"verify_fused_gather m {m} on {ns} shards vs whole")
+            build = wide_build(Wd, shard=True)
+            threads = (f"; {build['words']} words per thread, "
+                       f"{build['threads']} threads per lane, "
+                       f"{build['registers']} registers" if build else "")
+            if (m, n) in WIDE_SHARD_SHAPES:
+                log(f"kernel verify_fused_gather on {ns} shards, m {m}, {n} "
+                    f"lanes{threads}: equal to plain and to the whole-table "
+                    f"instance")
+                continue
             ham = verify.hamming(verify.shift_planes(wide, E, Wd), rp, lm)
             n_myers = int((ham > E).sum())
             Ww = Wd + 1
@@ -1824,7 +2099,8 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
                          lambda: kernels.verify_fused_gather(*g_args),
                          lambda: kernels.verify_fused_gather(*w_args),
                          lambda: kernels.verify_fused_gather_ref(*g_args), b,
-                         f", m {m}, {n} lanes ({n_myers} run Myers)"),
+                         f", m {m}, {n} lanes ({n_myers} run Myers){threads}",
+                         graphs=True),
                 "lanes": n, "m": m}
         # ---- mate rescue: one pass at insert 0-500, two at 100,001 offsets
         for R, n in ((MAX_INSERT - MIN_INSERT + 1, PE_PAIRS),
@@ -2624,7 +2900,7 @@ def gbp_stage_tables(dix, cfg, long_batch, pe_batches) -> None:
         + f"; peak device memory {peak:.2f} GB")
 
 
-def run_gbp(card: str) -> tuple[dict, dict]:
+def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     """Phases 12-14 on the planted-repeat genome; returns the records of
     the kernels checked on its index (gather_rows, the FM kernels,
     verify_fused at the 288 bucket) and the launch counts of its main paths
@@ -2658,6 +2934,14 @@ def run_gbp(card: str) -> tuple[dict, dict]:
         m=LONG_BUCKET, read_len=LONG_READ_LEN, plain_reps=PLAIN_LONG_REPS)
     kstats["verify_fused"] = long_k["verify_fused"]
     kstats["verify_fused_gather_long"] = long_k["verify_fused_gather"]
+    # phase 3's span lanes on the 10 Mbp planes again, at this point of the
+    # run: apart from the card's state, what the Gbp lanes cost more
+    again = clocked_graph_ms(lambda: kernels.verify_fused_gather(*span_args))
+    kstats["verify_fused_gather_long"]["ten_mbp_lanes_again"] = again
+    log(f"kernel verify_fused_gather m {LONG_BUCKET}: phase 3's "
+        f"{span_args[1].numel()} span lanes on the 10 Mbp planes again, "
+        f"after the Gbp lanes: {again[0]:.4f} ms per launch at {again[1]} "
+        f"MHz")
 
     t0 = time.perf_counter()
     n_sims = GBP_BIG_BATCH * N_GBP_BIG_BATCHES
@@ -2700,7 +2984,7 @@ def run_gbp(card: str) -> tuple[dict, dict]:
     for name in ("gather_rows", "verify_fused_gather", "myers", *FM_KERNELS):
         assert se_launches[name] > 0, f"{name} never ran on the Gbp SE path"
     # a main path of its own: reads over 256 bp, whose 9 plane words take
-    # the gathering verify's shared-memory instance
+    # the gathering verify's thread-group instance
     long_reads = [s.codes for s in long_sims]
     long_quals = [s.qual for s in long_sims]
     long_names = [f"l{i}" for i in range(N_LONG)]
@@ -2945,10 +3229,12 @@ def run(card: str) -> dict:
                                       "verify_fused_gather"))
     fused_96, gather_96 = kstats["verify_fused"], kstats["verify_fused_gather"]
     gather_wide = {
-        f"m {m}": phase_kernels(idx, dix, ("verify_fused_gather",), n_lanes=n,
-                                m=m, read_len=read_len,
-                                plain_reps=1)["verify_fused_gather"]
+        f"m {m} x {n} lanes": phase_kernels(
+            idx, dix, ("verify_fused_gather",), n_lanes=n, m=m,
+            read_len=read_len, plain_reps=1)["verify_fused_gather"]
         for m, read_len, n in WIDE_VERIFY_SHAPES}
+    gather_wide[f"m {LONG_BUCKET} span"], span_args = phase_wide_span(
+        idx, dix)
     kstats["myers_scan"] = phase_scan_kernel(idx, dix)
     kstats["rescue_scan"] = phase_rescue_kernel(idx, dix)
 
@@ -2964,7 +3250,7 @@ def run(card: str) -> dict:
 
     del idx, dix
     torch.cuda.empty_cache()
-    gbp_kstats, gbp_paths = run_gbp(card)
+    gbp_kstats, gbp_paths = run_gbp(card, span_args)
     gather_long = gbp_kstats.pop("verify_fused_gather_long")
     kstats.update(gbp_kstats)         # verify_fused: the 288-bucket shape
     kstats["verify_fused"]["shapes"] = {

@@ -34,6 +34,7 @@ from bitmapperbs_tpu_torch import constants as K  # noqa: E402
 from bitmapperbs_tpu_torch.index import device as tdev  # noqa: E402
 from bitmapperbs_tpu_torch.ops import fm as tfm  # noqa: E402
 from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
+from test_torch_rescue_scan import shard_row_model  # noqa: E402
 
 M = 64
 U32 = 0xFFFFFFFF
@@ -91,12 +92,10 @@ class Tables:
 
     @staticmethod
     def shard_row(parts, r):
-        """shard_row<W>: part r // rows at r % rows (one 32-bit division),
-        the zero row outside [0, n * rows)."""
-        rows = len(parts[0])
-        if not 0 <= r < rows * len(parts):
-            return np.zeros_like(parts[0][0])
-        return parts[r // rows][r % rows]
+        """shard_row<W>: the part whose first row r reaches last (compares,
+        no division), the zero row outside [0, n * rows)."""
+        row = shard_row_model(parts, r)
+        return np.zeros_like(parts[0][0]) if row is None else row
 
     def row(self, r):
         """The checkpoint row at flat row r (csrc/fm.cu cp_row)."""

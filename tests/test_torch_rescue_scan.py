@@ -69,6 +69,36 @@ def split_planes(gp, ns: int):
                                for p in parts))
 
 
+MAX_SHARDS = 8                  # csrc/shards.cuh kMaxShards
+
+
+def shard_first_rows(n: int, rows: int) -> list:
+    """ShardSet.first (csrc/shards.cuh make_shard_set): part s's first row,
+    s * rows, for s < n; 0xFFFFFFFF for the unused parts."""
+    return [s * rows if s < n else U32 for s in range(MAX_SHARDS)]
+
+
+def shard_pick(first, n: int, rows: int, r: int):
+    """shard_row<W>'s choice for row r: (part, row within it), or None (the
+    zero row) outside [0, n * rows).  The last part whose first row the u32
+    row reaches, by compares over every part: no division."""
+    if not 0 <= r < n * rows:
+        return None
+    u, s, lo = r & U32, 0, 0
+    for k in range(1, MAX_SHARDS):
+        if u >= first[k]:
+            s, lo = k, first[k]
+    return s, (u - lo) & U32
+
+
+def shard_row_model(parts, r):
+    """Row r of a list of equal parts as shard_row<W> reads it; None for
+    the zero row."""
+    n, rows = len(parts), len(parts[0])
+    pick = shard_pick(shard_first_rows(n, rows), n, rows, r)
+    return None if pick is None else parts[pick[0]][pick[1]]
+
+
 class WindowModel:
     """csrc/verify.cu WindowReader: word k of the window at u32 `start`,
     fetched from the plane rows when asked for, the upper raw row kept as the
@@ -89,10 +119,8 @@ class WindowModel:
         set."""
         r = self.base + (self.gwords - 1 if r >= self.gwords else r)
         if isinstance(self.gp, list):
-            rows = len(self.gp[0])
-            if not 0 <= r < rows * len(self.gp):
-                return [0, 0, 0]
-            return [int(x) for x in self.gp[r // rows][r % rows]]
+            row = shard_row_model(self.gp, r)
+            return [0, 0, 0] if row is None else [int(x) for x in row]
         r = min(max(r, 0), 2 * self.gwords - 1)
         return [int(x) for x in self.gp[r]]
 

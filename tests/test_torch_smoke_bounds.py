@@ -73,6 +73,38 @@ def test_counter_refuses(function):
         chip_smoke.sass_int32_ops(LISTING, function)
 
 
+SPILL_LISTING = """
+		Function : _ZN37_GLOBAL__N__0_9_verify_cu_031verify_fused_gather_wide_kernelILi5ELb0EEEvPKj
+        /*0000*/                   STL [R1], R2 ;                            /* 0x0 */
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;                   /* 0x0 */
+        /*0020*/                   VOTE.ANY R3, PT, P0 ;                     /* 0x0 */
+        /*0030*/                   @P0 BRA 0x10 ;                            /* 0x0 */
+        /*0040*/                   LDL R2, [R1] ;                            /* 0x0 */
+        /*0050*/                   @P1 BRA 0x40 ;                            /* 0x0 */
+        /*0060*/                   LDL R4, [R1+0x4] ;                        /* 0x0 */
+        /*0070*/                   EXIT ;                                    /* 0x0 */
+        /*0080*/                   BRA 0x80;                                 /* 0x0 */
+"""
+
+
+def test_local_memory_in_loops():
+    """A spill store before the loops and a reload after them are not in a
+    loop; the reload inside the loop 0x40-0x50 is."""
+    assert chip_smoke.sass_local_in_loops(SPILL_LISTING,
+                                          "wide_kernelILi5ELb0E") == 1
+
+
+@pytest.mark.parametrize("regs, smem, warps", [
+    (64, 12_804, 32),      # the register file: 8 blocks of 4 warps
+    (96, 21_000, 20),      # 5 blocks
+    (63, 31_248, 28),      # shared memory: 7 blocks
+    (99, 82_448, 8),       # shared memory: 2 blocks
+    (32, 0, 64),           # the warp limit
+])
+def test_resident_warps(regs, smem, warps):
+    assert chip_smoke.resident_warps(regs, smem) == warps
+
+
 def test_every_kernel_has_a_listing_name():
     # the two row gathers are bound by bytes: no operation count
     assert set(chip_smoke.SASS_KERNELS) == set(chip_smoke.KERNEL_SOURCES) \

@@ -4,15 +4,18 @@ window_planes followed by its fused verify path, run as the JAX tests run it
 on the CPU (the jnp sequence, and the Pallas kernel in interpret mode),
 exactly, on lanes whose windows wrap below position 0, run past the genome
 end, come from both orientations and carry short reads.  For buckets over 256
-bp (9..32 read words) a scalar per-lane model of the CUDA kernel's control
-flow (window words fetched as the Hamming words and the Myers columns
-advance, the match table indexed by the column's symbol) is held to the plain
+bp (9..32 read words) a scalar per-lane model of the CUDA kernel (a lane on a
+group of threads, each holding a few words; window words fetched as the
+Hamming words and the Myers columns advance; a column's carry across the
+group from the threads' generate / propagate ballots) is held to the plain
 version as well.  On genome planes split over 2 and 3 shards (a sharded
 index) the kernels' SHARD instances are modelled the same way: the inline
 window fetch of the narrow kernel and the streamed one of the wide kernel
 read each row from the shard that holds it, equal to the plain version on
 the shard set, to the whole table's result and to the JAX package's sharded
 window gather."""
+import re
+
 import numpy as np
 import pytest
 
@@ -94,45 +97,137 @@ def lanes(rng, n, m, e, n_rows=37):
     return gp, L, reads.astype(np.uint8), lens_r, row, orient, start
 
 
-def wide_lane_model(gp, gwords, L, orient, start, planes, length, m, ncols,
-                    e):
-    """One lane as verify_fused_gather_wide_kernel runs it: the Hamming
-    count word by word from the streamed window, then (ham > e) the match
-    table of five rows and the Myers columns over a second pass of the
-    window.  planes: the lane's 3 * Wd read-plane words."""
+WIDE_CAPACITIES = tuple(kernels.WIDE_WORDS)   # the buckets' capacities
+
+
+def wide_builds() -> list:
+    """The read words per thread K of the wide gathering kernel's builds in
+    csrc/verify.cu (the cases of fused_gather's dispatch)."""
+    with open(kernels.SOURCES["verify"]) as f:
+        src = f.read()
+    return sorted(int(k) for k in re.findall(
+        r"case (\d+): return launch_fused_gather_wide<", src))
+
+
+def wide_capacity(wd: int) -> int:
+    """The word capacity of the build that takes wd read words."""
+    return next(nw for nw in WIDE_CAPACITIES if wd <= nw)
+
+
+def group_carries(gen: int, prop: int, gbase: int, T: int) -> list:
+    """The carry into each thread of the group at warp lanes [gbase,
+    gbase + T): gen / prop are the warp's ballots of "the thread's block
+    carries out" and "it carries out or its sum is all ones" (G | P), every
+    group's bits included.  A = G from the group's first lane up, B = G | P
+    whole; the carries are (A + B) ^ A ^ B, bit by bit (no carry starts
+    below the group, where A is 0)."""
+    a, b = gen & (U32 << gbase) & U32, prop
+    c = ((a + b) ^ a ^ b) & U32
+    return [(c >> (gbase + t)) & 1 for t in range(T)]
+
+
+def group_lane_model(gp, gwords, L, orient, start, planes, length, m, ncols,
+                     e, K, gbase=0, noise=0):
+    """One lane as verify_fused_gather_wide_kernel runs it with K words per
+    thread on a group of T = ceil(Wd / K) threads at warp lanes [gbase,
+    gbase + T), words aligned at the top: thread t holds words
+    Wd - T K + t K + j, j < K (below 0: eq 0).  The Hamming count: each
+    thread its words of the window streamed from its own first word, summed
+    over the group.  Then (ham > e) per column: each thread adds its words
+    with carry in 0 (g: carry out; p: all-ones sum), the warp's ballots
+    (other groups' bits: `noise`) give the carry into each thread, the
+    thread adds it in, hp / hn top bits go one thread up, and the last
+    thread's last word gives the score.  planes: the lane's 3 * Wd
+    read-plane words."""
     Wd = m // 32
-    win = WindowModel(gp, orient, start, gwords, L)
-    cur, ham = win.next(), 0
-    for k in range(Wd):
-        nxt = win.next()
-        a0, a1, an = (((c >> e) | (x << (32 - e))) & U32 if e else c
-                      for c, x in zip(cur, nxt))
-        d0, d1, dn = planes[k], planes[Wd + k], planes[2 * Wd + k]
-        lmask = mask_lt(min(max(length - 32 * k, 0), 32))
-        eqb = ~(a0 ^ d0) & ~(a1 ^ d1)
-        match = (eqb | ((a0 & ~a1) & (d0 & d1))) & ~an & ~dn
-        ham += bin(~match & lmask & U32).count("1")
-        cur = nxt
+    T = -(-Wd // K)
+    k0 = [Wd - T * K + t * K for t in range(T)]
+    ham = 0
+    for t in range(T):
+        win = WindowModel(gp, orient, start, gwords, L, max(k0[t], 0))
+        cur = win.next()
+        for k in range(max(k0[t], 0), k0[t] + K):
+            nxt = win.next()
+            a0, a1, an = (((c >> e) | (x << (32 - e))) & U32 if e else c
+                          for c, x in zip(cur, nxt))
+            d0, d1, dn = planes[k], planes[Wd + k], planes[2 * Wd + k]
+            lmask = mask_lt(min(max(length - 32 * k, 0), 32))
+            eqb = ~(a0 ^ d0) & ~(a1 ^ d1)
+            match = (eqb | ((a0 & ~a1) & (d0 & d1))) & ~an & ~dn
+            ham += bin(~match & lmask & U32).count("1")
+            cur = nxt
     if ham <= e:
         return ham
-    table = [[], [], [], [], []]
-    for k in range(Wd):
-        r0, r1, rn = planes[k], planes[Wd + k], planes[2 * Wd + k]
-        p = ~mask_lt(min(max(length - 32 * k, 0), 32)) & U32
-        for row, bits in zip(table, (~r0 & ~r1 & ~rn,
-                                     (r0 & ~r1 & ~rn) | (r0 & r1 & ~rn),
-                                     ~r0 & r1 & ~rn, r0 & r1 & ~rn, 0)):
-            row.append((bits | p) & U32)
-    vp, vn, score, best = [U32] * Wd, [0] * Wd, m, m
+    # per thread and word: PEQ rows 0..3 and the pad row (zero below word 0)
+    table = [[[0] * K for _ in range(5)] for _ in range(T)]
+    for t in range(T):
+        for j in range(K):
+            k = k0[t] + j
+            if k < 0:
+                continue
+            r0, r1, rn = planes[k], planes[Wd + k], planes[2 * Wd + k]
+            p = ~mask_lt(min(max(length - 32 * k, 0), 32)) & U32
+            for row, bits in enumerate((~r0 & ~r1 & ~rn,
+                                        (r0 & ~r1 & ~rn) | (r0 & r1 & ~rn),
+                                        ~r0 & r1 & ~rn, r0 & r1 & ~rn, 0)):
+                table[t][row][j] = (bits | p) & U32
+    vp = [[U32] * K for _ in range(T)]
+    vn = [[0] * K for _ in range(T)]
+    other = U32 & ~(((1 << T) - 1) << gbase)     # the warp's other groups
+    score = best = m
     win = WindowModel(gp, orient, start, gwords, L)
     for j0 in range(0, ncols, 32):
         a0, a1, an = win.next()
         for b in range(min(32, ncols - j0)):
             sym = 4 if (an >> b) & 1 \
                 else ((a0 >> b) & 1) | (((a1 >> b) & 1) << 1)
-            score += myers_column_words(vp, vn, table[sym])
+            eq = [table[t][sym] for t in range(T)]
+            s = [[0] * K for _ in range(T)]
+            gen, prop = noise & other, (noise | noise >> 7) & other
+            for t in range(T):
+                c, ones = 0, U32
+                for j in range(K):
+                    x = (eq[t][j] & vp[t][j]) + vp[t][j] + c
+                    s[t][j], c = x & U32, x >> 32
+                    ones &= s[t][j]
+                gen |= c << (gbase + t)
+                prop |= int(c == 1 or ones == U32) << (gbase + t)
+            cin = group_carries(gen, prop, gbase, T)
+            d0 = [[0] * K for _ in range(T)]
+            hp, hn = [[0] * K for _ in range(T)], [[0] * K for _ in range(T)]
+            for t in range(T):
+                c = cin[t]
+                for j in range(K):
+                    x = s[t][j] + c
+                    c = x >> 32
+                    v = vp[t][j]
+                    d0[t][j] = ((x & U32) ^ v) | eq[t][j] | vn[t][j]
+                    hp[t][j] = (vn[t][j] | ~(d0[t][j] | v)) & U32
+                    hn[t][j] = v & d0[t][j]
+            for t in range(T):
+                hp_in = hp[t - 1][K - 1] >> 31 if t else 0
+                hn_in = hn[t - 1][K - 1] >> 31 if t else 0
+                for j in range(K):
+                    x = ((hp[t][j] << 1) | hp_in) & U32
+                    vp[t][j] = (((hn[t][j] << 1) | hn_in)
+                                | ~(d0[t][j] | x)) & U32
+                    vn[t][j] = d0[t][j] & x
+                    hp_in, hn_in = hp[t][j] >> 31, hn[t][j] >> 31
+            score += (hp[T - 1][K - 1] >> 31) - (hn[T - 1][K - 1] >> 31)
             best = min(best, score)
     return best
+
+
+def lane_models(gp, gwords, L, orient, start, tab, row, lens_r, m, ncols, e,
+                K=None):
+    """group_lane_model over every lane, with the K of the build that takes
+    this bucket (or the K given)."""
+    K = kernels.wide_words(m // 32) if K is None else K
+    tab_n = tab.numpy()
+    return [group_lane_model(
+        gp, gwords, L, int(orient[i]), int(start[i]),
+        [int(x) for x in tab_n[row[i]]], int(lens_r[row[i]]), m, ncols, e, K)
+        for i in range(len(orient))]
 
 
 @pytest.mark.parametrize("m,e,n", [(96, 4, 600), (64, 2, 600), (32, 3, 600),
@@ -164,12 +259,8 @@ def test_gathering_verify_ref_vs_jax_sequence(rng, m, e, n):
     same(got, want)
     same(kernels.verify_fused_gather_ref(*args), want)
     if Wd > 8:           # the kernel for these widths, lane by lane
-        tab_n = tab.numpy()
-        model = [wide_lane_model(
-            gp, gp.shape[0] // 2, L, int(orient[i]), int(start[i]),
-            [int(x) for x in tab_n[row[i]]], int(lens_r[row[i]]), m, ncols,
-            e) for i in range(n)]
-        same(got, model)
+        same(got, lane_models(gp, gp.shape[0] // 2, L, orient, start, tab,
+                              row, lens_r, m, ncols, e))
 
 
 def test_gathering_verify_ref_vs_pallas_interpret(rng):
@@ -330,8 +421,5 @@ def test_gathering_verify_on_a_shard_set(rng, ns, m, e, n):
     assert torch.equal(got, kernels.verify_fused_gather(
         torch.from_numpy(gp.view(np.int32)), *lane_args))
     if Wd > 8:
-        tab_n = tab.numpy()
-        same(got, [wide_lane_model(
-            parts, gwords, L, int(orient[i]), int(start[i]),
-            [int(x) for x in tab_n[row[i]]], int(lens_r[row[i]]), m, ncols,
-            e) for i in range(n)])
+        same(got, lane_models(parts, gwords, L, orient, start, tab, row,
+                              lens_r, m, ncols, e))
