@@ -15,7 +15,9 @@ for explicitly, on the CPU (`--platform cpu`); `--oracle` maps through the
 numpy oracle on the host instead.  With more than one local card and no
 `--single-device`, batches are split over every card (parallel/shard.py),
 the index replicated on each, or split over `--shard-index N` cards per
-data slice.
+data slice.  On one card a full batch replays a CUDA graph of its device
+call (models/graphs.py); a `--profile` run stays eager, so that its trace
+names every kernel launch.
 
 Streaming runs checkpoint a (record, byte-offset) cursor next to the output,
 `<out>.cursor`, after every written group (the reference's JSON: a run
@@ -606,13 +608,15 @@ def cmd_search(args) -> int:
         if args.oracle:
             return ose(idx, c, codes, quals, qnames)
         return map_batch(idx, dix, c, codes, quals, qnames, stats=stats,
-                         pool=pool, mappers=mappers_for(c))
+                         pool=pool, mappers=mappers_for(c),
+                         graphs=not args.profile)
 
     def run_pairs(c, prs, quals, qnames):
         if args.oracle:
             return ope(idx, c, prs, quals, qnames)
         return map_batch_pe(idx, dix, c, prs, quals, qnames, stats=stats,
-                            pool=pool, mappers=mappers_for(c))
+                            pool=pool, mappers=mappers_for(c),
+                            graphs=not args.profile)
 
     try:
         with device_trace(args.profile, device):

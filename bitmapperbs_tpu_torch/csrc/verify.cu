@@ -94,6 +94,7 @@
 #include <type_traits>
 
 #include "shards.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -1015,18 +1016,6 @@ void launch_myers_scan(const uint32_t* win, const uint32_t* peq,
                                                    ww, m, ncols);
 }
 
-constexpr size_t kStaticSharedLimit = 48 * 1024;
-constexpr size_t kSharedLimit = 227 * 1024;   // a block's most on sm_90
-
-// Dynamic shared memory above 48 KB is an opt-in per kernel instance.
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes > kSharedLimit) return cudaErrorInvalidValue;
-  if (bytes <= kStaticSharedLimit) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-}
-
 // The wide kernel at K read words per thread: a block of kThreads threads
 // takes one lane per group, (kThreads / 32) * floor(32 / ceil(wd / K)).
 template <int K, bool SHARD>
@@ -1075,8 +1064,9 @@ cudaError_t launch_rescue_scan_mode(const RescueArgs<SHARD>& a,
   const size_t smem =
       (SHARED ? size_t(5) * NW * kThreads * sizeof(uint32_t) : 0) +
       (MODE == 0 ? size_t(pairs) * a.qstride : 0);
-  const cudaError_t rc =
-      allow_shared(rescue_scan_kernel<NW, SHARED, MODE, SHARD>, smem);
+  static size_t granted[kMaxDevices];
+  const cudaError_t rc = allow_shared(
+      rescue_scan_kernel<NW, SHARED, MODE, SHARD>, smem, granted);
   if (rc != cudaSuccess) return rc;
   const unsigned grid = unsigned((a.B + pairs - 1) / pairs);
   rescue_scan_kernel<NW, SHARED, MODE, SHARD><<<grid, kThreads, smem, st>>>(

@@ -67,6 +67,10 @@ class DeviceIndex:
     sa_rate: int = K.DEFAULT_SA_RATE
     klt_k: int = 0
     g_words: int = 0
+    # the CUDA graphs of this index's device calls by key (models/graphs.py):
+    # they read its tables, so they live and go with it
+    graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def sharded(self) -> bool:

@@ -6,7 +6,8 @@ Every stage is lane-parallel with masking over fixed shapes, and produces
 the same (best, second) tuples as the reference.  u32 lanes are int64
 (ops/u32.py).  The only host sync is in `_chunked_lanes` (flat_chunks > 1);
 otherwise `map_batch_device` enqueues its work and returns, so the host
-loop can keep batches in flight.
+loop can keep batches in flight, and copies no host data to the card
+(`_constant`), so models/graphs.py can capture it in a CUDA graph.
 
 On a sharded index (index/device.upload_index_sharded) the same kernels
 launch: the FM step kernels and the gathering verify read each row from
@@ -31,6 +32,21 @@ from bitmapperbs_tpu_torch.oracle.pipeline import se_frames
 
 INF = K.INF_SCORE
 _I64 = torch.int64
+
+
+_CONSTANTS: dict = {}
+
+
+def _constant(values: tuple, dtype, dev) -> torch.Tensor:
+    """A small constant tensor on `dev`, made once per (values, dtype,
+    device) and kept: a call captured in a CUDA graph (models/graphs.py)
+    cannot copy host data to the card, so it reads the copy that its
+    warm-up made.  Read only."""
+    key = (values, dtype, torch.device(dev))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=dev)
+    return t
 
 
 def _arange(n, dev):
@@ -66,7 +82,7 @@ def _seed_stage(dix: DeviceIndex, cfg: AlignerConfig, reads, lengths,
     F = len(frames)
     dev = reads.device
 
-    conv = torch.tensor(K.CONV_MAP, dtype=torch.uint8, device=dev)
+    conv = _constant(tuple(K.CONV_MAP), torch.uint8, dev)
     rc = _revcomp_padded(reads, lengths)
     # se_frames(cfg, mate) lists the mate's own pattern first: frame 0 is
     # the read (mate 1) or its reverse complement (mate 2), frame 2 (PBAT)
@@ -74,9 +90,8 @@ def _seed_stage(dix: DeviceIndex, cfg: AlignerConfig, reads, lengths,
     frame_reads = torch.stack(
         [reads if p == K.PAT_CT else rc for p, _ in frames], dim=1)  # B,F,m
     patterns = conv[frame_reads.to(_I64)]                             # B,F,m
-    blocks = torch.tensor([b for _, b in frames], dtype=_I64, device=dev)
-    bp_codes = torch.tensor([b * 2 + p for p, b in frames], dtype=_I64,
-                            device=dev)
+    blocks = _constant(tuple(b for _, b in frames), _I64, dev)
+    bp_codes = _constant(tuple(b * 2 + p for p, b in frames), _I64, dev)
 
     # ---- seeding: backward-search every (read, frame, seed) ---------------
     starts, ends = _seed_bounds(lengths, S)              # B,S

@@ -7,6 +7,11 @@ Finalize and PE assembly are models/pool.py (native C++ finalize when
 index/sais_native/libsais.so is built, numpy spec path otherwise), kept
 equal to the reference's, so a batch whose device tensors equal the
 reference's gives byte-identical SAM.
+
+On one card a full batch's device call replays a CUDA graph
+(models/graphs.py, the counterpart of the reference's jax.jit); tail
+batches, the gdrop dense re-run, flat_chunks > 1, CPU tensors and the mesh
+mappers stay eager, and `graphs=False` keeps every call eager.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from bitmapperbs_tpu_torch.config import AlignerConfig
 from bitmapperbs_tpu_torch.index.build import BSIndex
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
 from bitmapperbs_tpu_torch.io.sam import SamRecord
+from bitmapperbs_tpu_torch.models import graphs as device_graphs
 from bitmapperbs_tpu_torch.models.aligner import map_batch_device
 from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
 from bitmapperbs_tpu_torch.models.pool import (_assemble_pe_local,
@@ -112,14 +118,18 @@ def _gdrop_fallback_se(dense_fn, cfg: AlignerConfig, arr, lengths, out_np):
     return _merge_where(gdrop, dense, out_np)
 
 
-def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers):
+def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
+                graphs: bool = True):
     """(map_fn, dense_fn), each fn(arr, lengths, min_read_len) on host
-    arrays: the mesh's (parallel/shard.CliMappers) or one device's."""
+    arrays: the mesh's (parallel/shard.CliMappers) or one device's, whose
+    eligible calls replay a CUDA graph when `graphs` is set."""
     if mappers is not None:
         return mappers.se, mappers.se_dense
 
     def on(c):
         def fn(arr, lengths, mn):
+            if graphs and device_graphs.eligible(dix, c, arr.shape[0]):
+                return device_graphs.map_batch(dix, c, arr, lengths, mn)
             return map_batch_device(dix, c,
                                     *_to_device(arr, lengths, dix.device),
                                     min_read_len=mn)
@@ -147,7 +157,7 @@ def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
 
 def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
               quals=None, qnames=None, stats=None, pool=None,
-              mappers=None) -> list[SamRecord]:
+              mappers=None, graphs: bool = True) -> list[SamRecord]:
     """End-to-end device mapping of a list of reads -> SAM records.
 
     Up to MAX_INFLIGHT batches are enqueued on the device ahead of the host
@@ -156,14 +166,16 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
     pool: optional finalize pool (models.pool.make_finalize_pool).
     mappers: optional parallel.shard.CliMappers: batches map over its mesh
     (rows rounded up to a multiple of its data slices) instead of on dix,
-    which is then unused."""
+    which is then unused.  graphs: replay a CUDA graph per full batch on
+    one card (models/graphs.py); False keeps every device call eager.  The
+    records do not depend on it."""
     quals = quals or [""] * len(reads)
     qnames = qnames or [f"r{i}" for i in range(len(reads))]
     rc_ref = idx.genome.rc_codes()
     m_pad = cfg.read_len_bucket
     bs = cfg.batch_size
     rnd = mappers.batch_round if mappers is not None else 1
-    map_fn, dense_fn = _se_mappers(dix, cfg, mappers)
+    map_fn, dense_fn = _se_mappers(dix, cfg, mappers, graphs)
 
     def dispatch(lo):
         chunk = reads[lo:lo + bs]
@@ -186,13 +198,17 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
     return _pipelined(len(reads), bs, dispatch, finish)
 
 
-def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers):
+def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
+                graphs: bool = True):
     """PE analogue of _se_mappers: fn(a1, l1, a2, l2, min1, min2)."""
     if mappers is not None:
         return mappers.pe, mappers.pe_dense
 
     def on(c):
         def fn(a1, l1, a2, l2, mn1, mn2):
+            if graphs and device_graphs.eligible(dix, c, a1.shape[0]):
+                return device_graphs.map_batch_pe(dix, c, a1, l1, a2, l2,
+                                                  mn1, mn2)
             return map_batch_pe_device(
                 dix, c, *_to_device(a1, l1, dix.device),
                 *_to_device(a2, l2, dix.device), min_read_len1=mn1,
@@ -203,7 +219,7 @@ def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers):
 
 def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
                  quals=None, qnames=None, stats=None, pool=None,
-                 mappers=None) -> list[SamRecord]:
+                 mappers=None, graphs: bool = True) -> list[SamRecord]:
     """End-to-end device PE mapping of (read1, read2) code-array pairs ->
     SAM records, two per pair, in input order.
 
@@ -211,13 +227,14 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
     names (default p<i>).  As map_batch: up to MAX_INFLIGHT batches in
     flight, one D2H copy per batch, a whole-batch dense re-run merged per
     pair when any pair has gdrop, stats.overflow_reads counts pairs with a
-    capacity overflow in either mate, `pool` fans the assembly out, and
-    `mappers` maps over a mesh (pe / pe_dense)."""
+    capacity overflow in either mate, `pool` fans the assembly out,
+    `mappers` maps over a mesh (pe / pe_dense), and `graphs` replays a CUDA
+    graph per full batch on one card."""
     m_pad = cfg.read_len_bucket
     bs = cfg.batch_size
     rc_ref = idx.genome.rc_codes()
     rnd = mappers.batch_round if mappers is not None else 1
-    map_fn, dense_fn = _pe_mappers(dix, cfg, mappers)
+    map_fn, dense_fn = _pe_mappers(dix, cfg, mappers, graphs)
 
     def run(fn, a1, l1, a2, l2):
         return fn(a1, l1, a2, l2, int(l1.min()), int(l2.min()))

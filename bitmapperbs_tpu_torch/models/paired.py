@@ -14,8 +14,10 @@ reduces to equality of these tensors.
 u32 lanes are int64 (ops/u32.py); every u32 add and subtract that the
 reference lets wrap is wrapped here at the same place, because invalid
 lanes (no anchor, bp = 127) still reach the output dict.  The pair join
-materializes one (B, Kc, Kc) grid per compatible frame pair (2
-directional, 4 PBAT), with staged reductions, never the P-way stack.
+is kernels.pair_join: one launch on the card (csrc/pair.cu: a block per
+pair over the valid candidates, no grid); its plain version, which the
+wrapper runs on CPU tensors, materializes one (B, Kc, Kc) grid per
+compatible frame pair (2 directional, 4 PBAT) and staged reduction.
 """
 from __future__ import annotations
 
@@ -32,23 +34,7 @@ from bitmapperbs_tpu_torch.oracle.pipeline import se_frames
 
 _I64 = torch.int64
 
-# bp code -> is-reverse (bp = block*2 + pat; see constants.IS_REVERSE)
-_REV_BY_BP = [K.IS_REVERSE[(bp >> 1, bp & 1)] for bp in range(4)]
-
-
 _frame_anchor = verify.frame_anchor
-
-
-def _lex_lt(a: tuple, b: tuple):
-    """Elementwise lexicographic a < b over equal-length tuples of tensors."""
-    lt = eq = None
-    for x, y in zip(a, b):
-        if lt is None:
-            lt, eq = x < y, x == y
-        else:
-            lt = lt | (eq & (x < y))
-            eq = eq & (x == y)
-    return lt
 
 
 def _missing_mate_tables(cfg: AlignerConfig, g1, g2, anch_is_1, opp_pat,
@@ -77,72 +63,6 @@ def _missing_mate_tables(cfg: AlignerConfig, g1, g2, anch_is_1, opp_pat,
     lenmask = verify.length_mask(ms_len, m)
     peq, pad = verify.build_peq(ms_reads, ms_len, m)
     return planes, peq, pad, lenmask
-
-
-def _pair_join(cfg: AlignerConfig, g1, g2, frames1, frames2, m1, m2, L):
-    """Best proper pair by (sum, fwd1, fwd2, bp1, bp2) and the best pair
-    sum at a distinct locus (either mate more than e away, or another
-    frame).  Returns (best tuple, mate-1 score of the best, the best's
-    frame anchors a1 and a2, second sum)."""
-    B = m1.shape[0]
-    e = cfg.max_errors
-    dev = m1.device
-    compat = [(i1, i2)
-              for i1, (p1, b1) in enumerate(frames1)
-              for i2, (p2, b2) in enumerate(frames2)
-              if b1 == b2 and p1 != p2]
-
-    def full(v, dtype=_I64):
-        return torch.full((B,), v, dtype=dtype, device=dev)
-
-    best = (full(2 * INF, torch.int32), full(INVALID), full(INVALID),
-            full(127), full(127))
-    best_s1 = full(INF, torch.int32)      # payload: mate-1 score of best
-    pair_data = []
-    for i1, i2 in compat:
-        s1, f1 = g1["score"][:, i1, :, None], g1["fwd"][:, i1, :, None]
-        s2, f2 = g2["score"][:, i2, None, :], g2["fwd"][:, i2, None, :]
-        bp1 = frames1[i1][1] * 2 + frames1[i1][0]
-        bp2 = frames2[i2][1] * 2 + frames2[i2][0]
-        if not _REV_BY_BP[bp1]:           # mate 1 is the forward mate
-            ffwd, frev, mrev = f1, f2, m2[:, None, None]
-        else:
-            ffwd, frev, mrev = f2, f1, m1[:, None, None]
-        insert = wrap(frev + mrev - ffwd)
-        ok = ((s1 < INF) & (s2 < INF) & (ffwd <= frev)
-              & (insert >= cfg.min_insert) & (insert <= cfg.max_insert))
-        ssum = torch.where(ok, s1 + s2, 2 * INF)              # B,Kc,Kc
-
-        # staged lexicographic min inside this grid
-        smin = ssum.reshape(B, -1).amin(dim=-1)
-        at_min = ssum == smin[:, None, None]
-        f1min = torch.where(at_min, f1, INVALID).reshape(B, -1).amin(dim=-1)
-        m2sel = at_min & (f1 == f1min[:, None, None])
-        f2min = torch.where(m2sel, f2, INVALID).reshape(B, -1).amin(dim=-1)
-        cand = (smin, f1min, f2min, full(bp1), full(bp2))
-        # mate-1 score of the selected cell (unique per read)
-        m3sel = m2sel & (f2 == f2min[:, None, None])
-        s1min = torch.where(m3sel, s1, INF).reshape(B, -1).amin(dim=-1)
-        take = _lex_lt(cand, best)
-        best = tuple(torch.where(take, c, b) for c, b in zip(cand, best))
-        best_s1 = torch.where(take, s1min, best_s1)
-        pair_data.append((ssum, f1, f2, bp1, bp2))
-
-    _, pf1, pf2, pbp1, pbp2 = best
-    pa1 = _frame_anchor(pf1, pbp1 >> 1, m1, L)
-    pa2 = _frame_anchor(pf2, pbp2 >> 1, m2, L)
-    second = full(2 * INF, torch.int32)
-    for ssum, f1, f2, bp1, bp2 in pair_data:
-        a1 = _frame_anchor(f1, bp1 >> 1, m1[:, None, None], L)
-        a2 = _frame_anchor(f2, bp2 >> 1, m2[:, None, None], L)
-        b1, b2 = pa1[:, None, None], pa2[:, None, None]
-        d1 = (pbp1[:, None, None] != bp1) | (
-            torch.maximum(a1, b1) - torch.minimum(a1, b1) > e)
-        d2 = (pbp2[:, None, None] != bp2) | (
-            torch.maximum(a2, b2) - torch.minimum(a2, b2) > e)
-        s = torch.where(d1 | d2, ssum, 2 * INF).reshape(B, -1).amin(dim=-1)
-        second = torch.minimum(second, s)
-    return best, best_s1, pa1, pa2, second
 
 
 def _rescue_scan(dix: DeviceIndex, cfg: AlignerConfig, block, lo, hi, r_ok,
@@ -214,8 +134,12 @@ def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig, reads1,
     g1 = candidate_stage(dix, cfg, reads1, m1, frames1, min_read_len1)
     g2 = candidate_stage(dix, cfg, reads2, m2, frames2, min_read_len2)
 
-    (psum, _, _, pbp1, pbp2), best_s1, pa1, pa2, second_sum = _pair_join(
-        cfg, g1, g2, frames1, frames2, m1, m2, L)
+    # best proper pair by (sum, fwd1, fwd2, bp1, bp2), its mate-1 score and
+    # frame anchors, and the best sum at a distinct locus: one launch
+    (psum, _, _, pbp1, pbp2), best_s1, pa1, pa2, second_sum = \
+        kernels.pair_join(g1["score"], g1["fwd"], g2["score"], g2["fwd"],
+                          frames1, frames2, m1, m2, L, e, cfg.min_insert,
+                          cfg.max_insert)
 
     se1 = select_se(g1, e)
     se2 = select_se(g2, e)
@@ -224,7 +148,7 @@ def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig, reads1,
     f1fwd = _frame_anchor(se1["best_anchor"], se1["best_bp"] >> 1, m1, L)
     f2fwd = _frame_anchor(se2["best_anchor"], se2["best_bp"] >> 1, m2, L)
     s1, s2 = se1["best_score"], se2["best_score"]
-    anch_is_1 = (s1 < INF) & ((s2 >= INF) | ~_lex_lt(
+    anch_is_1 = (s1 < INF) & ((s2 >= INF) | ~kernels.lex_lt(
         (s2, f2fwd, se2["best_bp"]), (s1, f1fwd, se1["best_bp"])))
     have_anchor = (s1 < INF) | (s2 < INF)
     A = torch.where(anch_is_1, f1fwd, f2fwd)             # fwd anchor
@@ -232,7 +156,7 @@ def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig, reads1,
     # bp = 127 (no anchor) reads entry 3, as the reference's clamped gather
     bp_c = a_bp.clamp(0, 3)
     a_rev = torch.zeros_like(bp_c, dtype=torch.bool)
-    for bp, rev in enumerate(_REV_BY_BP):
+    for bp, rev in enumerate(kernels.REV_BY_BP):
         if rev:
             a_rev |= bp_c == bp
     a_len = torch.where(anch_is_1, m1, m2)

@@ -17,17 +17,23 @@ bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
                          <- that row gather fused with the FM-index step it
                             feeds, the step loops of ops/fm.search_patterns,
                             extend_seeds and locate inside one launch each
+    pair_join            <- no Pallas kernel: the PE proper-pair join, plain
+                            jnp under jit in the reference
+                            (bitmapperbs_tpu/models/paired.py:80-145)
 
 verify_fused and myers_scan take planes gathered by the caller; no mapping
 path calls them since the gathering entries serve the sharded index too.
 
 The verify wrappers take u32 plane lanes as int64 tensors (ops/u32.py);
 gather_rows takes an int32 table and int64 row indices; the FM wrappers take
-the device index and int64 lanes.  On CPU tensors a wrapper runs its plain
-version (`*_ref`); on CUDA tensors it checks dtype, shape and device and
-launches its kernel from csrc/verify.cu, csrc/gather.cu or csrc/fm.cu, or
-raises.  `LAUNCHES` counts the kernel launches.  A launch goes to the card
-its lanes are on (`_launching` makes that card current for the call).
+the device index and int64 lanes; pair_join the two mates' (B, F, Kc)
+candidate grids.  On CPU tensors a wrapper runs its plain version (`*_ref`);
+on CUDA tensors it checks dtype, shape and device and launches its kernel
+from csrc/verify.cu, csrc/gather.cu, csrc/fm.cu or csrc/pair.cu, or raises.
+`LAUNCHES` counts the kernel launches.  A launch goes to the card its lanes
+are on (`_launching` makes that card current for the call), on that card's
+current stream, so a CUDA graph being captured there records it
+(models/graphs.py).
 
 A table split over cards (index/device.Shards: the sharded index's
 checkpoint rows, SA samples and genome planes) goes to the fused kernels as
@@ -40,8 +46,8 @@ set through `gather_table`.  gather_rows takes a whole table only.
 
 The kernels are built on first use with nvcc for sm_90a into _build/, one
 shared library per source (compiled side by side), each named by the hash
-of its source, the shared header csrc/shards.cuh and the flags, and bound
-with ctypes.
+of its source, the shared headers csrc/shards.cuh and csrc/smem.cuh and the
+flags, and bound with ctypes.
 """
 from __future__ import annotations
 
@@ -62,7 +68,7 @@ from bitmapperbs_tpu_torch.ops.u32 import INVALID, bnot, to_i32, wrap
 LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
             "myers_scan": 0, "rescue_scan": 0, "gather_rows": 0,
             "gather_rows_shard": 0, "fm_search": 0, "fm_extend": 0,
-            "fm_locate": 0}
+            "fm_locate": 0, "pair_join": 0}
 
 MAX_WORDS = 32                  # read words the kernels take (1,024 bp)
 # verify_fused_gather over 8 read words: a lane on ceil(words / K) threads
@@ -78,8 +84,9 @@ _RESCUE_WIDE_WORDS = (12, 16, 24, 32)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
-           for name in ("verify", "gather", "fm")}
-HEADERS = (os.path.join(_PKG, "csrc", "shards.cuh"),)
+           for name in ("verify", "gather", "fm", "pair")}
+HEADERS = tuple(os.path.join(_PKG, "csrc", name)
+                for name in ("shards.cuh", "smem.cuh"))
 MAX_SHARDS = 8                  # parts of a shard set (csrc/shards.cuh)
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -138,7 +145,7 @@ def build() -> dict[str, str]:
 
 
 def _lib():
-    """The bound entry points of the three libraries, on one namespace."""
+    """The bound entry points of the four libraries, on one namespace."""
     global _LIB
     if _LIB is None:
         paths = build()
@@ -192,6 +199,11 @@ def _lib():
         for fn in (lib.btbs_fm_search, lib.btbs_fm_extend, lib.btbs_fm_locate,
                    lib.btbs_dependent_load_chain):
             fn.restype = ctypes.c_int
+        plib = ctypes.CDLL(paths["pair"])
+        lib.btbs_pair_join = plib.btbs_pair_join
+        lib.btbs_pair_join.argtypes = [vp] * 15 + [
+            i64, i32, i32, i32, i64, i64, i64, i64, vp, i32, vp]
+        lib.btbs_pair_join.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -608,6 +620,150 @@ def rescue_scan(g_planes, block, win_start, r_ok, a_lo, span, ms_len, ms_peq,
                     chunks, mode, stream), "btbs_rescue_scan")
             LAUNCHES["rescue_scan"] += 1
     return rs_best, rp_best, rs_second
+
+
+# ---- paired-end proper-pair join --------------------------------------------
+
+# bp code -> is-reverse (bp = block*2 + pat; see constants.IS_REVERSE)
+REV_BY_BP = [K.IS_REVERSE[(bp >> 1, bp & 1)] for bp in range(4)]
+_MAX_FRAME_PAIRS = 4            # csrc/pair.cu kMaxFramePairs (PBAT)
+
+
+def lex_lt(a: tuple, b: tuple):
+    """Elementwise lexicographic a < b over equal-length tuples of tensors."""
+    lt = eq = None
+    for x, y in zip(a, b):
+        if lt is None:
+            lt, eq = x < y, x == y
+        else:
+            lt = lt | (eq & (x < y))
+            eq = eq & (x == y)
+    return lt
+
+
+def frame_pairs(frames1, frames2) -> list[tuple[int, int, int, int, bool]]:
+    """The compatible frame pairs (same block, opposite pattern) of the two
+    mates' (pattern, block) frames: (mate-1 frame, mate-2 frame, bp1, bp2,
+    mate 1 is the forward mate), in the reference's order."""
+    return [(i1, i2, b1 * 2 + p1, b2 * 2 + p2, not REV_BY_BP[b1 * 2 + p1])
+            for i1, (p1, b1) in enumerate(frames1)
+            for i2, (p2, b2) in enumerate(frames2)
+            if b1 == b2 and p1 != p2]
+
+
+def pair_join_ref(s1, f1, s2, f2, frames1, frames2, m1, m2,
+                  genome_len: int, e: int, min_insert: int, max_insert: int):
+    """Plain version: one (B, Kc, Kc) torch.where grid per compatible frame
+    pair and staged reduction, as the reference writes it under jit."""
+    B = m1.shape[0]
+    L = genome_len
+    dev = m1.device
+
+    def full(v, dtype=torch.int64):
+        return torch.full((B,), v, dtype=dtype, device=dev)
+
+    best = (full(2 * K.INF_SCORE, torch.int32), full(INVALID), full(INVALID),
+            full(127), full(127))
+    best_s1 = full(K.INF_SCORE, torch.int32)  # payload: mate-1 score of best
+    pair_data = []
+    for i1, i2, bp1, bp2, fwd1 in frame_pairs(frames1, frames2):
+        s1_, f1_ = s1[:, i1, :, None], f1[:, i1, :, None]
+        s2_, f2_ = s2[:, i2, None, :], f2[:, i2, None, :]
+        if fwd1:                          # mate 1 is the forward mate
+            ffwd, frev, mrev = f1_, f2_, m2[:, None, None]
+        else:
+            ffwd, frev, mrev = f2_, f1_, m1[:, None, None]
+        insert = wrap(frev + mrev - ffwd)
+        ok = ((s1_ < K.INF_SCORE) & (s2_ < K.INF_SCORE) & (ffwd <= frev)
+              & (insert >= min_insert) & (insert <= max_insert))
+        ssum = torch.where(ok, s1_ + s2_, 2 * K.INF_SCORE)    # B,Kc,Kc
+
+        # staged lexicographic min inside this grid
+        smin = ssum.reshape(B, -1).amin(dim=-1)
+        at_min = ssum == smin[:, None, None]
+        f1min = torch.where(at_min, f1_, INVALID).reshape(B, -1).amin(dim=-1)
+        m2sel = at_min & (f1_ == f1min[:, None, None])
+        f2min = torch.where(m2sel, f2_, INVALID).reshape(B, -1).amin(dim=-1)
+        cand = (smin, f1min, f2min, full(bp1), full(bp2))
+        # mate-1 score of the selected cell (unique per read)
+        m3sel = m2sel & (f2_ == f2min[:, None, None])
+        s1min = torch.where(m3sel, s1_, K.INF_SCORE).reshape(B, -1).amin(
+            dim=-1)
+        take = lex_lt(cand, best)
+        best = tuple(torch.where(take, c, b) for c, b in zip(cand, best))
+        best_s1 = torch.where(take, s1min, best_s1)
+        pair_data.append((ssum, f1_, f2_, bp1, bp2))
+
+    _, pf1, pf2, pbp1, pbp2 = best
+    pa1 = verify.frame_anchor(pf1, pbp1 >> 1, m1, L)
+    pa2 = verify.frame_anchor(pf2, pbp2 >> 1, m2, L)
+    second = full(2 * K.INF_SCORE, torch.int32)
+    for ssum, f1_, f2_, bp1, bp2 in pair_data:
+        a1 = verify.frame_anchor(f1_, bp1 >> 1, m1[:, None, None], L)
+        a2 = verify.frame_anchor(f2_, bp2 >> 1, m2[:, None, None], L)
+        b1, b2 = pa1[:, None, None], pa2[:, None, None]
+        d1 = (pbp1[:, None, None] != bp1) | (
+            torch.maximum(a1, b1) - torch.minimum(a1, b1) > e)
+        d2 = (pbp2[:, None, None] != bp2) | (
+            torch.maximum(a2, b2) - torch.minimum(a2, b2) > e)
+        s = torch.where(d1 | d2, ssum, 2 * K.INF_SCORE).reshape(B, -1).amin(
+            dim=-1)
+        second = torch.minimum(second, s)
+    return best, best_s1, pa1, pa2, second
+
+
+def pair_join(s1, f1, s2, f2, frames1, frames2, m1, m2, genome_len: int,
+              e: int, min_insert: int, max_insert: int):
+    """Best proper pair by (sum, fwd1, fwd2, bp1, bp2) and the best pair sum
+    at a distinct locus (either mate more than e away, or another frame),
+    over the compatible frame pairs of the mates' (pattern, block) frames.
+    s1 / s2: int32 [B, F, Kc] scores (INF_SCORE = no candidate), f1 / f2:
+    int64 [B, F, Kc] fwd-genome anchors (u32 values), m1 / m2: int64 [B]
+    mate lengths.  Returns ((sum int32, fwd1, fwd2, bp1, bp2 int64), the
+    best's mate-1 score int32, its frame anchors a1 / a2 int64, the second
+    sum int32), [B] each.  One launch on the card (csrc/pair.cu), no
+    [B, Kc, Kc] tensor."""
+    _require(torch.int32, s1=s1, s2=s2)
+    _require(torch.int64, f1=f1, f2=f2, m1=m1, m2=m2)
+    if not _on_cuda(s1, f1, s2, f2, m1, m2):
+        return pair_join_ref(s1, f1, s2, f2, frames1, frames2, m1, m2,
+                             genome_len, e, min_insert, max_insert)
+    pairs = frame_pairs(frames1, frames2)
+    if s1.dim() != 3 or s2.dim() != 3:
+        raise ValueError(f"expected [B, F, Kc] scores, got "
+                         f"{tuple(s1.shape)} and {tuple(s2.shape)}")
+    B, F1, Kc = s1.shape
+    F2 = s2.shape[1]
+    if tuple(f1.shape) != (B, F1, Kc) or tuple(s2.shape) != (B, F2, Kc) \
+            or tuple(f2.shape) != (B, F2, Kc) or tuple(m1.shape) != (B,) \
+            or tuple(m2.shape) != (B,) or (F1, F2) != (len(frames1),
+                                                       len(frames2)):
+        raise ValueError(f"pair_join: shapes {tuple(s1.shape)}, "
+                         f"{tuple(f1.shape)}, {tuple(s2.shape)}, "
+                         f"{tuple(f2.shape)}, {tuple(m1.shape)}, "
+                         f"{tuple(m2.shape)} for {len(frames1)} + "
+                         f"{len(frames2)} frames")
+    if not 1 <= len(pairs) <= _MAX_FRAME_PAIRS:
+        raise ValueError(f"pair_join takes 1..{_MAX_FRAME_PAIRS} compatible "
+                         f"frame pairs, got {len(pairs)}")
+    dev = s1.device
+    ins = [t.contiguous() for t in (s1, f1, s2, f2, m1, m2)]
+    i32 = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    i64 = [torch.empty(B, dtype=torch.int64, device=dev) for _ in range(6)]
+    psum, best_s1, second = i32
+    pf1, pf2, pbp1, pbp2, pa1, pa2 = i64
+    if B:
+        codes = [int(x) for p in pairs for x in p]
+        arr = (ctypes.c_int * len(codes))(*codes)
+        with _launching(dev) as stream:
+            _check_rc(_lib().btbs_pair_join(
+                *(t.data_ptr() for t in ins),
+                *(t.data_ptr() for t in (psum, pf1, pf2, pbp1, pbp2, best_s1,
+                                         pa1, pa2, second)),
+                B, F1, F2, Kc, genome_len, e, min_insert, max_insert, arr,
+                len(pairs), stream), "btbs_pair_join")
+        LAUNCHES["pair_join"] += 1
+    return (psum, pf1, pf2, pbp1, pbp2), best_s1, pa1, pa2, second
 
 
 # ---- table row gather --------------------------------------------------------

@@ -68,11 +68,15 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      computes it (index_select); no single PyTorch call computes any of the
      others
   4. SE main path: 10 Mbp two-contig genome, 4 x 16,384 reads through
-     models.host.map_batch.  The last batch carries 1,024 low-complexity
-     (pyrimidine-only, poly-T once converted) reads, as bisulfite libraries
-     do; they overflow the flat buffer, so that batch takes the gdrop dense
-     re-run.  SAM of the first 128 and the last 8 reads equals the numpy
-     oracle's; mapped fraction and recall against the simulator.
+     models.host.map_batch, eager (graphs=False), launches counted.  The
+     last batch carries 1,024 low-complexity (pyrimidine-only, poly-T once
+     converted) reads, as bisulfite libraries do; they overflow the flat
+     buffer, so that batch takes the gdrop dense re-run.  SAM of the first
+     128 and the last 8 reads equals the numpy oracle's; mapped fraction and
+     recall against the simulator.  Then the same reads through map_batch
+     with its CUDA graphs (models/graphs.py; the default on one card): the
+     records equal the eager run's, and what the replays launched (replays
+     x the launches each capture counted) is recorded per path
   5. SE forced gdrop: the first batch with locate_flat_cap=1 (dense fallback
      for every read) gives the same SAM as phase 4; its launches and peak
      device memory are reported apart from phase 4's
@@ -81,14 +85,20 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
   7. SE throughput: map_batch_device reads/s over 8 distinct simulated
      batches (each synced by copying best_score to the host) and end-to-end
      map_batch reads/s over phase 4's 4 batches (every end-to-end rate
-     here and below: median and range of three runs)
+     here and below: median and range of three runs).  Then CUDA graphs
+     against eager on phase 4's batches: all four dispatched through their
+     graphs before the first is read, every output leaf torch.equal to the
+     eager call's; the synced per-batch wall of each, 7 rounds in turns,
+     median and range, the device idle share of each, each graph's capture
+     time and pool bytes (the same for phases 11, 12 and 13)
   8. PE main path: 4 x 4,096 pairs (simulate_pairs, 90 bp, insert
-     150-480; cfg insert 0-500 as bench.py) through models.host.map_batch_pe.
+     150-480; cfg insert 0-500 as bench.py) through models.host.map_batch_pe
+     (eager, then through its CUDA graphs as in phase 4).
      The last batch ends with 256 pairs whose mate 2 carries one
      substitution in each of three of its five seeds, and 512
      low-complexity pairs (mate 1 pyrimidine-only, mate 2 purine-only) that
      take the gdrop dense re-run.  verify_fused_gather, rescue_scan and
-     myers must launch.  SAM of
+     myers and pair_join must launch.  SAM of
      64 ordinary, 16 seed-killed and 8 low-complexity pairs equals the
      oracle's; proper-pair rate, recall, and how the last batch's pairs
      were decided (pair join / rescue / neither).  On a random genome a
@@ -113,7 +123,9 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      byte ranges then record striding: the shards together are phase 6's
      records, the global counters phase 6's stats; then PE at insert
      0-100,000 through map_batch_pe (the rescue kernel in two passes): the
-     last PE batch, SAM of a sample equal to the oracle's, each pass of the
+     last PE batch, SAM of a sample equal to the oracle's, the same through
+     its CUDA graph (both passes inside it) and phase 8's first three
+     batches at that range against eager, leaf by leaf; each pass of the
      rescue kernel timed inside on the arguments that batch's device call
      hands it, beside its bound for the columns those pairs need; and phase
      8b's repeat pairs, rescue deciding at least half, SAM equal to the
@@ -160,7 +172,8 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      inside mid-copy satellite arrays, which overflow the flat buffer and
      take the dense re-run at 128 candidates; then 1,024 reads of 280 bp in
      a 288 bucket, whose 9 plane words take the gathering verify's
-     thread-group kernel (one launch, no window_planes, no verify_fused).
+     thread-group kernel (one launch, no window_planes, no verify_fused);
+     both again through their CUDA graphs, records equal.
      SAM
      of a sample equals the oracle's; recall, mapped share, overflow and
      gdrop counts; one batch
@@ -171,14 +184,39 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
  13. PE, Gbp-scale configuration: 2 x 4,096 pairs through map_batch_pe, SAM
      of a sample equal to the oracle's, proper-pair rate, how pairs were
      decided (pair join / rescue / neither), device and end-to-end rates;
-     one rescue_scan launch per map_batch_pe_device call; the synced stage
-     tables of the 280 bp batch and of the PE batches (candidate stages,
-     pair join, select, rescue), the PE path's device kernels, idle share
-     and peak memory
+     one rescue_scan and one pair_join launch per map_batch_pe_device
+     call; the records again through the CUDA graphs; graphs against eager
+     on phase 12's and these batches (a third PE batch: the first with its
+     mates swapped); then the pair join kernel (csrc/pair.cu, no TPU
+     kernel behind it: the reference's plain jnp under jit) against its
+     plain version, all nine outputs torch.equal, on the arguments this
+     batch's device call hands it (directional, Kc 128), the batch mapped
+     PBAT (4 frame pairs) and at Kc 256, and on seeded grids of 4,096 pairs
+     with edge rows (no ok cell, empty sides, duplicate anchors, inserts at
+     the range's ends, anchors near 0 and L, the second-best's distance
+     rule): call, inside, CUDA graph, plain and bytes bound, and the time
+     of the arguments emptied and with one pair of Kc x Kc cells; the PE
+     device call's peak device memory and largest tensor with the plain
+     join and with the kernel (which makes no [B, Kc, Kc] tensor); the
+     synced stage tables of the 280 bp batch and of the PE batches
+     (candidate stages, pair join, select, rescue; the pair join row with
+     the plain join too), the PE path's device kernels, idle share and
+     peak memory
+ 13b. Trimmed reads (150 bp cut by the length model of TRIM_KEEPS, in a
+     160 bucket), 4 x 4,096 reads and 4 x 4,096 pairs of the Gbp config
+     through map_batch / map_batch_pe with their graphs and eager, records
+     equal: the graph keys they made (captures; nothing is evicted), their
+     replays, the synced per-batch walls eager and graph, each capture's
+     seconds and pool; and, from lengths only, the keys and the share of
+     reads in graphed (full) batches that the CLI's chunks of 4,096 give
+     1,048,576 reads or pairs at -e 4 and at -e 0.04, for both models
  14. CLI on the saved 100 Mbp artifact with `--seed-ext 20
      --max-candidates 128` gives phase 12's records
 Launch counts are set to 0 just before each main path (phases 4, 8, 11b's
-wide-insert batch, 11c's four paths, 12, 13) and read just after it.  The
+wide-insert batch, 11c's four paths, 12, 13), which run eager, and read
+just after it; beside them, for each graphed run of those paths, its
+graphs' replays times the launches each capture counted (computed, never
+0; the run's eager tail batches and gdrop re-runs are not in it).  The
 kernels' record gives, per kernel, the launches of the slices' main paths
 (phase 11b's wide-insert batch, 11c's data-parallel SE and PE and sharded
 SE and PE paths, phase 12's 96 bp batches, its 280 bp batch, counted on
@@ -186,7 +224,8 @@ its own, and phase 13) with every path's beside them.
 Every TPU kernel of the reference has at least one entry point that those
 paths launch, and every entry point launches on one of them but
 verify_fused and myers_scan, which no path takes any more: phase 3 holds
-them to their plain versions.
+them to their plain versions.  pair_join stands for no TPU kernel
+(NO_TPU_KERNEL_ENTRIES) and launches on the PE paths.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -268,6 +307,19 @@ FM_KERNELS = ("fm_search", "fm_extend", "fm_locate")
 PLAIN_FM_REPS = 5                  # the lockstep loops are tens of ms
 E2E_REPS = 3                       # runs of each end-to-end timing
 MESH_WALL_ROUNDS = 7               # phase 11c: rounds of the per-batch walls
+GRAPH_ROUNDS = 7                   # eager / CUDA-graph walls taken in turns
+# phase 13b, trimmed reads.  The length model is stated, not taken from a
+# dataset: a read of TRIM_READ_LEN bp keeps its length with probability
+# `keep`, else its 3' end is cut to a length uniform in [TRIM_MIN,
+# TRIM_READ_LEN) (adapter read-through of short fragments, quality
+# trimming); TRIM_MIN is Trim Galore's default --length.
+TRIM_READ_LEN, TRIM_BUCKET, TRIM_MIN = 150, 160, 20
+TRIM_KEEPS = (0.8, 0.98)           # the card maps the first
+N_TRIM_BATCHES = 4                 # SE and PE batches mapped on the card
+N_TRIM_COUNT = 1_048_576           # reads (pairs) of the length-only count
+TRIM_RATE = 0.04                   # an -e error rate: budgets 1-6 by length
+PLAIN_JOIN_REPS = 5                # the plain pair join builds 537 MB grids
+WIDE_JOIN_KC = 256                 # the pair join at 256 candidates a frame
 CHASE_STEPS = 20_000               # dependent loads of the latency probe
 L2_EVICT_BYTES = 400_000_000       # written to push a table out of the 50 MB L2
 L2_RESIDENT_BYTES = 8_000_000      # a slice of a table that stays in the L2
@@ -356,11 +408,18 @@ KERNEL_SOURCES = {
                   "scripts/pallas_gather_proto.py:28"),
     "fm_locate": ("bitmapperbs_tpu_torch/csrc/fm.cu",
                   "scripts/pallas_gather_proto.py:28"),
+    "pair_join": ("bitmapperbs_tpu_torch/csrc/pair.cu",
+                  "bitmapperbs_tpu/models/paired.py:80-145 (plain jnp "
+                  "under jax.jit: no Pallas kernel)"),
 }
 # the entries that launch on no main path, phase 3 only: there they stand
 # for TPU kernels 1 and 3 against their plain versions (the sharded index,
 # the last path that took them, runs the gathering entries)
 PHASE_3_ONLY = ("verify_fused", "myers_scan")
+# the entries with no TPU kernel behind them: work that the reference
+# writes as plain jnp and leaves to XLA under jax.jit, which the port runs
+# as a kernel of its own; each must launch on a main path too
+NO_TPU_KERNEL_ENTRIES = ("pair_join",)
 # every TPU kernel (each function of the reference that reaches
 # pl.pallas_call) and the port's entry points that stand for it: at least
 # one entry of each must launch on a main path
@@ -371,6 +430,13 @@ TPU_KERNEL_ENTRIES = {
     "make_pallas_gather.gather": ("gather_rows", "gather_rows_shard",
                                   "fm_search", "fm_extend", "fm_locate"),
 }
+
+
+# per graphed main path and kernel: each graph's replays times the launches
+# its capture counted, summed (a product, not a count: a replay counts
+# nothing in Python; the path's eager tail batches and gdrop re-runs are
+# not in it), set by graph_path
+GRAPH_PATHS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1224,6 +1290,124 @@ def straddling_pairs(idx, n: int, seed: int, read_len: int = 80):
     return pairs
 
 
+def pair_join_grids(seed: int, B: int, Kc: int, frames1, frames2, L: int,
+                    e: int, min_insert: int, max_insert: int,
+                    stray: bool = False) -> dict:
+    """Seeded inputs of the pair join (numpy: s1 / s2 int32 [B, F, Kc]
+    scores, f1 / f2 int64 [B, F, Kc] u32 fwd anchors, m1 / m2 int64 [B]).
+    Per pair a locus; per compatible frame pair 0..Kc candidates of each
+    mate in random slots (mostly a few, now and then many), mate 2 placed
+    at inserts from a little below min_insert to a little above
+    max_insert, so that cells are ok and not ok, with duplicate anchors,
+    loci near 0 and near L (u32 wrap) and scores 0..e.  An empty slot holds
+    INF and INVALID, as the candidate stages leave it, or with `stray` a
+    random anchor (the kernel's degenerate candidate reads every slot)."""
+    import numpy as np
+
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.ops.kernels import frame_pairs
+
+    rng = np.random.default_rng(seed)
+    INF, INV, U = K.INF_SCORE, 0xFFFFFFFF, 1 << 32
+    grids = {"s1": np.full((B, len(frames1), Kc), INF, np.int32),
+             "f1": np.full((B, len(frames1), Kc), INV, np.int64),
+             "s2": np.full((B, len(frames2), Kc), INF, np.int32),
+             "f2": np.full((B, len(frames2), Kc), INV, np.int64),
+             "m1": rng.integers(20, 150, B).astype(np.int64),
+             "m2": rng.integers(20, 150, B).astype(np.int64)}
+    if stray:
+        for k in ("f1", "f2"):
+            grids[k][:] = rng.integers(0, U, grids[k].shape)
+    for b in range(B):
+        where = rng.random()
+        locus = int(rng.integers(0, 300) if where < 0.1 else
+                    rng.integers(L - 300, L) if where < 0.2 else
+                    rng.integers(0, L))
+        m1, m2 = int(grids["m1"][b]), int(grids["m2"][b])
+        for i1, i2, _, _, fwd1 in frame_pairs(frames1, frames2):
+            for side, fr, n_max in (("1", i1, Kc), ("2", i2, Kc)):
+                n = int(rng.integers(0, min(n_max, 4) + 1)
+                        if rng.random() < 0.9 else rng.integers(0, n_max + 1))
+                slots = rng.choice(Kc, n, replace=False)
+                near = rng.integers(-e - 2, e + 3, n)
+                if side == "1":
+                    f = locus + near
+                else:
+                    ins = rng.integers(min_insert - 3, max_insert + 4, n)
+                    f = locus + near + (ins - m2 if fwd1 else m1 - ins)
+                if n > 1 and rng.random() < 0.3:
+                    f[1] = f[0]                      # a duplicate anchor
+                grids["s" + side][b, fr, slots] = rng.integers(0, e + 1, n)
+                grids["f" + side][b, fr, slots] = f % U
+    return grids
+
+
+def plant_pair_join_rows(grids: dict, frames1, frames2, L: int, e: int,
+                         min_insert: int, max_insert: int) -> int:
+    """Writes the pair join's edge rows over the first rows of `grids`
+    (pair_join_grids' layout), every other frame of such a row emptied:
+    no ok cell; both sides empty; mate 1 empty; duplicate mate-1 and mate-2
+    anchors with unequal scores; inserts at exactly min_insert (or at the
+    mates' length of 40 where min_insert is below it) and max_insert, one
+    past max_insert, and the forward mate after the
+    reverse one; anchors near 0 and near L, where the frame anchor of a
+    reverse-block read wraps below 0; mate-1 anchors e and e + 1 from the
+    best (the second-best's distance rule) and a second in another frame
+    pair.  Returns the number of rows written."""
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.ops.kernels import frame_pairs
+
+    INF, INV, U = K.INF_SCORE, 0xFFFFFFFF, 1 << 32
+    fps = frame_pairs(frames1, frames2)
+    m1 = m2 = 40
+    rows = []
+
+    def mate2(f1, insert, fp):
+        """The mate-2 anchor at this insert from a mate-1 anchor f1."""
+        return (f1 + insert - m2 if fp[4] else f1 + m1 - insert) % U
+
+    # no proper pair has an insert below the reverse mate's length (the
+    # forward mate would start after it): the least insert that can be ok
+    lo, hi = max(min_insert, m1), max_insert
+    p0, p1 = fps[0], fps[-1]
+    rows.append({p0: ([(1, 1000)], [(0, mate2(1000, hi + 500, p0))])})
+    rows.append({})
+    rows.append({p0: ([], [(2, 5000)])})
+    rows.append({p0: ([(2, 3000), (1, 3000), (0, 3000 + 2 * e + 5)],
+                      [(1, mate2(3000, lo, p0)), (0, mate2(3000, lo, p0)),
+                       (0, mate2(3000 + 2 * e + 5, hi, p0))])})
+    rows.append({p0: ([(3, 7000)], [(1, mate2(7000, lo, p0))])})
+    rows.append({p0: ([(1, 7000)], [(1, mate2(7000, hi, p0))])})
+    rows.append({p0: ([(0, 7000), (2, 7100)],
+                      [(0, mate2(7000, hi + 1, p0)),
+                       (2, mate2(7100, hi, p0))])})
+    rows.append({p0: ([(0, 9000)], [(0, (9000 - 50) % U if p0[4]
+                                     else (9000 + 50) % U)])})
+    rows.append({p0: ([(1, 0), (0, 1)], [(1, mate2(0, lo, p0)),
+                                         (2, mate2(1, hi, p0))]),
+                 p1: ([(1, L - m1 + 3), (0, L - m1 - 1)],
+                      [(2, mate2(L - m1 + 3, hi, p1)),
+                       (1, mate2(L - m1 - 1, lo, p1))])})
+    rows.append({p0: ([(0, 20000), (1, 20000 + e), (1, 20000 + e + 1)],
+                      [(0, mate2(20000, lo, p0)),
+                       (0, mate2(20000 + e, lo, p0)),
+                       (1, mate2(20000 + e + 1, lo, p0))]),
+                 p1: ([(2, 20000)], [(0, mate2(20000, lo, p1))])})
+    Kc = grids["s1"].shape[2]
+    for b, row in enumerate(rows):
+        for k in ("s1", "s2"):
+            grids[k][b] = INF
+        for k in ("f1", "f2"):
+            grids[k][b] = INV
+        grids["m1"][b], grids["m2"][b] = m1, m2
+        for (i1, i2, *_), (side1, side2) in row.items():
+            for fr, side, ents in (("1", i1, side1), ("2", i2, side2)):
+                for slot, (sc, f) in zip(range(Kc - 1, -1, -1), ents):
+                    grids["s" + fr][b, side, slot] = sc
+                    grids["f" + fr][b, side, slot] = f % U
+    return len(rows)
+
+
 def recall(idx, sims, recs) -> float:
     """Share of the simulated reads placed on the true contig and strand
     within e of the true leftmost coordinate."""
@@ -1294,6 +1478,7 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
     from bitmapperbs_tpu_torch.io.fastq import write_fastq
     from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
     from bitmapperbs_tpu_torch.utils.simulate import simulate_reads
+    from bitmapperbs_tpu_torch.models import graphs as device_graphs
     from bitmapperbs_tpu_torch.models.aligner import map_batch_device
     from bitmapperbs_tpu_torch.models.host import map_batch, prepare_batch
     from bitmapperbs_tpu_torch.ops import kernels
@@ -1314,10 +1499,10 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
     qnames = [f"r{i}" for i in range(len(reads))]
     reset_launches()
     t0 = time.perf_counter()
-    recs = map_batch(idx, dix, cfg, reads, quals, qnames)
+    recs = map_batch(idx, dix, cfg, reads, quals, qnames, graphs=False)
     main_launches = dict(kernels.LAUNCHES)
     log(f"main path: {len(reads)} reads mapped in "
-        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{time.perf_counter() - t0:.2f} s (first call, eager), launches "
         f"{main_launches}")
     assert len(recs) == len(reads)
     # no seed extension below 512 Mbp: fm_extend belongs to phases 12-13
@@ -1339,13 +1524,23 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
         f"{N_ORACLE_LOWCX} (low-complexity, gdrop re-run) equals the oracle;"
         f" mapped {mapped:.4f}, recall of the simulated reads "
         f"{recall(idx, main_sims, recs):.4f}")
+    t0 = time.perf_counter()
+    grecs, replays, live = graph_path(
+        "se_10mbp_graph", dix,
+        lambda: map_batch(idx, dix, cfg, reads, quals, qnames))
+    assert [r.line() for r in grecs] == lines, \
+        "SE records through CUDA graphs differ from the eager run's"
+    log(f"main path through CUDA graphs: {len(reads)} reads in "
+        f"{time.perf_counter() - t0:.2f} s (captures included), {replays} "
+        f"replays of {len(live)} graph(s), records equal to the eager run's; "
+        f"the replays launched {GRAPH_PATHS['se_10mbp_graph']}")
 
     # ---- phase 5: gdrop dense fallback forced for a whole batch -------------
     cfg_g = cfg.replace(locate_flat_cap=1)
     reset_launches()
     torch.cuda.reset_peak_memory_stats(device)
     recs_g = map_batch(idx, dix, cfg_g, reads[:BATCH], quals[:BATCH],
-                       qnames[:BATCH])
+                       qnames[:BATCH], graphs=False)
     gdrop_launches = dict(kernels.LAUNCHES)
     assert gdrop_launches["myers"] > 0, "Myers kernel never ran (forced)"
     assert [r.line() for r in recs_g] == lines[:BATCH], "gdrop SAM differs"
@@ -1396,6 +1591,12 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
         f"over phase 4's {N_MAIN_BATCHES} batches (one gdrop re-run), on "
         f"{card}")
 
+    # ---- CUDA graphs against eager on phase 4's batches ---------------------
+    batches = host_batches(reads, BUCKET, BATCH, pe=False)
+    graphs_vs_eager("10 Mbp SE, phase 4's batches", dix, cfg, batches, False)
+    graph_walls("10 Mbp SE", dix, cfg, batches, False, card)
+    device_graphs.clear(dix)
+
     return main_launches, gdrop_launches, {
         "fq": fq, "lines": lines, "stats": cli_stats, "cli_s": wall,
         "cfg": cfg, "reads": reads, "quals": quals, "qnames": qnames}
@@ -1445,6 +1646,7 @@ def run_pe(idx, dix, card: str, prefix: str, workdir: str):
     from bitmapperbs_tpu_torch.io.fastq import write_fastq
     from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
     from bitmapperbs_tpu_torch.index.device import upload_index
+    from bitmapperbs_tpu_torch.models import graphs as device_graphs
     from bitmapperbs_tpu_torch.models.host import (map_batch_pe,
                                                    prepare_batch, to_host)
     from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
@@ -1469,17 +1671,27 @@ def run_pe(idx, dix, card: str, prefix: str, workdir: str):
     reset_launches()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
+    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames, graphs=False)
     main_launches = dict(kernels.LAUNCHES)
     log(f"PE main path: {len(pairs)} pairs mapped in "
-        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{time.perf_counter() - t0:.2f} s (first call, eager), launches "
         f"{main_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(recs) == 2 * len(pairs)
     for name in ("verify_fused_gather", "rescue_scan", "myers", "fm_search",
-                 "fm_locate"):
+                 "fm_locate", "pair_join"):
         assert main_launches[name] > 0, f"{name} never ran on the PE path"
     lines = [r.line() for r in recs]
+    t0 = time.perf_counter()
+    grecs, replays, live = graph_path(
+        "pe_10mbp_graph", dix,
+        lambda: map_batch_pe(idx, dix, cfg, pairs, quals, qnames))
+    assert [r.line() for r in grecs] == lines, \
+        "PE records through CUDA graphs differ from the eager run's"
+    log(f"PE main path through CUDA graphs: {len(pairs)} pairs in "
+        f"{time.perf_counter() - t0:.2f} s (captures included), {replays} "
+        f"replays of {len(live)} graph(s), records equal to the eager run's; "
+        f"the replays launched {GRAPH_PATHS['pe_10mbp_graph']}")
     n = len(pairs)
     for lo, hi in ((0, N_PE_ORACLE), (r0, r0 + N_PE_ORACLE_RESCUE),
                    (n - N_PE_ORACLE_LOWCX, n)):
@@ -1537,7 +1749,7 @@ def run_pe(idx, dix, card: str, prefix: str, workdir: str):
     torch.cuda.reset_peak_memory_stats(device)
     recs_g = map_batch_pe(idx, dix, cfg.replace(locate_flat_cap=1),
                           pairs[:PE_PAIRS], quals[:PE_PAIRS],
-                          qnames[:PE_PAIRS])
+                          qnames[:PE_PAIRS], graphs=False)
     gdrop_launches = dict(kernels.LAUNCHES)
     assert gdrop_launches["myers"] > 0, "Myers kernel never ran (forced)"
     assert [r.line() for r in recs_g] == lines[:2 * PE_PAIRS], \
@@ -1590,6 +1802,12 @@ def run_pe(idx, dix, card: str, prefix: str, workdir: str):
         f"end-to-end map_batch_pe {e2e_rps:.1f} reads/s (median of "
         f"{E2E_REPS} runs, {e2e_lo:.1f}-{e2e_hi:.1f}) over phase 8's "
         f"{N_PE_MAIN_BATCHES} batches (one gdrop re-run), on {card}")
+
+    # ---- CUDA graphs against eager on phase 8's batches ---------------------
+    batches = host_batches(pairs, BUCKET, PE_PAIRS, pe=True)
+    graphs_vs_eager("10 Mbp PE, phase 8's batches", dix, cfg, batches, True)
+    graph_walls("10 Mbp PE", dix, cfg, batches, True, card)
+    device_graphs.clear(dix)
     return main_launches, gdrop_launches, {
         "fq": fq, "lines": lines, "recs": recs, "pairs": pairs,
         "quals": quals, "qnames": qnames, "r0": r0, "cfg": cfg,
@@ -1666,6 +1884,7 @@ def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
     from bitmapperbs_tpu_torch.index.build import build_index
     from bitmapperbs_tpu_torch.index.device import upload_index
     from bitmapperbs_tpu_torch.io.bam import BamWriter
+    from bitmapperbs_tpu_torch.models import graphs as device_graphs
     from bitmapperbs_tpu_torch.models.host import (map_batch_pe,
                                                    prepare_batch, to_host)
     from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
@@ -1786,7 +2005,7 @@ def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_launches()
-    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames)
+    recs = map_batch_pe(idx, dix, cfg, pairs, quals, qnames, graphs=False)
     launches = dict(kernels.LAUNCHES)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1842,6 +2061,21 @@ def run_cli_extras(idx, dix, prefix: str, workdir: str, se: dict,
         f"{N_PE_ORACLE_LOWCX} equals the oracle; pair join "
         f"{int(pv.sum())}, rescue {int((rv & ~pv).sum())}, neither "
         f"{int((~rv & ~pv).sum())}; proper-pair rate {proper:.4f}")
+    # the same batch through its CUDA graph (both rescue passes inside it),
+    # and phase 8's batches at this insert range three in flight
+    grecs, replays, _ = graph_path(
+        "pe_10mbp_insert_100k_graph", dix,
+        lambda: map_batch_pe(idx, dix, cfg, pairs, quals, qnames))
+    assert [r.line() for r in grecs] == lines, \
+        "wide-insert PE records through a CUDA graph differ from eager's"
+    assert GRAPH_PATHS["pe_10mbp_insert_100k_graph"]["rescue_scan"] == \
+        2 * replays, GRAPH_PATHS
+    graphs_vs_eager(f"10 Mbp PE at insert {cfg.min_insert}-"
+                    f"{cfg.max_insert} (two rescue passes in the graph), "
+                    f"phase 8's first three batches", dix, cfg,
+                    host_batches(pe["pairs"][:3 * PE_PAIRS], BUCKET,
+                                 PE_PAIRS, pe=True), True)
+    device_graphs.clear(dix)
     rep_idx = build_index(tandem_genome_fasta(31))
     rep_dix = upload_index(rep_idx, dix.device)
     rep = straddling_pairs(rep_idx, N_REPEAT_PAIRS, seed=32,
@@ -2184,14 +2418,17 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict, wide: dict):
     lo = (N_MAIN_BATCHES - 1) * BATCH
     plo = (N_PE_MAIN_BATCHES - 1) * PE_PAIRS
 
+    # one card eager, as the mesh's data slices are: the walls below compare
+    # the meshes, not the CUDA graphs
     def se_run(mappers, lo):
         return map_batch(idx, None if mappers else dix, cfg, se["reads"][lo:],
-                         se["quals"][lo:], se["qnames"][lo:], mappers=mappers)
+                         se["quals"][lo:], se["qnames"][lo:], mappers=mappers,
+                         graphs=False)
 
     def pe_run(mappers, lo):
         return map_batch_pe(idx, None if mappers else dix, pe_cfg,
                             pe["pairs"][lo:], pe["quals"][lo:],
-                            pe["qnames"][lo:], mappers=mappers)
+                            pe["qnames"][lo:], mappers=mappers, graphs=False)
 
     # ---- phase 3 additions: the row-range gather on a 2-shard index, the
     # fused kernels' SHARD instances on 2- and 3-shard ones, the FM kernels
@@ -2228,7 +2465,7 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict, wide: dict):
     def wide_run(mappers, lo):
         return map_batch_pe(idx, None if mappers else dix, wide["cfg"],
                             pe["pairs"][lo:], pe["quals"][lo:],
-                            pe["qnames"][lo:], mappers=mappers)
+                            pe["qnames"][lo:], mappers=mappers, graphs=False)
 
     # ---- the five main paths, each checked against its phase's records ----
     sh["wide"] = make_cli_mappers(idx, wide["cfg"], reuse=sh["se"])
@@ -2713,6 +2950,7 @@ def pe_stage_table(dix, cfg, batches) -> tuple[dict, float]:
     """The stage table of map_batch_pe_device; `rest` is the anchored-mate
     choice, the missing mate's tables and the window bounds."""
     from bitmapperbs_tpu_torch.models import paired
+    from bitmapperbs_tpu_torch.ops import kernels
 
     # the two candidate stages are one function called twice per batch
     # (mate 1, then mate 2): each call is sent to a stage of its own
@@ -2725,7 +2963,7 @@ def pe_stage_table(dix, cfg, batches) -> tuple[dict, float]:
 
     stages = {"candidate stage, mate 1": (mates, "stage1"),
               "candidate stage, mate 2": (mates, "stage2"),
-              "pair join": (paired, "_pair_join"),
+              "pair join": (kernels, "pair_join"),
               "select (both mates)": (paired, "select_se"),
               "rescue (one rescue_scan launch)": (paired, "_rescue_scan")}
 
@@ -2766,6 +3004,465 @@ def idle_share(run_batches, n_walls: int = 5) -> dict:
     if busy > 0:
         out["idle"] = (1 - busy / min(walls), 1 - busy / max(walls))
     return out
+
+
+def pair_join_bytes(B: int, F1: int, F2: int, Kc: int) -> int:
+    """The bytes the pair join must move: every slot's score (int32) and
+    anchor (int64) of both mates read once, the two lengths (int64) read
+    once, the nine outputs (three int32, six int64) written once."""
+    return B * (F1 + F2) * Kc * 12 + B * 2 * 8 + B * (3 * 4 + 6 * 8)
+
+
+def leaves(out: dict, path: str = ""):
+    """(dotted key, tensor) of every leaf of a device call's output dict."""
+    for k, v in out.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{path}{k}.")
+        else:
+            yield path + k, v
+
+
+def eager_call(dix, cfg, batch: tuple, pe: bool):
+    """The eager device call on a host batch: SE (reads, lengths,
+    min_read_len), PE (a1, l1, a2, l2, min_read_len1, min_read_len2)."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+
+    t = [torch.from_numpy(x).to(dix.device) for x in batch[:4 if pe else 2]]
+    if pe:
+        return map_batch_pe_device(dix, cfg, *t, min_read_len1=batch[4],
+                                   min_read_len2=batch[5])
+    return map_batch_device(dix, cfg, *t, min_read_len=batch[2])
+
+
+def graph_call(dix, cfg, batch: tuple, pe: bool):
+    """The same call replayed from its CUDA graph (models/graphs.py)."""
+    from bitmapperbs_tpu_torch.models import graphs
+
+    return (graphs.map_batch_pe if pe else graphs.map_batch)(dix, cfg, *batch)
+
+
+def host_batches(items, m_pad: int, rows: int, pe: bool) -> list:
+    """Host batches (graph_call's form) of `rows` reads or pairs each."""
+    from bitmapperbs_tpu_torch.models.host import prepare_batch
+
+    out = []
+    for lo in range(0, len(items), rows):
+        chunk = items[lo:lo + rows]
+        if pe:
+            a1, l1 = prepare_batch([p[0] for p in chunk], m_pad, rows)
+            a2, l2 = prepare_batch([p[1] for p in chunk], m_pad, rows)
+            out.append((a1, l1, a2, l2, int(l1.min()), int(l2.min())))
+        else:
+            a, ln = prepare_batch(chunk, m_pad, rows)
+            out.append((a, ln, int(ln.min())))
+    return out
+
+
+def graph_path(name: str, dix, run):
+    """run() (a map_batch / map_batch_pe call on dix with its graphs on)
+    with dix's graphs cleared first: records under GRAPH_PATHS[name] each
+    graph's replays times the launches its capture counted, summed per
+    kernel, and returns (run()'s records, the replays, the graphs).  That
+    product is computed, not counted: a replay counts nothing in Python.
+    The launches that the same run made eagerly (its tail batches, a gdrop
+    dense re-run) are not in it.  Fails if no graph replayed."""
+    from bitmapperbs_tpu_torch.models import graphs
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    graphs.clear(dix)
+    recs = run()
+    live = [g for _, g in graphs.graphs(dix)]
+    launched = dict.fromkeys(kernels.LAUNCHES, 0)
+    for g in live:
+        for k, v in g.launches.items():
+            launched[k] += v * g.replays
+    replays = sum(g.replays for g in live)
+    assert replays > 0 and sum(launched.values()) > 0, \
+        f"{name}: no CUDA graph replayed"
+    GRAPH_PATHS[name] = launched
+    return recs, replays, live
+
+
+def graphs_vs_eager(label: str, dix, cfg, batches: list, pe: bool) -> None:
+    """Every batch dispatched through its graph before the first is read
+    (at least three in flight), then every output leaf held to the eager
+    device call's on the same batch (torch.equal)."""
+    import torch
+
+    assert len(batches) >= 3
+    outs = [graph_call(dix, cfg, b, pe) for b in batches]
+    for i, (b, out) in enumerate(zip(batches, outs)):
+        want = dict(leaves(eager_call(dix, cfg, b, pe)))
+        got = dict(leaves(out))
+        assert got.keys() == want.keys(), (sorted(got), sorted(want))
+        bad = [k for k, v in want.items() if not torch.equal(got[k], v)]
+        assert not bad, f"{label}: graph != eager in batch {i}: {bad}"
+    log(f"graphs vs eager, {label}: {len(batches)} batches dispatched "
+        f"through their graphs before the first was read; all {len(want)} "
+        f"output leaves of each equal to the eager call's (torch.equal)")
+
+
+def graph_walls(label: str, dix, cfg, batches: list, pe: bool,
+                card: str) -> dict:
+    """Synced per-batch walls of the eager device call and of its graph
+    replay, both from the same host arrays, GRAPH_ROUNDS rounds taken in
+    turns (eager first in even rounds, the graph in odd ones); the device
+    idle share of each over the batches; every live graph's warm-up and
+    capture seconds and its pool's bytes."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models import graphs
+
+    sync = "pair_sum" if pe else "best_score"
+    runs = {"eager": lambda b: eager_call(dix, cfg, b, pe),
+            "graph": lambda b: graph_call(dix, cfg, b, pe)}
+    for fn in runs.values():            # the graphs captured, all warm
+        for b in batches:
+            fn(b)[sync].cpu()
+    walls = {name: [] for name in runs}
+    for r in range(GRAPH_ROUNDS):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches:
+                runs[name](b)[sync].cpu()
+            walls[name].append(1e3 * (time.perf_counter() - t0)
+                               / len(batches))
+    out = {}
+    for name, fn in runs.items():
+        def all_batches(fn=fn):
+            for b in batches:
+                fn(b)
+            torch.cuda.synchronize()
+        idle = idle_share(all_batches)
+        w = walls[name]
+        out[name] = {"wall_ms": (statistics.median(w), min(w), max(w)),
+                     "idle": idle.get("idle"),
+                     "busy_ms": idle["busy_ms"] / len(batches),
+                     "device_kernels": idle["device_kernels"] / len(batches)}
+    live = [(key, g) for key, g in graphs.graphs(dix) if key[0] == cfg]
+    out["graphs"] = [{"capture_s": g.capture_s, "warmup_s": g.warmup_s,
+                      "pool_bytes": g.pool_bytes, "replays": g.replays}
+                     for _, g in live]
+    log(f"eager vs CUDA graph, {label}, synced per-batch wall over "
+        f"{len(batches)} batches, median and range of {GRAPH_ROUNDS} rounds "
+        f"in turns; {card}: " + "; ".join(
+            f"{name} {v['wall_ms'][0]:.3f} ms ({v['wall_ms'][1]:.3f}-"
+            f"{v['wall_ms'][2]:.3f}), device idle share "
+            + ("{:.2f}-{:.2f}".format(*v["idle"]) if v["idle"]
+               else "not measured (the profiler reported no device time)")
+            + f", {v['busy_ms']:.3f} ms of device time and "
+            f"{v['device_kernels']:.1f} device kernels per batch"
+            for name, v in out.items() if name != "graphs")
+        + "; graphs: " + "; ".join(
+            f"capture {g['capture_s']:.3f} s (warm-up {g['warmup_s']:.3f} s),"
+            f" pool {g['pool_bytes'] / 1e6:.1f} MB, {g['replays']} replays"
+            for g in out["graphs"]))
+    return out
+
+
+def trimmed_lengths(rng, n: int, keep: float):
+    """Lengths of n trimmed reads (the model of TRIM_KEEPS)."""
+    import numpy as np
+
+    cut = rng.integers(TRIM_MIN, TRIM_READ_LEN, n)
+    return np.where(rng.random(n) < keep, TRIM_READ_LEN, cut)
+
+
+def trimmed_keys(cfg, lens1, lens2=None, rate=None) -> tuple[int, float]:
+    """From lengths only (nothing mapped): the number of graph keys
+    (models/graphs.graph_key) of the full batches that the CLI's search
+    makes of reads (lens1) or pairs (lens1, lens2) of these lengths, and
+    the share of them that full batches hold.  As the CLI at --threads 1:
+    chunks of GBP_BATCH reads, each split into groups by cli._cfg_key
+    (error budget, bucket; a pair by the larger of its mates'), each group
+    into batches of cfg.batch_size, of which only the full ones replay a
+    graph."""
+    import numpy as np
+
+    from bitmapperbs_tpu_torch import cli
+    from bitmapperbs_tpu_torch.models import graphs
+
+    table = np.array([cli._cfg_key(cfg, rate, n)
+                      for n in range(int(lens1.max()) + 1)])
+    k = table[lens1]
+    if lens2 is not None:
+        k = np.maximum(k, table[lens2])
+    keys, in_full, bs = set(), 0, cfg.batch_size
+    for lo in range(0, len(lens1), GBP_BATCH):
+        kc = k[lo:lo + GBP_BATCH]
+        for b, bk in np.unique(kc, axis=0):
+            sel = lo + np.flatnonzero((kc[:, 0] == b) & (kc[:, 1] == bk))
+            c = cfg.replace(max_errors=int(b), read_len_bucket=int(bk))
+            for s in range(0, len(sel) - bs + 1, bs):
+                rows = sel[s:s + bs]
+                mins = [int(x[rows].min()) for x in (lens1, lens2)
+                        if x is not None]
+                keys.add(graphs.graph_key(c, bs, int(bk), *mins))
+                in_full += bs
+    return len(keys), in_full / len(lens1)
+
+
+def phase_trimmed(idx, dix, cfg, pcfg, card: str) -> dict:
+    """Phase 13b (see the module docstring): trimmed reads and pairs mapped
+    with their graphs and eager, and the length-only key counts."""
+    import numpy as np
+
+    from bitmapperbs_tpu_torch.models import graphs
+    from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
+    from bitmapperbs_tpu_torch.utils.simulate import (simulate_pairs,
+                                                      simulate_reads_bulk)
+
+    n = N_TRIM_BATCHES * GBP_BATCH
+    rng = np.random.default_rng(170)
+    keep = TRIM_KEEPS[0]
+    codes = simulate_reads_bulk(idx.genome, n, TRIM_READ_LEN, seed=171)[0]
+    reads = [codes[i, :ln] for i, ln in
+             enumerate(trimmed_lengths(rng, n, keep))]
+    psims = simulate_pairs(idx.genome, n, read_len=TRIM_READ_LEN, seed=172,
+                           sub_rate=0.01, indel_rate=0.005, min_insert=200,
+                           max_insert=480)
+    l1, l2 = trimmed_lengths(rng, n, keep), trimmed_lengths(rng, n, keep)
+    pairs = [(a.codes[:x], b.codes[:y]) for (a, b), x, y in
+             zip(psims, l1, l2)]
+    out = {}
+    for label, c, items, fn, pe in (
+            ("SE", cfg, reads, map_batch, False),
+            ("PE", pcfg, pairs, map_batch_pe, True)):
+        c = c.replace(read_len_bucket=TRIM_BUCKET)
+        want = [r.line() for r in fn(idx, dix, c, items, graphs=False)]
+        graphs.clear(dix)
+        t0 = time.perf_counter()
+        got = [r.line() for r in fn(idx, dix, c, items)]
+        wall = time.perf_counter() - t0
+        assert got == want, f"trimmed {label}: graph records != eager's"
+        live = graphs.graphs(dix)
+        assert live, f"trimmed {label}: no graph replayed"
+        rec = {"keys": [list(key[3:]) for key, _ in live],
+               "replays": [g.replays for _, g in live],
+               "graph_run_s": wall}
+        log(f"trimmed {label}: {len(items)} {'pairs' if pe else 'reads'} "
+            f"(keep {keep}) through map_batch{'_pe' if pe else ''} with "
+            f"graphs in {wall:.2f} s (captures included), records equal to "
+            f"the eager run's; {len(live)} graph key(s), min_read_len // "
+            f"num_seeds {rec['keys']}, replays {rec['replays']}")
+        rec.update(graph_walls(f"trimmed {label}", dix, c, host_batches(
+            items, TRIM_BUCKET, GBP_BATCH, pe), pe, card))
+        graphs.clear(dix)
+        out[label] = rec
+
+    base = cfg.replace(read_len_bucket=TRIM_BUCKET)
+    counts = {}
+    for keep in TRIM_KEEPS:
+        lens = [trimmed_lengths(rng, N_TRIM_COUNT, keep) for _ in range(2)]
+        for e, rate in ((base.max_errors, None), (TRIM_RATE, TRIM_RATE)):
+            for label, l2 in (("SE", None), ("PE", lens[1])):
+                counts[f"keep {keep}, -e {e}, {label}"] = trimmed_keys(
+                    base, lens[0], l2, rate)
+    log(f"trimmed reads, from lengths only ({N_TRIM_COUNT} reads or pairs "
+        f"each, the CLI's chunks of {GBP_BATCH} at --threads 1): graph keys "
+        f"and the share of reads in graphed batches: " + "; ".join(
+            f"{k}: {n} key(s), {share:.4f}"
+            for k, (n, share) in counts.items()))
+    out["length_only_keys"] = {k: list(v) for k, v in counts.items()}
+    return out
+
+
+def capture_pair_join_args(run) -> tuple:
+    """The arguments that the one device call run() hands kernels.pair_join
+    (the wrapper is restored after)."""
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    seen, real = [], kernels.pair_join
+
+    def spy(*a):
+        seen.append(a)
+        return real(*a)
+    kernels.pair_join = spy
+    try:
+        run()
+    finally:
+        kernels.pair_join = real
+    assert len(seen) == 1, len(seen)
+    return seen[0]
+
+
+def largest_tensor(run) -> int:
+    """The most elements of any tensor a PyTorch operation made in run()
+    (a dispatch mode sees every operation's outputs; the ctypes kernels
+    are not operations, their outputs are made by torch.empty)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    most = [0]
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    most[0] = max(most[0], t.numel())
+            return out
+
+    with Watch():
+        run()
+    torch.cuda.synchronize()
+    return most[0]
+
+
+def phase_pair_join_kernel(dix, pcfg, pe_batches, card: str) -> dict:
+    """The pair join kernel vs its plain version (torch.equal, all nine
+    outputs): on the arguments that the Gbp PE batch's device call hands it
+    (directional, Kc 128), the same batch mapped PBAT (4 frame pairs) and
+    at Kc 256, and on seeded grids of 4,096 pairs with the edge rows of
+    plant_pair_join_rows, directional at the cell's insert range and PBAT at
+    100-300.  Each shape timed by a CUDA graph of 20 launches beside its
+    bytes bound, with its cells of two valid candidates (all, and the
+    fullest frame pair's); at the main path's shape also the call, inside
+    (torch.profiler) and plain times, and the same arguments emptied and
+    with one pair of Kc x Kc cells planted (what sets the time).  Then the
+    PE device call with the plain join and with the kernel: peak device
+    memory, and the most elements of any tensor made (no [B, Kc, Kc]
+    tensor with the kernel)."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+    from bitmapperbs_tpu_torch.ops import kernels
+    from bitmapperbs_tpu_torch.oracle.pipeline import se_frames
+
+    dev = dix.device
+    L = dix.genome_len
+    (args, m1, m2) = pe_batches[0]
+
+    def pe_call(c):
+        return map_batch_pe_device(dix, c, *args, min_read_len1=m1,
+                                   min_read_len2=m2)
+
+    cases = {f"Gbp PE batch, directional, Kc {pcfg.max_candidates}":
+             capture_pair_join_args(lambda: pe_call(pcfg)),
+             f"Gbp PE batch, PBAT, Kc {pcfg.max_candidates}":
+             capture_pair_join_args(
+                 lambda: pe_call(pcfg.replace(non_directional=True))),
+             f"Gbp PE batch, directional, Kc {WIDE_JOIN_KC}":
+             capture_pair_join_args(
+                 lambda: pe_call(pcfg.replace(max_candidates=WIDE_JOIN_KC)))}
+    for pbat, (lo, hi) in ((False, (pcfg.min_insert, pcfg.max_insert)),
+                           (True, (100, 300))):
+        c = pcfg.replace(non_directional=pbat)
+        f1s, f2s = tuple(se_frames(c, 0)), tuple(se_frames(c, 1))
+        g = pair_join_grids(90 + pbat, GBP_BATCH, pcfg.max_candidates, f1s,
+                            f2s, L, E, lo, hi)
+        n = plant_pair_join_rows(g, f1s, f2s, L, E, lo, hi)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+        cases[f"seeded grids + {n} edge rows, "
+              f"{'PBAT' if pbat else 'directional'}, insert {lo}-{hi}"] = (
+            t["s1"], t["f1"], t["s2"], t["f2"], f1s, f2s, t["m1"], t["m2"],
+            L, E, lo, hi)
+    flat = lambda r: [*r[0], *r[1:]]            # noqa: E731
+    rec = {"shapes": {}}
+    err = 0
+    for label, a in cases.items():
+        got = flat(kernels.pair_join(*a))
+        want = flat(kernels.pair_join_ref(*a))
+        torch.cuda.synchronize()
+        bad = [i for i, (x, y) in enumerate(zip(got, want))
+               if not torch.equal(x, y)]
+        assert not bad, f"pair_join != plain on {label}: outputs {bad}"
+        err = max(err, max(int((x.to(torch.int64) - y.to(torch.int64))
+                               .abs().max()) for x, y in zip(got, want)))
+        B, F1, Kc = a[0].shape
+        F2 = a[2].shape[1]
+        valid = int((want[0] < 2 * (1 << 20)).sum())
+        n1, n2 = (a[0] < (1 << 20)).sum(-1), (a[2] < (1 << 20)).sum(-1)
+        cells = sum(int((n1[:, i1] * n2[:, i2]).sum())
+                    for i1, i2, *_ in kernels.frame_pairs(a[4], a[5]))
+        inside = graph_ms(lambda a=a: kernels.pair_join(*a))
+        most = max(int((n1[:, i1] * n2[:, i2]).max())
+                   for i1, i2, *_ in kernels.frame_pairs(a[4], a[5]))
+        b = bound(pair_join_bytes(B, F1, F2, Kc), 0)
+        rec["shapes"][label] = {"pairs": B, "frames": (F1, F2), "kc": Kc,
+                                "graph_ms": inside, **b,
+                                "proper_pairs": valid, "cells": cells,
+                                "most_cells_of_a_frame_pair": most}
+        log(f"kernel pair_join, {label}: {B} pairs x ({F1} + {F2}) frames x "
+            f"Kc {Kc}, all nine outputs equal to plain; {valid} proper "
+            f"pairs, {cells} cells of two valid candidates over the "
+            f"compatible frame pairs, {most} in the fullest; CUDA graph "
+            f"{inside:.4f} ms per launch, bound {b['bound_ms']:.4f} ms by "
+            f"bytes")
+    a = next(iter(cases.values()))
+    B, F1, Kc = a[0].shape
+    ms = median_ms(lambda: kernels.pair_join(*a))
+    inside = device_ms(lambda: kernels.pair_join(*a), "pair_join_kernel")
+    plain = median_ms(lambda: kernels.pair_join_ref(*a), reps=PLAIN_JOIN_REPS)
+    main = rec["shapes"][next(iter(cases))]
+    graph = main["graph_ms"]
+    rec.update(max_abs_err=err, ms=ms, plain_ms=plain, graph_ms=graph,
+               device_ms=inside, bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None)
+    log(f"kernel pair_join at the main path's shape ({B} pairs, Kc {Kc}): "
+        f"median {ms:.4f} ms per call ({fmt_ms(inside)} inside, "
+        f"CUDA graph {graph:.4f}), plain {plain:.3f} ms; bound "
+        f"{main['bound_ms']:.4f} ms by bytes; no single PyTorch call "
+        f"computes it")
+    # what sets its time: the same arguments with every slot emptied (the
+    # work that does not depend on the data), and with one pair whose first
+    # frame pair holds Kc x Kc ok cells planted in the emptied batch
+    inf, inv = 1 << 20, 0xFFFFFFFF
+    empty = [torch.full_like(a[0], inf), torch.full_like(a[1], inv),
+             torch.full_like(a[2], inf), torch.full_like(a[3], inv)]
+    heavy = [t.clone() for t in empty]
+    i1, i2, *_ = kernels.frame_pairs(a[4], a[5])[0]
+    ar = torch.arange(Kc, dtype=torch.int64, device=dev)
+    heavy[0][0, i1], heavy[1][0, i1] = 1, 1_000_000 + ar
+    heavy[2][0, i2], heavy[3][0, i2] = 1, 1_000_000 + ar + Kc
+    tail = {}
+    for name, grids in (("every slot empty", empty),
+                        (f"one pair of {Kc} x {Kc} cells", heavy)):
+        ja = (*grids, *a[4:])
+        assert all(torch.equal(x, y) for x, y in zip(
+            flat(kernels.pair_join(*ja)), flat(kernels.pair_join_ref(*ja))))
+        tail[name] = graph_ms(lambda ja=ja: kernels.pair_join(*ja))
+    rec["tail_graph_ms"] = tail
+    log("kernel pair_join, what sets its time, CUDA graph ms per launch on "
+        "the main path's arguments: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in tail.items())
+        + f" (the batch as it is: {graph:.4f}); {card}")
+
+    # the PE device call before and after: its peak device memory and its
+    # largest tensor, with the plain join and with the kernel
+    grid = B * Kc * Kc
+    peaks = {}
+    for name, join in (("plain join", kernels.pair_join_ref),
+                       ("pair_join kernel", kernels.pair_join)):
+        saved = kernels.pair_join
+        kernels.pair_join = join
+        try:
+            pe_call(pcfg)["pair_sum"].cpu()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            pe_call(pcfg)["pair_sum"].cpu()
+            peak = torch.cuda.max_memory_allocated(dev)
+            most = largest_tensor(lambda: pe_call(pcfg))
+        finally:
+            kernels.pair_join = saved
+        peaks[name] = {"peak_bytes": peak, "above_bytes": peak - base,
+                       "largest_tensor": most}
+    assert peaks["plain join"]["largest_tensor"] >= grid, peaks
+    assert peaks["pair_join kernel"]["largest_tensor"] < grid, peaks
+    rec["pe_call_memory"] = peaks
+    log(f"Gbp PE device call ({B} pairs, Kc {Kc}), peak device memory: " +
+        "; ".join(f"{name} {v['peak_bytes'] / 1e9:.3f} GB "
+                  f"({v['above_bytes'] / 1e9:.3f} GB above the index and "
+                  f"inputs), largest tensor {v['largest_tensor']:,} elements"
+                  for name, v in peaks.items())
+        + f" (a [B, Kc, Kc] grid: {grid:,}); {card}")
+    return rec
 
 
 def gbp_index(device):
@@ -2859,6 +3556,7 @@ def gbp_stage_tables(dix, cfg, long_batch, pe_batches) -> None:
     import torch
 
     from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+    from bitmapperbs_tpu_torch.ops import kernels
 
     long_cfg = cfg.replace(read_len_bucket=LONG_BUCKET, batch_size=N_LONG)
     table, total = stage_table(dix, long_cfg, [long_batch] * 8)
@@ -2877,6 +3575,15 @@ def gbp_stage_tables(dix, cfg, long_batch, pe_batches) -> None:
     log(f"Gbp PE stage total, synced per stage: {total:.3f} ms per batch "
         f"(medians over {4 * len(pe_batches)} runs of {len(pe_batches)} "
         f"batches)")
+    saved = kernels.pair_join
+    kernels.pair_join = kernels.pair_join_ref
+    try:
+        plain, plain_total = pe_stage_table(dix, pcfg, pe_batches * 4)
+    finally:
+        kernels.pair_join = saved
+    log(f"Gbp PE stage with the plain pair join (the parent's), synced, ms "
+        f"per {GBP_BATCH}-pair batch: pair join: {plain['pair join']:.3f}; "
+        f"total {plain_total:.3f} (medians over {4 * len(pe_batches)} runs)")
 
     def all_batches():
         for args, m1, m2 in pe_batches:
@@ -2911,6 +3618,7 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     from bitmapperbs_tpu_torch.index.build import save_index
     from bitmapperbs_tpu_torch.io.fastq import write_fastq
     from bitmapperbs_tpu_torch.io.stats import MapStats
+    from bitmapperbs_tpu_torch.models import graphs as device_graphs
     from bitmapperbs_tpu_torch.models.aligner import map_batch_device
     from bitmapperbs_tpu_torch.models.host import (map_batch, map_batch_pe,
                                                    prepare_batch, to_host)
@@ -2975,10 +3683,11 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     stats = MapStats()
-    recs = map_batch(idx, dix, cfg, reads, quals, qnames, stats=stats)
+    recs = map_batch(idx, dix, cfg, reads, quals, qnames, stats=stats,
+                     graphs=False)
     se_launches = dict(kernels.LAUNCHES)
     log(f"Gbp SE main path: {n_main} reads mapped in "
-        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{time.perf_counter() - t0:.2f} s (first call, eager), launches "
         f"{se_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     for name in ("gather_rows", "verify_fused_gather", "myers", *FM_KERNELS):
@@ -2991,7 +3700,7 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     reset_launches()
     t0 = time.perf_counter()
     long_recs = map_batch(idx, dix, long_cfg, long_reads, long_quals,
-                          long_names)
+                          long_names, graphs=False)
     long_launches = dict(kernels.LAUNCHES)
     log(f"Gbp SE main path, {LONG_READ_LEN} bp: {N_LONG} reads mapped in "
         f"{time.perf_counter() - t0:.2f} s (first call), launches "
@@ -3006,6 +3715,12 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
         long_names[:N_LONG_ORACLE])]
     assert oracle == [r.line() for r in long_recs[:N_LONG_ORACLE]], \
         "Gbp oracle mismatch on the 280 bp reads"
+    glong, _, _ = graph_path(
+        "se_gbp_config_280bp_graph", dix,
+        lambda: map_batch(idx, dix, long_cfg, long_reads, long_quals,
+                          long_names))
+    assert [r.line() for r in glong] == [r.line() for r in long_recs], \
+        "280 bp records through a CUDA graph differ from the eager run's"
     log(f"Gbp SE main path: SAM of the first {N_LONG_ORACLE} reads of "
         f"{LONG_READ_LEN} bp equals the oracle; mapped "
         f"{sum(not r.flag & K.FLAG_UNMAPPED for r in long_recs) / N_LONG:.4f}"
@@ -3018,6 +3733,17 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
                if a != b]
         assert not bad, f"Gbp oracle mismatch at read {lo + bad[0]}:\n" \
                         f"{oracle[bad[0]]}\n{lines[lo + bad[0]]}"
+    t0 = time.perf_counter()
+    grecs, replays, live = graph_path(
+        "se_gbp_config_graph", dix,
+        lambda: map_batch(idx, dix, cfg, reads, quals, qnames))
+    assert [r.line() for r in grecs] == lines, \
+        "Gbp SE records through CUDA graphs differ from the eager run's"
+    log(f"Gbp SE main path through CUDA graphs: {n_main} reads in "
+        f"{time.perf_counter() - t0:.2f} s (captures included), {replays} "
+        f"replays of {len(live)} graph(s), records equal to the eager run's "
+        f"(and the 280 bp batch's through its graph); the replays launched "
+        f"{GRAPH_PATHS['se_gbp_config_graph']}")
 
     main_dev = [to_dev(reads[lo:lo + GBP_BATCH], GBP_BATCH)
                 for lo in range(0, n_main, GBP_BATCH)]
@@ -3108,15 +3834,15 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     reset_launches()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    precs = map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames)
+    precs = map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames, graphs=False)
     pe_launches = dict(kernels.LAUNCHES)
     log(f"Gbp PE main path: {len(pairs)} pairs mapped in "
-        f"{time.perf_counter() - t0:.2f} s (first call), launches "
+        f"{time.perf_counter() - t0:.2f} s (first call, eager), launches "
         f"{pe_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(precs) == 2 * len(pairs)
     for name in ("gather_rows", "verify_fused_gather", "rescue_scan",
-                 *FM_KERNELS):
+                 "pair_join", *FM_KERNELS):
         assert pe_launches[name] > 0, f"{name} never ran on the Gbp PE path"
     assert pe_launches["myers_scan"] == 0, pe_launches
     plines = [r.line() for r in precs]
@@ -3139,6 +3865,7 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     hosts = [to_host(pe_run(b)) for b in pe_batches]
     per_batch = {k: v / len(pe_batches) for k, v in kernels.LAUNCHES.items()}
     assert per_batch["rescue_scan"] == 1, per_batch
+    assert per_batch["pair_join"] == 1, per_batch
     log(f"Gbp PE: launches per map_batch_pe_device call {per_batch}")
     join = sum(int(h["pair_valid"].sum()) for h in hosts)
     resc = sum(int((h["resc_valid"] & ~h["pair_valid"]).sum()) for h in hosts)
@@ -3166,6 +3893,40 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
         f"{peak:.2f} GB); end-to-end map_batch_pe {pe_e2e:.1f} reads/s "
         f"(median of {E2E_REPS} runs, {pe_lo:.1f}-{pe_hi:.1f}), on "
         f"{card}")
+    t0 = time.perf_counter()
+    gprecs, replays, live = graph_path(
+        "pe_gbp_config_graph", dix,
+        lambda: map_batch_pe(idx, dix, pcfg, pairs, pquals, pnames))
+    assert [r.line() for r in gprecs] == plines, \
+        "Gbp PE records through CUDA graphs differ from the eager run's"
+    log(f"Gbp PE main path through CUDA graphs: {len(pairs)} pairs in "
+        f"{time.perf_counter() - t0:.2f} s (captures included), {replays} "
+        f"replays of {len(live)} graph(s), records equal to the eager run's; "
+        f"the replays launched {GRAPH_PATHS['pe_gbp_config_graph']}")
+
+    # ---- CUDA graphs against eager, the Gbp-config SE and PE batches --------
+    se_host = [(a.cpu().numpy(), ln.cpu().numpy(), mn) for a, ln, mn in
+               main_dev]
+    graphs_vs_eager("Gbp config SE, phase 12's batches", dix, cfg, se_host,
+                    False)
+    graph_walls("Gbp config SE", dix, cfg,
+                [(a.cpu().numpy(), ln.cpu().numpy(), mn)
+                 for a, ln, mn in small[:4]], False, card)
+    pe_host = [(*(x.cpu().numpy() for x in args), m1, m2)
+               for args, m1, m2 in pe_batches]
+    # a third batch in flight: the first with its mates swapped
+    pe_host.append((*pe_host[0][2:4], *pe_host[0][:2], pe_host[0][5],
+                    pe_host[0][4]))
+    graphs_vs_eager("Gbp config PE, phase 13's batches and the first with "
+                    "its mates swapped", dix, pcfg, pe_host, True)
+    graph_walls("Gbp config PE", dix, pcfg, pe_host, True, card)
+    device_graphs.clear(dix)
+
+    # ---- phase 13b: trimmed reads -------------------------------------------
+    phase_trimmed(idx, dix, cfg, pcfg, card)
+
+    # ---- the pair join kernel on this index --------------------------------
+    kstats["pair_join"] = phase_pair_join_kernel(dix, pcfg, pe_batches, card)
 
     gbp_stage_tables(dix, cfg, long_batch, pe_batches)
 
@@ -3269,12 +4030,15 @@ def run(card: str) -> dict:
                **slice_paths}
     launches = {name: sum(p[name] for p in slice_paths.values())
                 for name in KERNEL_SOURCES}
-    assert {n for names in TPU_KERNEL_ENTRIES.values() for n in names} == \
-        set(KERNEL_SOURCES)
+    tpu = {n for names in TPU_KERNEL_ENTRIES.values() for n in names}
+    assert not tpu & set(NO_TPU_KERNEL_ENTRIES) and \
+        tpu | set(NO_TPU_KERNEL_ENTRIES) == set(KERNEL_SOURCES)
     for tpu_kernel, names in TPU_KERNEL_ENTRIES.items():
         assert any(launches[name] > 0 for name in names), \
             f"no entry of {tpu_kernel} ({names}) launched on this slice's " \
             f"main paths"
+    for name in NO_TPU_KERNEL_ENTRIES:
+        assert launches[name] > 0, f"{name} launched on no main path"
     idle = {name for name in KERNEL_SOURCES if launches[name] == 0}
     assert idle == set(PHASE_3_ONLY), \
         f"entries that no main path launched: {sorted(idle)}; phase 3 " \
@@ -3282,11 +4046,18 @@ def run(card: str) -> dict:
     # the SHARD instances' records beside each kernel's own
     for name, rec in shard_stats.items():
         kstats[name]["shard"] = rec
+    # what the graphed runs of the main paths launched: replays x captured
+    assert set(GRAPH_PATHS) == {
+        "se_10mbp_graph", "pe_10mbp_graph", "pe_10mbp_insert_100k_graph",
+        "se_gbp_config_graph", "se_gbp_config_280bp_graph",
+        "pe_gbp_config_graph"}, sorted(GRAPH_PATHS)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],
          "launches": launches[name], **kstats[name],
-         "launches_by_path": {k: v[name] for k, v in by_path.items()}}
+         "launches_by_path": {k: v[name] for k, v in by_path.items()},
+         "replays_x_captured_launches_by_graph_path": {
+             k: v[name] for k, v in GRAPH_PATHS.items()}}
         for name in KERNEL_SOURCES],
         "forced_gdrop_launches": {"se": se_gdrop, "pe": pe_gdrop}}
 

@@ -106,9 +106,10 @@ def test_resident_warps(regs, smem, warps):
 
 
 def test_every_kernel_has_a_listing_name():
-    # the two row gathers are bound by bytes: no operation count
+    # the two row gathers and the pair join are bound by bytes: no
+    # operation count
     assert set(chip_smoke.SASS_KERNELS) == set(chip_smoke.KERNEL_SOURCES) \
-        - {"gather_rows", "gather_rows_shard"}
+        - {"gather_rows", "gather_rows_shard", "pair_join"}
     assert all(lib in ("verify", "fm")
                for lib, _ in chip_smoke.SASS_KERNELS.values())
 
@@ -179,8 +180,79 @@ def test_rescue_columns_run_counts_the_warm_up(chunks):
 
 
 def test_every_tpu_kernel_names_its_entries():
+    """Every entry stands for a TPU kernel or is one with no TPU kernel
+    behind it, never both: the pair join is the reference's plain jnp."""
     named = [n for names in chip_smoke.TPU_KERNEL_ENTRIES.values()
              for n in names]
-    assert sorted(named) == sorted(chip_smoke.KERNEL_SOURCES)
+    none = list(chip_smoke.NO_TPU_KERNEL_ENTRIES)
+    assert not set(named) & set(none)
+    assert sorted(named + none) == sorted(chip_smoke.KERNEL_SOURCES)
     assert "rescue_scan" in chip_smoke.TPU_KERNEL_ENTRIES["myers_scan_pallas"]
     assert "paired.py:220-238" in chip_smoke.KERNEL_SOURCES["rescue_scan"][1]
+    assert none == ["pair_join"]
+    assert "bitmapperbs_tpu/models/paired.py:80-145" in \
+        chip_smoke.KERNEL_SOURCES["pair_join"][1]
+    assert chip_smoke.KERNEL_SOURCES["pair_join"][0].endswith("csrc/pair.cu")
+
+
+@pytest.mark.parametrize("B, F1, F2, Kc, ms", [
+    # the Gbp PE cell: 4,096 pairs, 2 + 2 frames, Kc 128: 25.48 MB
+    (4096, 2, 2, 128, 0.0076051),
+    # PBAT at Kc 256: 8 frames of 256 slots a pair
+    (4096, 4, 4, 256, 0.0301417),
+])
+def test_pair_join_bound_counts_its_bytes(B, F1, F2, Kc, ms):
+    """Each slot's int32 score and int64 anchor read once, the two int64
+    lengths read once, three int32 and six int64 outputs written once; bound
+    by bytes (the bound takes no operation count)."""
+    n = chip_smoke.pair_join_bytes(B, F1, F2, Kc)
+    assert n == B * ((F1 + F2) * Kc * 12 + 16 + 60)
+    b = chip_smoke.bound(n, 0)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(ms, rel=1e-4)
+
+
+def test_trimmed_length_model():
+    """Phase 13b's lengths: TRIM_MIN..TRIM_READ_LEN, the untrimmed share
+    near `keep`."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    for keep in chip_smoke.TRIM_KEEPS:
+        lens = chip_smoke.trimmed_lengths(rng, 100_000, keep)
+        assert lens.min() >= chip_smoke.TRIM_MIN
+        assert lens.max() == chip_smoke.TRIM_READ_LEN
+        assert abs((lens == chip_smoke.TRIM_READ_LEN).mean() - keep) < 0.01
+
+
+def _chunks(*mins, fill=150):
+    """One chunk of GBP_BATCH lengths per entry, all `fill` but the first,
+    which is the entry."""
+    import numpy as np
+
+    out = np.full(len(mins) * chip_smoke.GBP_BATCH, fill, np.int64)
+    out[::chip_smoke.GBP_BATCH] = mins
+    return out
+
+
+@pytest.mark.parametrize("lens1, lens2, rate, want", [
+    ((150, 150), None, None, (1, 1.0)),
+    ((20, 24), None, None, (1, 1.0)),       # one quotient of num_seeds 5
+    ((20, 25), None, None, (2, 1.0)),
+    ((20, 20), (150, 30), None, (2, 1.0)),  # mate 2's quotient differs
+    ((150, 150), None, 0.04, (1, 1.0)),     # one budget: 6
+    ((20, 150), None, 0.04, (1, 0.5)),      # a chunk of two budgets: eager
+    ((150, 150), (150, 20), 0.04, (2, 1.0)),  # a pair: its larger budget
+])
+def test_trimmed_keys_as_the_cli_groups(lens1, lens2, rate, want):
+    """trimmed_keys counts the graph keys of the CLI's full batches: one
+    per (config group, min_read_len // num_seeds per mate), none for a
+    chunk that the budgets split."""
+    from bitmapperbs_tpu_torch.config import AlignerConfig
+
+    cfg = AlignerConfig(max_errors=4, read_len_bucket=chip_smoke.TRIM_BUCKET,
+                        batch_size=chip_smoke.GBP_BATCH)
+    got = chip_smoke.trimmed_keys(
+        cfg, _chunks(*lens1), None if lens2 is None else _chunks(*lens2),
+        rate)
+    assert got == want
