@@ -127,10 +127,9 @@ def build_parser():
                     help="host IO worker threads (device does the mapping)")
     se.add_argument("--batch-size", type=int, default=4096)
     se.add_argument("--flat-chunks", type=int, default=None, metavar="N",
-                    help="run locate/verify over the candidate buffer in N "
-                         "occupancy-bounded chunks (skip work past the last "
-                         "occupied slot; bit-identical; default: size-"
-                         "adaptive)")
+                    help="accepted for the reference CLI's sake and "
+                         "ignored: locate and verify always stop at the "
+                         "candidate buffer's fill on the card")
     se.add_argument("--read-bucket", type=int, default=None,
                     help="padded read length (multiple of 32; default: "
                          "sized from the first reads -- shorter buckets map "
@@ -260,7 +259,7 @@ def autotune_for_genome(cfg, args, genome_bp: int):
             cfg = cfg.replace(max_candidates=256)
         if getattr(args, "flat_chunks", None) is None:
             cfg = cfg.replace(flat_chunks=max(cfg.flat_chunks, 2))
-        tuned.append("sensitive -> Kc256/2-chunks (Gbp regime)")
+        tuned.append("sensitive -> Kc256 (Gbp regime)")
     if getattr(args, "seed_ext", None) is None and cfg.seed_ext_max == 0:
         cfg = cfg.replace(seed_ext_max=20,
                           seed_ext_occ=getattr(args, "seed_ext_occ", 4))
@@ -275,10 +274,11 @@ def autotune_for_genome(cfg, args, genome_bp: int):
             and getattr(args, "flat_chunks", None) is None):
         # 4 frames carry ~2x the SE occupancy (~156/read measured at
         # 3.08 Gbp with extension): above flat_cap_max=128, so PBAT would
-        # gdrop ~22% of reads into dense reruns; 192 slots in 3
-        # occupancy-bounded chunks measured gdrop-free at recall 0.9893
+        # gdrop ~22% of reads into dense reruns; 192 slots measured
+        # gdrop-free at recall 0.9893 (flat_chunks as the reference sets
+        # it; the port ignores it)
         cfg = cfg.replace(locate_flat_cap=192, flat_chunks=3)
-        tuned.append("flat-cap 192 (3 chunks)")
+        tuned.append("flat-cap 192")
     if tuned:
         sys.stderr.write(f"[bitmapperbs_tpu_torch] {genome_bp/1e9:.2f} Gbp genome:"
                          f" auto-tuned {', '.join(tuned)}\n")

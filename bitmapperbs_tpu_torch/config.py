@@ -76,12 +76,11 @@ class AlignerConfig:
     # spec path via gdrop instead.  128 keeps the human-genome buffer at
     # its measured round-1 size while the per-frame budgets above grew 4x.
     flat_cap_max: int = 128
-    # Occupancy-chunked flat stages: run locate/verify over the flat buffer
-    # in this many fixed-size lane chunks and STOP after
-    # the last occupied slot, so a batch pays for its actual candidate
-    # occupancy (~65-70% of the 1.5x-mean-fitted cap) instead of the full
-    # buffer.  Bit-identical: skipped lanes are exactly the ones every
-    # consumer already masks.  0 = off (single full-buffer pass).
+    # The reference's occupancy-chunked flat stages (locate/verify in this
+    # many lane chunks, stopping after the last occupied slot; 0 = off).
+    # The port accepts it for the reference CLI's sake and ignores it:
+    # locate and verify always stop at the flat buffer's fill on the card
+    # (ops/kernels.flat_expand's n_used, flat_dedup's n_valid).
     flat_chunks: int = 0
 
     def resolve_flat_cap(self, genome_len: int, num_frames: int) -> int:

@@ -29,6 +29,10 @@
 //     by exactly t, so that is patterns[starts - 1].
 //   locate: a lane is done at its first marked position; the lockstep
 //     version's later steps leave rank, cur and steps unchanged.
+//     Locate also takes the flat buffer's fill, n_lanes, a count on the card
+//     (csrc/flat.cu btbs_flat_expand): a lane at or past it writes 0 and
+//     loads nothing, as the reference's chunk loop leaves the lanes past the
+//     fill (bitmapperbs_tpu/models/aligner.py:294-330, _chunked_lanes).
 // Invalid lanes reach the output in the mapping pipeline (they are masked
 // later), so every clamp of the lockstep version is reproduced: rows and
 // sample indices clamped into their tables as btbs_gather_rows clamps,
@@ -300,11 +304,19 @@ __global__ void __launch_bounds__(kThreads) fm_locate_kernel(
     Fm<SHARD> fm, typename Table<SHARD>::param sa, int64_t n_samples,
     int64_t samples_max, int sa_rate, const int64_t* __restrict__ block,
     const int64_t* __restrict__ pos, const uint8_t* __restrict__ valid,
-    int64_t* __restrict__ out, int32_t* __restrict__ rows_out, int64_t L) {
+    const int64_t* __restrict__ n_lanes, int64_t* __restrict__ out,
+    int32_t* __restrict__ rows_out, int64_t L) {
   constexpr int NW = kWords / kTpr;             // plane words per thread
   const int64_t lane = (int64_t(blockIdx.x) * kThreads + threadIdx.x) / kTpr;
   if (lane >= L) return;
   const int j = threadIdx.x % kTpr;
+  if (n_lanes && lane >= *n_lanes) {            // past the flat buffer's fill
+    if (j == 0) {
+      out[lane] = 0;
+      if (rows_out) rows_out[lane] = 0;
+    }
+    return;
+  }
   const unsigned gmask = group_mask<kTpr>();
   const int64_t blk = block[lane] & 1;
   const uint32_t last = uint32_t(fm.n[blk]) - 1u;
@@ -492,10 +504,11 @@ int btbs_fm_extend(BTBS_INDEX_PARAMS, const void* pat, int64_t d1, int64_t d2,
   });
 }
 
-// sa: both blocks, samples_max each; valid uint8 [L].
+// sa: both blocks, samples_max each; valid uint8 [L]; n_lanes: null, or an
+// int64 [1] on the card: lanes at or past it write 0 and load nothing.
 int btbs_fm_locate(BTBS_INDEX_PARAMS, int sa_rate, const void* block,
-                   const void* pos, const void* valid, void* out,
-                   void* rows_out, int64_t L, void* stream) {
+                   const void* pos, const void* valid, const void* n_lanes,
+                   void* out, void* rows_out, int64_t L, void* stream) {
   unsigned grid;
   if (sa_rate < 0 || !grid_for(L * kTpr, &grid))
     return int(cudaErrorInvalidValue);
@@ -503,12 +516,13 @@ int btbs_fm_locate(BTBS_INDEX_PARAMS, int sa_rate, const void* block,
   auto b = static_cast<const int64_t*>(block);
   auto i = static_cast<const int64_t*>(pos);
   auto v = static_cast<const uint8_t*>(valid);
+  auto nl = static_cast<const int64_t*>(n_lanes);
   auto o = static_cast<int64_t*>(out);
   auto ro = static_cast<int32_t*>(rows_out);
   return with_index(BTBS_INDEX_ARGS, true, L,
                     [&](const auto& fm, const auto& sa_t) {
     fm_locate_kernel<<<grid, kThreads, 0, st>>>(
-        fm, sa_t, n_samples, samples_max, sa_rate, b, i, v, o, ro, L);
+        fm, sa_t, n_samples, samples_max, sa_rate, b, i, v, nl, o, ro, L);
   });
 }
 

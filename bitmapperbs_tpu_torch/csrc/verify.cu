@@ -17,6 +17,11 @@
 //   length) and does the window fetch, the start & 31 funnel, the
 //   out-of-range -> N marking (wrapped-negative starts and windows past the
 //   genome end included) and the length mask in registers.
+//   It may take a lane count on the card (n_lanes: the compact path's
+//   n_valid, csrc/flat.cu btbs_flat_dedup): a lane at or past it writes INF
+//   and loads nothing, as the reference's chunk loop leaves the lanes past
+//   the sorted buffer's valid front (bitmapperbs_tpu/models/aligner.py:
+//   294-330, _chunked_lanes).
 // btbs_myers replaces pallas_kernels.py _myers_kernel (wrapper myers_pallas):
 //   the same Myers recurrence from a precomputed PEQ table and pad rows
 //   (N columns take the pad row); out = min over the ncols end columns.
@@ -100,6 +105,16 @@ namespace {
 
 constexpr int kMaxWords = 32;   // MAX_READ_LEN 1024 / 32
 constexpr int kThreads = 128;
+constexpr int kInfScore = 1 << 20;           // constants.INF_SCORE
+
+// The lanes a gathering verify runs: all L, or the first *n_lanes (an
+// int64 count on the card, the flat buffer's n_valid) where one is given.
+__device__ __forceinline__ int64_t lane_count(const int64_t* n_lanes,
+                                              int64_t L) {
+  if (!n_lanes) return L;
+  const int64_t n = *n_lanes;
+  return n < L ? n : L;
+}
 
 // One column of the multi-word Myers recurrence (the step every kernel
 // here shares): updates VP/VN in place and returns the change of the score
@@ -290,8 +305,9 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
     typename Table<SHARD>::param gp, const int64_t* __restrict__ orient,
     const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
     const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
-    int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
-    int64_t genome_len, int m, int ncols, int e) {
+    const int64_t* __restrict__ n_lanes, int32_t* __restrict__ out,
+    int64_t L, int64_t R, int64_t gwords, int64_t genome_len, int m,
+    int ncols, int e) {
   constexpr int WW = WD + 1;
   constexpr int NS = (3 * WW + 4 * WD) | 1;    // odd row stride: no bank clash
   __shared__ uint32_t stage[kThreads][NS];
@@ -301,7 +317,9 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_kernel(
 
   uint32_t w0[WW], w1[WW], wn[WW], d0[WD], d1[WD], dn[WD], lmask[WD];
   bool need = false;
-  if (lane < L) {
+  const int64_t n = lane_count(n_lanes, L);
+  if (lane >= n && lane < L) out[lane] = kInfScore;
+  if (lane < n) {
     // window planes at `start` (ops/verify.window_planes): rows
     // (start + 32) >> 5 .. + WW of the orientation's plane block, funnelled
     // by start & 31, positions outside [0, genome_len) turned into N
@@ -550,8 +568,9 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_wide_kernel(
     typename Table<SHARD>::param gp, const int64_t* __restrict__ orient,
     const int64_t* __restrict__ start, const int64_t* __restrict__ rtab,
     const int64_t* __restrict__ rrow, const int64_t* __restrict__ rlen,
-    int32_t* __restrict__ out, int64_t L, int64_t R, int64_t gwords,
-    int64_t genome_len, int wd, int m, int ncols, int e) {
+    const int64_t* __restrict__ n_lanes, int32_t* __restrict__ out,
+    int64_t L, int64_t R, int64_t gwords, int64_t genome_len, int wd, int m,
+    int ncols, int e) {
   static_assert(5 * K * kThreads * 4 + 4 * kThreads + 4 <= 48 * 1024,
                 "the match table outgrows a block's static shared memory");
   __shared__ uint32_t eq_table[5 * K * kThreads];   // [5][K][kThreads]
@@ -573,7 +592,9 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_wide_kernel(
   // anchored Hamming from the e-shifted window: each thread its words
   {
     const int64_t lane = first + grp;
-    const bool live = !spare && lane < L;
+    const int64_t n = lane_count(n_lanes, L);
+    const bool live = !spare && lane < n;
+    if (!spare && lane >= n && lane < L && t == 0) out[lane] = kInfScore;
     int ham = 0;
     if (live) {
       int64_t rr = rrow[lane];
@@ -793,7 +814,6 @@ struct RescueArgs : RescueLanes {
   typename Table<SHARD>::type gp;
 };
 
-constexpr int kInfScore = 1 << 20;           // constants.INF_SCORE
 
 // NW: compile-time word count when !SHARED (PEQ in registers, wd == NW);
 // register capacity of VP / VN when SHARED (PEQ in shared memory, wd <= NW).
@@ -982,7 +1002,7 @@ void launch_fused(const uint32_t* win, const uint32_t* rd, const uint32_t* lm,
 
 // The gathering verify's lanes (btbs_verify_fused_gather) past its table.
 struct GatherLanes {
-  const int64_t *orient, *start, *rtab, *rrow, *rlen;
+  const int64_t *orient, *start, *rtab, *rrow, *rlen, *n_lanes;
   int32_t* out;
   int64_t L, R, gwords, genome_len;
   int wd, m, ncols, e;
@@ -994,8 +1014,8 @@ void launch_fused_gather(const typename Table<SHARD>::type& gp,
                          const GatherLanes& x, cudaStream_t st) {
   const unsigned grid = unsigned((x.L + kThreads - 1) / kThreads);
   verify_fused_gather_kernel<WD, SHARD><<<grid, kThreads, 0, st>>>(
-      gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.out, x.L, x.R,
-      x.gwords, x.genome_len, x.m, x.ncols, x.e);
+      gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.n_lanes, x.out, x.L,
+      x.R, x.gwords, x.genome_len, x.m, x.ncols, x.e);
 }
 
 template <int WD>
@@ -1026,8 +1046,8 @@ cudaError_t launch_fused_gather_wide(const typename Table<SHARD>::type& gp,
   if (grid > 0x7FFFFFFF) return cudaErrorInvalidValue;
   verify_fused_gather_wide_kernel<K, SHARD>
       <<<unsigned(grid), kThreads, 0, st>>>(
-          gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.out, x.L, x.R,
-          x.gwords, x.genome_len, x.wd, x.m, x.ncols, x.e);
+          gp, x.orient, x.start, x.rtab, x.rrow, x.rlen, x.n_lanes, x.out,
+          x.L, x.R, x.gwords, x.genome_len, x.wd, x.m, x.ncols, x.e);
   return cudaGetLastError();
 }
 
@@ -1156,11 +1176,14 @@ int btbs_verify_fused(const void* win, const void* rd, const void* lm,
 // The genome planes as with_planes above; orient, start (u32 value), rrow,
 // rlen int64 [L]; rtab int64 [R][3 * wd] read planes (u32 values); out int32
 // [L].  wd in 1..32 and a window of exactly wd + 1 words; k: the wide
-// kernel's read words per thread at wd > 8 (4, 5, 6 or 8), unused below.
+// kernel's read words per thread at wd > 8 (4, 5, 6 or 8), unused below;
+// n_lanes: null, or an int64 [1] on the card: lanes at or past it write
+// INF and load nothing.
 int btbs_verify_fused_gather(const void* gp, const void* const* gp_parts,
                              int nparts, int64_t gp_rows, const void* orient,
                              const void* start, const void* rtab,
-                             const void* rrow, const void* rlen, void* out,
+                             const void* rrow, const void* rlen,
+                             const void* n_lanes, void* out,
                              int64_t L, int64_t R, int64_t gwords,
                              int64_t genome_len, int wd, int m, int ncols,
                              int e, int k, void* stream) {
@@ -1172,6 +1195,7 @@ int btbs_verify_fused_gather(const void* gp, const void* const* gp_parts,
                       static_cast<const int64_t*>(rtab),
                       static_cast<const int64_t*>(rrow),
                       static_cast<const int64_t*>(rlen),
+                      static_cast<const int64_t*>(n_lanes),
                       static_cast<int32_t*>(out),
                       L, R, gwords, genome_len, wd, m, ncols, e, k};
   auto st = static_cast<cudaStream_t>(stream);

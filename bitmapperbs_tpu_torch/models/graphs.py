@@ -35,10 +35,12 @@ Which calls replay a graph (`eligible`); every other call stays eager:
     re-run of models/host._gdrop_fallback_se and its PE counterpart, whose
     rows vary) is sized for the worst case, and a pool would keep its
     grids for the whole run;
-  * cfg.flat_chunks <= 1: the chunked locate and verify read the flat
-    buffer's fill on the host (models/aligner._chunked_lanes);
   * a whole index on one card: the mesh and sharded mappers
     (parallel/shard.py) dispatch data slices eagerly, and never come here.
+Any flat_chunks replays: the compact path keeps its flat buffer's fill
+counts on the card (ops/kernels.flat_expand / flat_dedup), so the device
+call reads nothing back to the host, whatever --sensitive or the Gbp PBAT
+autotune set.
 models/host.map_batch / map_batch_pe take `graphs=False` to stay eager
 (the CLI's --profile run does, so that its trace names each launch).
 
@@ -64,7 +66,7 @@ def eligible(dix: DeviceIndex, cfg: AlignerConfig, rows: int) -> bool:
     """Whether a device call of `rows` batch rows on dix replays a graph
     (the rules of the module docstring)."""
     return (dix.device.type == "cuda" and not dix.sharded and cfg.compact
-            and cfg.flat_chunks <= 1 and rows == cfg.batch_size)
+            and rows == cfg.batch_size)
 
 
 def graph_key(cfg: AlignerConfig, rows: int, m_pad: int,

@@ -9,9 +9,9 @@ equal to the reference's, so a batch whose device tensors equal the
 reference's gives byte-identical SAM.
 
 On one card a full batch's device call replays a CUDA graph
-(models/graphs.py, the counterpart of the reference's jax.jit); tail
-batches, the gdrop dense re-run, flat_chunks > 1, CPU tensors and the mesh
-mappers stay eager, and `graphs=False` keeps every call eager.
+(models/graphs.py, the counterpart of the reference's jax.jit) at any
+flat_chunks; tail batches, the gdrop dense re-run, CPU tensors and the
+mesh mappers stay eager, and `graphs=False` keeps every call eager.
 """
 from __future__ import annotations
 

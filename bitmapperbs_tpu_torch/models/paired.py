@@ -26,8 +26,7 @@ import torch
 from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.config import AlignerConfig
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
-from bitmapperbs_tpu_torch.models.aligner import (INF, candidate_stage,
-                                                  select_se)
+from bitmapperbs_tpu_torch.models.aligner import INF, candidate_stage
 from bitmapperbs_tpu_torch.ops import kernels, verify
 from bitmapperbs_tpu_torch.ops.u32 import INVALID, wrap
 from bitmapperbs_tpu_torch.oracle.pipeline import se_frames
@@ -121,8 +120,9 @@ def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig, reads1,
     dix's device; min_read_len1/2: host-known shortest length of each mate
     in the batch (0 = unknown), as in map_batch_device.  Returns the
     reference's dict: pair_* (best proper pair, its second-best sum),
-    se1/se2 (select_se per mate), resc_* (mate rescue from the better
-    mate's SE hit), and gdrop (either mate; host must re-run dense)."""
+    se1/se2 (kernels.select_se per mate), resc_* (mate rescue from the
+    better mate's SE hit), and gdrop (either mate; host must re-run
+    dense)."""
     B, m = reads1.shape
     e = cfg.max_errors
     L = dix.genome_len
@@ -141,8 +141,8 @@ def map_batch_pe_device(dix: DeviceIndex, cfg: AlignerConfig, reads1,
                           frames1, frames2, m1, m2, L, e, cfg.min_insert,
                           cfg.max_insert)
 
-    se1 = select_se(g1, e)
-    se2 = select_se(g2, e)
+    se1 = kernels.select_se(g1, e)
+    se2 = kernels.select_se(g2, e)
 
     # ---- mate rescue: anchored mate = smaller SE key (score, fwd, bp) -----
     f1fwd = _frame_anchor(se1["best_anchor"], se1["best_bp"] >> 1, m1, L)

@@ -101,10 +101,11 @@ def extend_backward(dix: DeviceIndex, block, sp, ep, c):
     return cb + both[0], cb + both[1]
 
 
-def locate(dix: DeviceIndex, block, i, valid):
+def locate(dix: DeviceIndex, block, i, valid, n_lanes=None):
     """SA_block[i] per lane via <= dix.sa_rate LF steps; invalid lanes walk
-    garbage safely.  Returns u32 lanes.  One kernel on the card."""
-    return kernels.fm_locate(dix, block, i, valid)
+    garbage safely; lanes at or past the count n_lanes (int64 [1] on the
+    device, or None) give 0.  Returns u32 lanes.  One kernel on the card."""
+    return kernels.fm_locate(dix, block, i, valid, n_lanes=n_lanes)
 
 
 def locate_lockstep(dix: DeviceIndex, block, i, valid):

@@ -20,6 +20,14 @@ bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
     pair_join            <- no Pallas kernel: the PE proper-pair join, plain
                             jnp under jit in the reference
                             (bitmapperbs_tpu/models/paired.py:80-145)
+    flat_expand, flat_dedup, scatter_back, select_se
+                         <- no Pallas kernel: the compact candidate stage's
+                            flat buffer and the selection, plain jnp under
+                            jit in the reference
+                            (bitmapperbs_tpu/models/aligner.py:111-120,
+                            366-437, 490-548); their lane counts n_used
+                            and n_valid stay on the card, where fm_locate
+                            and verify_fused_gather take them (`n_lanes`)
 
 verify_fused and myers_scan take planes gathered by the caller; no mapping
 path calls them since the gathering entries serve the sharded index too.
@@ -27,9 +35,10 @@ path calls them since the gathering entries serve the sharded index too.
 The verify wrappers take u32 plane lanes as int64 tensors (ops/u32.py);
 gather_rows takes an int32 table and int64 row indices; the FM wrappers take
 the device index and int64 lanes; pair_join the two mates' (B, F, Kc)
-candidate grids.  On CPU tensors a wrapper runs its plain version (`*_ref`);
-on CUDA tensors it checks dtype, shape and device and launches its kernel
-from csrc/verify.cu, csrc/gather.cu, csrc/fm.cu or csrc/pair.cu, or raises.
+candidate grids; the flat-buffer wrappers the compact path's lanes.  On CPU
+tensors a wrapper runs its plain version (`*_ref`); on CUDA tensors it
+checks dtype, shape and device and launches its kernel from csrc/verify.cu,
+csrc/gather.cu, csrc/fm.cu, csrc/pair.cu or csrc/flat.cu, or raises.
 `LAUNCHES` counts the kernel launches.  A launch goes to the card its lanes
 are on (`_launching` makes that card current for the call), on that card's
 current stream, so a CUDA graph being captured there records it
@@ -62,13 +71,15 @@ import torch
 
 from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.index.device import Shards
+from bitmapperbs_tpu_torch.models import aligner   # mutual: used in calls
 from bitmapperbs_tpu_torch.ops import fm, verify   # mutual: used in calls
-from bitmapperbs_tpu_torch.ops.u32 import INVALID, bnot, to_i32, wrap
+from bitmapperbs_tpu_torch.ops.u32 import INVALID, MASK, bnot, to_i32, wrap
 
 LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
             "myers_scan": 0, "rescue_scan": 0, "gather_rows": 0,
             "gather_rows_shard": 0, "fm_search": 0, "fm_extend": 0,
-            "fm_locate": 0, "pair_join": 0}
+            "fm_locate": 0, "pair_join": 0, "flat_expand": 0,
+            "flat_dedup": 0, "scatter_back": 0, "select_se": 0}
 
 MAX_WORDS = 32                  # read words the kernels take (1,024 bp)
 # verify_fused_gather over 8 read words: a lane on ceil(words / K) threads
@@ -84,7 +95,7 @@ _RESCUE_WIDE_WORDS = (12, 16, 24, 32)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
-           for name in ("verify", "gather", "fm", "pair")}
+           for name in ("verify", "gather", "fm", "pair", "flat")}
 HEADERS = tuple(os.path.join(_PKG, "csrc", name)
                 for name in ("shards.cuh", "smem.cuh"))
 MAX_SHARDS = 8                  # parts of a shard set (csrc/shards.cuh)
@@ -145,7 +156,7 @@ def build() -> dict[str, str]:
 
 
 def _lib():
-    """The bound entry points of the four libraries, on one namespace."""
+    """The bound entry points of the five libraries, on one namespace."""
     global _LIB
     if _LIB is None:
         paths = build()
@@ -156,8 +167,8 @@ def _lib():
         lib.btbs_verify_fused.restype = ctypes.c_int
         planes = [vp, vp, i32, i64]       # gp, gp_parts, nparts, gp_rows
         lib.btbs_verify_fused_gather.argtypes = planes + [
-            vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, i32,
-            i32, vp]
+            vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32,
+            i32, i32, vp]
         lib.btbs_verify_fused_gather.restype = ctypes.c_int
         lib.btbs_myers.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                    vp]
@@ -192,7 +203,7 @@ def _lib():
             vp, vp, vp, vp, i32, i64, vp, vp, vp, vp, i64, vp]
         lib.btbs_fm_locate = fmlib.btbs_fm_locate
         lib.btbs_fm_locate.argtypes = index + [
-            i32, vp, vp, vp, vp, vp, i64, vp]
+            i32, vp, vp, vp, vp, vp, vp, i64, vp]
         lib.btbs_dependent_load_chain = fmlib.btbs_dependent_load_chain
         lib.btbs_dependent_load_chain.argtypes = [vp, i64, i32,
                                                   ctypes.c_uint32, vp, vp]
@@ -204,6 +215,23 @@ def _lib():
         lib.btbs_pair_join.argtypes = [vp] * 15 + [
             i64, i32, i32, i32, i64, i64, i64, i64, vp, i32, vp]
         lib.btbs_pair_join.restype = ctypes.c_int
+        flib = ctypes.CDLL(paths["flat"])
+        lib.btbs_flat_expand = flib.btbs_flat_expand
+        lib.btbs_flat_expand.argtypes = [vp, vp, vp, i64, i64, i64, vp, i64,
+                                         i32, i32, i64, i64, i64, i32] \
+            + [vp] * 11
+        lib.btbs_flat_dedup = flib.btbs_flat_dedup
+        lib.btbs_flat_dedup.argtypes = [vp] * 4 + [i64, i64, i32, i32, i64] \
+            + [vp] * 9
+        lib.btbs_scatter_back = flib.btbs_scatter_back
+        lib.btbs_scatter_back.argtypes = [vp] * 5 + [
+            i64, i64, i32, i64, i32, i64, i32, vp, vp, vp, vp]
+        lib.btbs_select_se = flib.btbs_select_se
+        lib.btbs_select_se.argtypes = [vp] * 4 + [
+            i64, i64, i64, i64, i32, i64, i64, vp, vp, vp, vp, vp]
+        for fn in (lib.btbs_flat_expand, lib.btbs_flat_dedup,
+                   lib.btbs_scatter_back, lib.btbs_select_se):
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -316,6 +344,28 @@ def _check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
 
+def _check_count(n_lanes, lanes) -> None:
+    """Raise unless n_lanes (a lane count on the lanes' device) is None or
+    an int64 [1] tensor beside 1-D lanes."""
+    if n_lanes is None:
+        return
+    if n_lanes.dtype != torch.int64 or tuple(n_lanes.shape) != (1,) \
+            or len(lanes) != 1:
+        raise ValueError(f"expected an int64 [1] lane count beside 1-D "
+                         f"lanes, got {n_lanes.dtype} "
+                         f"{tuple(n_lanes.shape)} for lanes {tuple(lanes)}")
+
+
+def _past_count(out, n_lanes, fill):
+    """`out` (1-D lanes) with every lane at or past the count n_lanes set to
+    `fill`, as the kernels write them: the plain versions' lane-count
+    rule."""
+    if n_lanes is None:
+        return out
+    ar = torch.arange(out.shape[0], dtype=torch.int64, device=out.device)
+    return torch.where(ar < n_lanes, out, fill)
+
+
 # ---- fused Hamming + Myers verify ------------------------------------------
 
 def verify_fused_ref(win, read_planes, lenmask, m: int, ncols: int, e: int):
@@ -382,16 +432,18 @@ def verify_fused_gather_fits(m: int, ncols: int) -> bool:
 
 def verify_fused_gather_ref(g_planes, orient, start, read_tab, row, lens,
                             genome_len: int, g_words: int, m: int,
-                            ncols: int, e: int):
+                            ncols: int, e: int, n_lanes=None):
     """Plain version: ops/verify.window_planes at `start`, the read planes
-    picked from their table, the length mask, then verify_fused_ref."""
+    picked from their table, the length mask, then verify_fused_ref; lanes
+    at or past n_lanes INF."""
     Wd = m // 32
     wide = verify.window_planes(g_planes, orient, start, -(-ncols // 32),
                                 genome_len, g_words)
     rp = read_tab[row]
-    return verify_fused_ref(
+    out = verify_fused_ref(
         wide, (rp[..., :Wd], rp[..., Wd:2 * Wd], rp[..., 2 * Wd:]),
         verify.length_mask(lens, m), m, ncols, e)
+    return _past_count(out, n_lanes, K.INF_SCORE)
 
 
 def wide_words(words: int) -> int:
@@ -402,21 +454,27 @@ def wide_words(words: int) -> int:
 
 def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
                         genome_len: int, g_words: int, m: int, ncols: int,
-                        e: int, words_per_thread: int | None = None):
+                        e: int, words_per_thread: int | None = None,
+                        n_lanes=None):
     """verify_fused on windows it fetches itself.  g_planes: int32 bits
     [2 * g_words, 3] (index/device.py), or their shard set; per lane (int64,
     one shape): orient
     (0 fwd / 1 rc), start (u32 window start, anchor - e, possibly wrapped
     below 0), row (into read_tab) and lens (read length); read_tab: int64
     u32 [R, 3 * Wd] read planes (b0 | b1 | nmask words).  Returns int32
-    lanes: ham if ham <= e else the semi-global Myers distance."""
+    lanes: ham if ham <= e else the semi-global Myers distance.  n_lanes:
+    None, or an int64 [1] count on the lanes' device (1-D lanes): lanes at
+    or past it give INF_SCORE and, on the card, load nothing."""
     lane_t = (orient, start, row, lens)
     _check_planes(g_planes, g_words)
     _require(torch.int64, orient=orient, start=start, row=row, lens=lens,
              read_tab=read_tab)
-    if not _on_cuda(g_planes, read_tab, *lane_t):
+    _check_count(n_lanes, torch.broadcast_shapes(*(t.shape for t in lane_t)))
+    counts = () if n_lanes is None else (n_lanes,)
+    if not _on_cuda(g_planes, read_tab, *lane_t, *counts):
         return verify_fused_gather_ref(g_planes, orient, start, read_tab, row,
-                                       lens, genome_len, g_words, m, ncols, e)
+                                       lens, genome_len, g_words, m, ncols, e,
+                                       n_lanes)
     Wd = m // 32
     if not verify_fused_gather_fits(m, ncols) or not 0 <= e <= 31:
         raise ValueError(f"verify_fused_gather takes 1..{MAX_WORDS} read "
@@ -437,6 +495,7 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
             _check_rc(_lib().btbs_verify_fused_gather(
                 *_table_args(g_planes), o.data_ptr(), s.data_ptr(),
                 read_tab.data_ptr(), r.data_ptr(), n.data_ptr(),
+                None if n_lanes is None else n_lanes.data_ptr(),
                 out.data_ptr(), L, read_tab.shape[0], g_words, genome_len, Wd,
                 m, ncols, e, words_per_thread or (
                     wide_words(Wd) if Wd > 8 else 0), stream),
@@ -766,6 +825,329 @@ def pair_join(s1, f1, s2, f2, frames1, frames2, m1, m2, genome_len: int,
     return (psum, pf1, pf2, pbp1, pbp2), best_s1, pa1, pa2, second
 
 
+# ---- the compact candidate stage's flat buffer ----------------------------
+
+_EXPAND_FRAMES = 64             # csrc/flat.cu kFrames: frames per block
+
+
+def _block_bits(blocks) -> int:
+    """The frames' blocks (0 fwd / 1 rc, one per frame) as csrc/flat.cu
+    takes them: bit f is frame f's block."""
+    if any(b not in (0, 1) for b in blocks):
+        raise ValueError(f"expected blocks 0 / 1, got {blocks}")
+    return sum(int(b) << f for f, b in enumerate(blocks))
+
+
+def _blocks_tensor(blocks, dev):
+    return torch.tensor(blocks, dtype=torch.int64, device=dev)
+
+
+def flat_expand_ref(sp, ep, starts, lengths, blocks, max_occ: int, LB: int,
+                    CAP: int):
+    """Plain version: the seed order and the run-marker scatter + cummax
+    expansion that models/aligner.candidate_grids_compact ran, with the
+    lanes past n_used zeroed."""
+    B, F, S = sp.shape
+    R = B * F
+    dev = sp.device
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int64, device=dev)
+
+    # Each kept (frame, seed) owns a contiguous run of slots; one scatter
+    # marks every run's start with its code and start slot, and a cummax
+    # carries them across the packed buffer.
+    cnt, sp, starts_l = aligner.order_seeds(sp, ep, starts,
+                                            max_occ)             # B,F,S
+    cum = torch.cumsum(cnt, dim=-1)
+    offs = (cum - cnt).reshape(R, S)
+    total = cum[..., -1]                                         # B,F
+    frame_occ = torch.clamp(total, max=LB).reshape(R)
+    frame_base = torch.cumsum(frame_occ, dim=0) - frame_occ
+    overflow = total > LB
+    gdrop = ((frame_base + frame_occ > CAP).reshape(B, F)
+             & (frame_occ.reshape(B, F) > 0)).any(dim=-1)
+
+    src_ok = (cnt.reshape(R, S) > 0) & (offs < frame_occ[:, None])
+    gstart = frame_base[:, None] + offs                          # R,S
+    # runs past the buffer are dropped: their slot is clamped into the
+    # discarded slot CAP
+    dst = torch.where(src_ok, gstart, CAP).reshape(-1).clamp(max=CAP)
+    fs_code = (arange(R)[:, None] * S + arange(S)).reshape(-1)
+
+    def run_marks(vals):
+        buf = torch.zeros(CAP + 1, dtype=torch.int64, device=dev)
+        buf = buf.scatter_reduce(0, dst, vals, reduce="amax")
+        return torch.cummax(buf[:CAP], dim=0).values
+
+    fs = run_marks(fs_code)
+    gs = run_marks(gstart.reshape(-1))
+    g = arange(CAP)
+    n_used = frame_base[-1:] + frame_occ[-1:]
+    ok = g < n_used                           # buffer is packed
+    seed_tab = torch.stack(
+        [sp.reshape(-1), starts_l.reshape(-1),
+         lengths[:, None, None].expand(B, F, S).reshape(-1)], dim=-1)
+    picked = seed_tab[fs]
+    fidx = fs // S
+    lanes = {"sa_row": wrap(picked[:, 0] + (g - gs)), "st": picked[:, 1],
+             "len_b": picked[:, 2], "fidx": fidx,
+             "blk": _blocks_tensor(blocks, dev)[fidx % F]}
+    return {**{k: torch.where(ok, v, 0) for k, v in lanes.items()},
+            "ok": ok, "n_used": n_used, "overflow": overflow,
+            "gdrop": gdrop}
+
+
+def flat_expand(sp, ep, starts, lengths, blocks, max_occ: int, LB: int,
+                CAP: int):
+    """The flat buffer of a candidate stage.  sp, ep: int64 [B, F, S] seed
+    intervals (u32 values); starts: int64 broadcastable to them (the seeds'
+    read positions); lengths: int64 [B]; blocks: the F frames' blocks (host
+    ints, 0 fwd / 1 rc).  Per frame the kept seeds (0 < ep - sp <= max_occ)
+    in ascending count order fill frame_occ = min(total, LB) slots, packed
+    batch-wide into CAP slots.  Returns a dict: per slot sa_row, st (seed
+    start), len_b (read length), fidx (frame row b * F + f), blk (int64
+    [CAP]) and ok (bool [CAP]: the slot is filled; every field of an unfilled
+    slot 0); n_used (int64 [1]: the slots the frames fill, on the device,
+    possibly past CAP); overflow (bool [B, F]: total > LB); gdrop (bool [B]:
+    a frame of the read lost slots past CAP).  One launch on the card
+    (csrc/flat.cu btbs_flat_expand: two kernels)."""
+    _require(torch.int64, sp=sp, ep=ep, starts=starts, lengths=lengths)
+    if not _on_cuda(sp, ep, starts, lengths):
+        return flat_expand_ref(sp, ep, starts, lengths, blocks, max_occ, LB,
+                               CAP)
+    if sp.dim() != 3 or ep.shape != sp.shape:
+        raise ValueError(f"expected int64 [B, F, S] intervals, got "
+                         f"{tuple(sp.shape)} and {tuple(ep.shape)}")
+    B, F, S = sp.shape
+    if tuple(lengths.shape) != (B,) or len(blocks) != F:
+        raise ValueError(f"flat_expand: intervals {tuple(sp.shape)}, "
+                         f"lengths {tuple(lengths.shape)}, {len(blocks)} "
+                         f"blocks")
+    dev = sp.device
+    sp_c, ep_c, ln = sp.contiguous(), ep.contiguous(), lengths.contiguous()
+    st_v = starts.expand(B, F, S)
+
+    def i64(*shape):
+        return torch.empty(shape, dtype=torch.int64, device=dev)
+
+    scratch = i64(-(-B * F // _EXPAND_FRAMES))
+    lanes = {k: i64(CAP) for k in ("sa_row", "st", "len_b", "fidx", "blk")}
+    out = {**lanes, "ok": torch.empty(CAP, dtype=torch.bool, device=dev),
+           "n_used": i64(1),
+           "overflow": torch.empty((B, F), dtype=torch.bool, device=dev),
+           "gdrop": torch.empty(B, dtype=torch.bool, device=dev)}
+    with _launching(dev) as stream:
+        _check_rc(_lib().btbs_flat_expand(
+            sp_c.data_ptr(), ep_c.data_ptr(), st_v.data_ptr(), *st_v.stride(),
+            ln.data_ptr(), B, F, S, max_occ, LB, CAP, _block_bits(blocks),
+            scratch.data_ptr(), *(t.data_ptr() for t in out.values()),
+            stream), "btbs_flat_expand")
+    LAUNCHES["flat_expand"] += 1
+    return out
+
+
+def flat_dedup_ref(keyS, perm, len_b, overflow, blocks, Kc: int):
+    """Plain version: the unique rank and Kc cap that
+    models/aligner.candidate_grids_compact ran after its sort."""
+    R = overflow.numel()
+    F = len(blocks)
+    dev = keyS.device
+    rowS = keyS >> 32
+    anchS = keyS & MASK
+    lenS = len_b[perm]
+    validS = rowS < R
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       keyS[1:] != keyS[:-1]])
+    uniq = validS & first
+    s_in = torch.cumsum(uniq.to(torch.int64), dim=0)
+    s_excl = s_in - uniq.to(torch.int64)
+    seg_first = torch.full((R + 1,), 1 << 30, dtype=torch.int64, device=dev)
+    seg_first = seg_first.scatter_reduce(0, rowS, s_excl, reduce="amin")
+    rank = s_excl - seg_first[torch.clamp(rowS, max=R)]
+    nuniq = torch.zeros(R + 1, dtype=torch.int64, device=dev).scatter_add(
+        0, rowS, uniq.to(torch.int64))
+    keep = uniq & (rank < Kc)
+    rowC = torch.clamp(rowS, max=R - 1)
+    return {"keep": keep, "rank": rank,
+            "cand": torch.where(keep, anchS, 0), "rowC": rowC,
+            "blkS": _blocks_tensor(blocks, dev)[rowC % F], "lenS": lenS,
+            "overflow": overflow | (nuniq[:R].reshape(overflow.shape) > Kc),
+            "n_valid": validS.sum().reshape(1)}
+
+
+def flat_dedup(keyS, perm, len_b, overflow, blocks, Kc: int):
+    """The unique rank of the sorted flat buffer.  keyS: int64 [CAP] sorted
+    keys row << 32 | anchor (row R = B * F for a lane without an anchor);
+    perm: the sort's int64 permutation; len_b: int64 [CAP] read lengths of
+    the unsorted lanes; overflow: bool [B, F] (flat_expand's); blocks: the F
+    frames' blocks.  Returns a dict, per sorted lane (int64 [CAP] unless
+    named): keep (bool: the first of its (row, anchor) and among the row's
+    first Kc distinct anchors), rank (distinct anchors of its row before
+    it), cand (its anchor where kept, else 0), rowC (its row, R - 1 past
+    the rows), blkS (that row's block), lenS (its read length); overflow
+    (bool [B, F]: also a row of more than Kc distinct anchors); n_valid
+    (int64 [1]: the lanes of a row < R, on the device).  One launch on the
+    card (csrc/flat.cu btbs_flat_dedup)."""
+    _require(torch.int64, keyS=keyS, perm=perm, len_b=len_b)
+    _require(torch.bool, overflow=overflow)
+    if not _on_cuda(keyS, perm, len_b, overflow):
+        return flat_dedup_ref(keyS, perm, len_b, overflow, blocks, Kc)
+    CAP = keyS.shape[0]
+    R = overflow.numel()
+    F = len(blocks)
+    if keyS.dim() != 1 or perm.shape != keyS.shape \
+            or len_b.shape != keyS.shape or overflow.dim() != 2 \
+            or overflow.shape[1] != F:
+        raise ValueError(f"flat_dedup: keys {tuple(keyS.shape)}, perm "
+                         f"{tuple(perm.shape)}, lengths {tuple(len_b.shape)},"
+                         f" overflow {tuple(overflow.shape)}, {F} blocks")
+    dev = keyS.device
+    ins = [t.contiguous() for t in (keyS, perm, len_b, overflow)]
+
+    def i64(n):
+        return torch.empty(n, dtype=torch.int64, device=dev)
+
+    out = {"keep": torch.empty(CAP, dtype=torch.bool, device=dev),
+           **{k: i64(CAP) for k in ("rank", "cand", "rowC", "blkS", "lenS")},
+           "overflow": torch.empty_like(ins[3]), "n_valid": i64(1)}
+    with _launching(dev) as stream:
+        _check_rc(_lib().btbs_flat_dedup(
+            *(t.data_ptr() for t in ins), CAP, R, F, _block_bits(blocks), Kc,
+            *(t.data_ptr() for t in out.values()), stream), "btbs_flat_dedup")
+    LAUNCHES["flat_dedup"] += 1
+    return out
+
+
+def scatter_back_ref(keyS, keep, rank, score, lengths, blocks,
+                     genome_len: int, e: int, Kc: int):
+    """Plain version: the scatter back into the dense grids that
+    models/aligner.candidate_grids_compact ran."""
+    B = lengths.shape[0]
+    F = len(blocks)
+    R = B * F
+    rowS = keyS >> 32
+    anchS = keyS & MASK
+    score = torch.where(keep & (score <= e), score, K.INF_SCORE)
+    dst = torch.where(keep, rowS * Kc + rank, R * Kc)
+    score_d = aligner.scatter_set(R * Kc + 1, K.INF_SCORE, torch.int32,
+                                  dst, score).reshape(B, F, Kc)
+    cand_d = aligner.scatter_set(R * Kc + 1, INVALID, torch.int64, dst,
+                                 anchS).reshape(B, F, Kc)
+    blk = _blocks_tensor(blocks, keyS.device)
+    fwd = torch.where(blk[None, :, None] == K.BLOCK_FWD, cand_d,
+                      wrap(genome_len - cand_d - lengths[:, None, None]))
+    valid = score_d < K.INF_SCORE
+    return {"score": score_d, "fwd": torch.where(valid, fwd, INVALID),
+            "frame_a": torch.where(valid, cand_d, INVALID)}
+
+
+def scatter_back(keyS, keep, rank, score, lengths, blocks, genome_len: int,
+                 e: int, Kc: int):
+    """The dense (B, F, Kc) grids of a candidate stage from its sorted flat
+    lanes: keyS, rank int64 [CAP] and keep bool [CAP] (flat_dedup's), score
+    int32 [CAP] (the verify's, per sorted lane), lengths int64 [B], blocks
+    the F frames' blocks.  A kept lane with score <= e lands at (its row,
+    its rank).  Returns {"score": int32 (INF_SCORE where nothing landed),
+    "fwd": int64 fwd-genome anchor, "frame_a": int64 frame anchor (INVALID
+    where the score is INF)}.  One launch on the card (csrc/flat.cu
+    btbs_scatter_back)."""
+    _require(torch.int64, keyS=keyS, rank=rank, lengths=lengths)
+    _require(torch.bool, keep=keep)
+    _require(torch.int32, score=score)
+    if not _on_cuda(keyS, keep, rank, score, lengths):
+        return scatter_back_ref(keyS, keep, rank, score, lengths, blocks,
+                                genome_len, e, Kc)
+    CAP = keyS.shape[0]
+    B = lengths.shape[0]
+    F = len(blocks)
+    if keyS.dim() != 1 or any(t.shape != keyS.shape
+                              for t in (keep, rank, score)) \
+            or lengths.dim() != 1:
+        raise ValueError(f"scatter_back: lanes {tuple(keyS.shape)}, "
+                         f"lengths {tuple(lengths.shape)}")
+    dev = keyS.device
+    ins = [t.contiguous() for t in (keyS, keep, rank, score, lengths)]
+    out = {"score": torch.empty((B, F, Kc), dtype=torch.int32, device=dev),
+           "fwd": torch.empty((B, F, Kc), dtype=torch.int64, device=dev),
+           "frame_a": torch.empty((B, F, Kc), dtype=torch.int64, device=dev)}
+    with _launching(dev) as stream:
+        _check_rc(_lib().btbs_scatter_back(
+            *(t.data_ptr() for t in ins), CAP, B, F, Kc, _block_bits(blocks),
+            genome_len, e, *(t.data_ptr() for t in out.values()), stream),
+            "btbs_scatter_back")
+    LAUNCHES["scatter_back"] += 1
+    return out
+
+
+def select_se_ref(grids, e: int):
+    """Plain version: the staged order-free (score, fwd_anchor, block, pat)
+    best/second reduction of the reference's select_se."""
+    B = grids["score"].shape[0]
+    sflat = grids["score"].reshape(B, -1)
+    aflat = grids["fwd"].reshape(B, -1)
+    frame_a = grids["frame_a"].reshape(B, -1)
+    bpflat = grids["bp"].reshape(B, -1)
+
+    s_best = sflat.amin(dim=-1)
+    m1 = sflat == s_best[:, None]
+    a_best = torch.where(m1, aflat, INVALID).amin(dim=-1)
+    m2 = m1 & (aflat == a_best[:, None])
+    bp_best = torch.where(m2, bpflat, 127).amin(dim=-1)
+    m3 = m2 & (bpflat == bp_best[:, None])
+    fa_best = torch.where(m3, frame_a, INVALID).amin(dim=-1)
+
+    diff = torch.maximum(frame_a, fa_best[:, None]) - torch.minimum(
+        frame_a, fa_best[:, None])
+    distinct = (bpflat != bp_best[:, None]) | (diff > e)
+    s_second = torch.where(distinct, sflat, K.INF_SCORE).amin(dim=-1)
+    return {
+        "best_score": s_best,
+        "best_bp": bp_best,
+        "best_anchor": fa_best,
+        "second_score": s_second,
+        "overflow": grids["overflow"],
+        "gdrop": grids["gdrop"],
+    }
+
+
+def select_se(grids, e: int):
+    """Order-free best / second per read over a candidate stage's (B, F, Kc)
+    grids (score int32 in [0, INF_SCORE], fwd and frame_a int64 u32 values,
+    bp int64 codes in [0, 255] at any strides): the lexicographic least
+    (score, fwd, bp, frame_a), which the staged minima of the plain version
+    pick, and the least score of a slot in another bp or more than e from
+    its frame anchor.  Returns the reference's dict: best_score (int32),
+    best_bp, best_anchor (int64), second_score (int32), and the grids'
+    overflow and gdrop as they are.  One launch on the card (csrc/flat.cu
+    btbs_select_se)."""
+    score, fwd, frame_a, bp = (grids[k] for k in ("score", "fwd", "frame_a",
+                                                  "bp"))
+    _require(torch.int32, score=score)
+    _require(torch.int64, fwd=fwd, frame_a=frame_a, bp=bp)
+    if not _on_cuda(score, fwd, frame_a, bp):
+        return select_se_ref(grids, e)
+    if score.dim() != 3 or any(t.shape != score.shape
+                               for t in (fwd, frame_a, bp)):
+        raise ValueError(f"select_se: grids {tuple(score.shape)}, "
+                         f"{tuple(fwd.shape)}, {tuple(frame_a.shape)}, "
+                         f"{tuple(bp.shape)}")
+    B, F, Kc = score.shape
+    dev = score.device
+    ins = [t.contiguous() for t in (score, fwd, frame_a)]
+    out = {"best_score": torch.empty(B, dtype=torch.int32, device=dev),
+           "best_bp": torch.empty(B, dtype=torch.int64, device=dev),
+           "best_anchor": torch.empty(B, dtype=torch.int64, device=dev),
+           "second_score": torch.empty(B, dtype=torch.int32, device=dev)}
+    with _launching(dev) as stream:
+        _check_rc(_lib().btbs_select_se(
+            *(t.data_ptr() for t in ins), bp.data_ptr(), *bp.stride(), B, F,
+            Kc, e, *(t.data_ptr() for t in out.values()), stream),
+            "btbs_select_se")
+    LAUNCHES["select_se"] += 1
+    return {**out, "overflow": grids["overflow"], "gdrop": grids["gdrop"]}
+
+
 # ---- table row gather --------------------------------------------------------
 
 def gather_rows_ref(table, idx):
@@ -1026,30 +1408,37 @@ def fm_extend(dix, block, patterns, starts, sp, ep, ext_max: int,
     return tuple(outs)
 
 
-def fm_locate_ref(dix, block, i, valid):
-    """Plain version: the lockstep loop of ops/fm.locate_lockstep."""
-    return fm.locate_lockstep(dix, block, i, valid)
+def fm_locate_ref(dix, block, i, valid, n_lanes=None):
+    """Plain version: the lockstep loop of ops/fm.locate_lockstep; lanes at
+    or past n_lanes 0."""
+    return _past_count(fm.locate_lockstep(dix, block, i, valid), n_lanes, 0)
 
 
-def fm_locate(dix, block, i, valid, rows_out=None):
+def fm_locate(dix, block, i, valid, rows_out=None, n_lanes=None):
     """SA_block[i] per lane: at most dix.sa_rate LF steps to the next sampled
     suffix, then the sample plus the steps taken (u32).  block, i: int64
-    lanes; valid: bool lanes (invalid lanes walk from position 0)."""
+    lanes; valid: bool lanes (invalid lanes walk from position 0).  n_lanes:
+    None, or an int64 [1] count on the lanes' device (1-D lanes): lanes at or
+    past it give 0 and, on the card, load nothing (the flat buffer's fill,
+    flat_expand's n_used)."""
     _check_index(dix)
     _require(torch.int64, block=block, i=i)
     _require(torch.bool, valid=valid)
-    if not _on_cuda(dix.cp_rows, dix.sa_samples, dix.cbase, block, i,
-                    valid):
-        _rows_ptr(rows_out, None, False)
-        return fm_locate_ref(dix, block, i, valid)
     lanes = torch.broadcast_shapes(block.shape, i.shape, valid.shape)
+    _check_count(n_lanes, lanes)
+    counts = () if n_lanes is None else (n_lanes,)
+    if not _on_cuda(dix.cp_rows, dix.sa_samples, dix.cbase, block, i,
+                    valid, *counts):
+        _rows_ptr(rows_out, None, False)
+        return fm_locate_ref(dix, block, i, valid, n_lanes)
     b, pos = _lanes_i64(block, lanes), _lanes_i64(i, lanes)
     ok = valid.expand(lanes).contiguous()
     out = torch.empty(lanes, dtype=torch.int64, device=b.device)
     if b.numel():
         with _launching(b.device) as stream:
             _check_rc(_lib().btbs_fm_locate(
-                *_index_args(dix), dix.sa_rate, b.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+                *_index_args(dix), dix.sa_rate, b.data_ptr(), pos.data_ptr(),
+                ok.data_ptr(), None if n_lanes is None else n_lanes.data_ptr(),
                 out.data_ptr(), _rows_ptr(rows_out, lanes, True), b.numel(),
                 stream), "btbs_fm_locate")
         LAUNCHES["fm_locate"] += 1

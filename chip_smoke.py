@@ -66,7 +66,16 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      instructions counted in the machine code that phase 2 dumps with
      cuobjdump) and, for gather_rows, the time of the one PyTorch call that
      computes it (index_select); no single PyTorch call computes any of the
-     others
+     others.  fm_locate and verify_fused_gather also with a lane count on
+     the card (n_lanes: the flat buffer's n_used / n_valid, lanes past it 0
+     / INF), captured and planted.  The flat-buffer kernels (flat_expand,
+     flat_dedup, scatter_back, select_se: csrc/flat.cu, no TPU kernel
+     behind them) against their plain versions, every output torch.equal,
+     on the arguments of phase 4's and phase 8's last batches, of the Gbp
+     SE, PBAT SE, --sensitive SE and PE batches, and on seeded edge rows
+     (flat_edge_args: every buffer cut of flat_cap_cuts, rows of more than
+     Kc anchors, empty rows, ties); each timed (call, inside, CUDA graph,
+     plain) at the three Gbp SE shapes beside its bytes bound
   4. SE main path: 10 Mbp two-contig genome, 4 x 16,384 reads through
      models.host.map_batch, eager (graphs=False), launches counted.  The
      last batch carries 1,024 low-complexity (pyrimidine-only, poly-T once
@@ -202,6 +211,14 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      (candidate stages, pair join, select, rescue; the pair join row with
      the plain join too), the PE path's device kernels, idle share and
      peak memory
+ 13c. The Gbp --pbat autotune (flat cap 192 in 3 chunks): 4 x 4,096 reads
+     of all four strands and 4 x 4,096 pairs (every other pair's mates
+     swapped) through map_batch / map_batch_pe eager, launches counted, SAM
+     of a sample equal to the oracle's; then through their CUDA graphs
+     (records equal), the batches against eager leaf by leaf, walls eager
+     and graph, idle share, kernels per batch, capture and pool
+ 13d. The same for --sensitive at Gbp (256 candidates in 2 chunks) on
+     phase 12's first 4 x 4,096 reads
  13b. Trimmed reads (150 bp cut by the length model of TRIM_KEEPS, in a
      160 bucket), 4 x 4,096 reads and 4 x 4,096 pairs of the Gbp config
      through map_batch / map_batch_pe with their graphs and eager, records
@@ -212,9 +229,11 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      1,048,576 reads or pairs at -e 4 and at -e 0.04, for both models
  14. CLI on the saved 100 Mbp artifact with `--seed-ext 20
      --max-candidates 128` gives phase 12's records
-Launch counts are set to 0 just before each main path (phases 4, 8, 11b's
-wide-insert batch, 11c's four paths, 12, 13), which run eager, and read
-just after it; beside them, for each graphed run of those paths, its
+Every graphed configuration's eager device call runs once under
+torch.cuda.set_sync_debug_mode("error") (no_host_sync): no host sync is left
+in it.  Launch counts are set to 0 just before each main path (phases 4, 8,
+11b's wide-insert batch, 11c's four paths, 12, 13, 13c, 13d), which run
+eager, and read just after it; beside them, for each graphed run of those paths, its
 graphs' replays times the launches each capture counted (computed, never
 0; the run's eager tail batches and gdrop re-runs are not in it).  The
 kernels' record gives, per kernel, the launches of the slices' main paths
@@ -224,8 +243,10 @@ its own, and phase 13) with every path's beside them.
 Every TPU kernel of the reference has at least one entry point that those
 paths launch, and every entry point launches on one of them but
 verify_fused and myers_scan, which no path takes any more: phase 3 holds
-them to their plain versions.  pair_join stands for no TPU kernel
-(NO_TPU_KERNEL_ENTRIES) and launches on the PE paths.
+them to their plain versions.  pair_join and the four flat-buffer entries
+stand for no TPU kernel (NO_TPU_KERNEL_ENTRIES); pair_join launches on the
+PE paths, the flat-buffer entries once per candidate stage (select_se once
+per SE and twice per PE device call, and in every dense re-run).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -298,6 +319,7 @@ SAT_COPIES = (30, 128)             # arrays whose seeds stay under max_seed_occ
 GBP_BIG_BATCH, N_GBP_BIG_BATCHES = 16_384, 4
 N_GBP_ORACLE, N_GBP_ORACLE_SAT = 64, 8
 N_GBP_PE_BATCHES, N_GBP_PE_ORACLE = 2, 48
+N_GBP_VARIANT_BATCHES = 4          # phases 13c / 13d: 4 x 4,096 reads, pairs
 GATHER_LANES = 2 * 16_384 * 2 * 5  # 2 endpoints x reads x frames x seeds
 GATHER_SETS = 8                    # index sets rotated through a timing
 LONG_BUCKET, LONG_READ_LEN, N_LONG = 288, 280, 1_024   # ending phase 12
@@ -411,6 +433,18 @@ KERNEL_SOURCES = {
     "pair_join": ("bitmapperbs_tpu_torch/csrc/pair.cu",
                   "bitmapperbs_tpu/models/paired.py:80-145 (plain jnp "
                   "under jax.jit: no Pallas kernel)"),
+    "flat_expand": ("bitmapperbs_tpu_torch/csrc/flat.cu",
+                    "bitmapperbs_tpu/models/aligner.py:111-120 and 366-406 "
+                    "(plain jnp under jax.jit: no Pallas kernel)"),
+    "flat_dedup": ("bitmapperbs_tpu_torch/csrc/flat.cu",
+                   "bitmapperbs_tpu/models/aligner.py:421-437 (plain jnp "
+                   "under jax.jit: no Pallas kernel)"),
+    "scatter_back": ("bitmapperbs_tpu_torch/csrc/flat.cu",
+                     "bitmapperbs_tpu/models/aligner.py:490-515 (plain jnp "
+                     "under jax.jit: no Pallas kernel)"),
+    "select_se": ("bitmapperbs_tpu_torch/csrc/flat.cu",
+                  "bitmapperbs_tpu/models/aligner.py:520-548 (plain jnp "
+                  "under jax.jit: no Pallas kernel)"),
 }
 # the entries that launch on no main path, phase 3 only: there they stand
 # for TPU kernels 1 and 3 against their plain versions (the sharded index,
@@ -419,7 +453,9 @@ PHASE_3_ONLY = ("verify_fused", "myers_scan")
 # the entries with no TPU kernel behind them: work that the reference
 # writes as plain jnp and leaves to XLA under jax.jit, which the port runs
 # as a kernel of its own; each must launch on a main path too
-NO_TPU_KERNEL_ENTRIES = ("pair_join",)
+NO_TPU_KERNEL_ENTRIES = ("pair_join", "flat_expand", "flat_dedup",
+                         "scatter_back", "select_se")
+FLAT_KERNELS = NO_TPU_KERNEL_ENTRIES[1:]
 # every TPU kernel (each function of the reference that reaches
 # pl.pallas_call) and the port's entry points that stand for it: at least
 # one entry of each must launch on a main path
@@ -437,6 +473,11 @@ TPU_KERNEL_ENTRIES = {
 # nothing in Python; the path's eager tail batches and gdrop re-runs are
 # not in it), set by graph_path
 GRAPH_PATHS: dict = {}
+# (cfg, PE) of every device call no_host_sync has run under
+# torch.cuda.set_sync_debug_mode("error")
+SYNC_CHECKED: set = set()
+# kernel -> record of the flat-buffer kernels, filled by phase_flat_kernels
+FLAT_RECORD: dict = {}
 
 
 def log(msg: str) -> None:
@@ -834,6 +875,20 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
         if not torch.equal(got, want):
             raise AssertionError(f"{name} (m {m}): kernel != plain on "
                                  f"{int((got != want).sum())} lanes")
+        counts = ()
+        if name == "verify_fused_gather":
+            # a lane count as the compact path hands it (n_valid): the
+            # lanes at or past it INF, loaded by no thread
+            counts = (0, L // 3, L, L + 7)
+            for c in counts:
+                t = torch.tensor([c], dtype=torch.int64, device=dix.device)
+                g = kernels.verify_fused_gather(*g_args, n_lanes=t)
+                w = kernels.verify_fused_gather_ref(*g_args, n_lanes=t)
+                torch.cuda.synchronize()
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{name} (m {m}) with a lane count of {c}: kernel "
+                        f"!= plain on {int((g != w).sum())} lanes")
         ms, plain_ms = median_ms(kern), median_ms(plain, reps=plain_reps)
         # the gathering entry has two kernels (registers / shared memory)
         inside = device_ms(kern, name if name == "verify_fused_gather"
@@ -843,6 +898,9 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
             extra = f", result <= e on {frac:.3f} of lanes"
         else:
             extra = ""
+        if counts:
+            extra += (f", and with lane counts {', '.join(map(str, counts))}"
+                      f" (the lanes past them INF)")
         build = wide_build(Wd) if name == "verify_fused_gather" else None
         if build:
             extra += (f"; thread-group kernel: "
@@ -1408,6 +1466,163 @@ def plant_pair_join_rows(grids: dict, frames1, frames2, L: int, e: int,
     return len(rows)
 
 
+def flat_expand_inputs(seed: int, B: int, F: int, S: int, max_occ: int,
+                       LB: int, shared_starts: bool = True) -> dict:
+    """Seeded inputs of the flat expansion (numpy: sp / ep int64 [B, F, S]
+    u32 seed intervals, starts int64 [B, 1, S] (one per read, as seeding
+    leaves them) or [B, F, S] (moved by the seed extension), lengths int64
+    [B]).  A seed's width is 0, small, up to max_occ, above it, or wrapped
+    below 0 (ep < sp); the first reads are edge reads: no kept seed, only
+    seeds over max_occ or wrapped, a total over LB (runs cut at the budget),
+    equal counts in every frame (the order's ties), a frame of exactly LB,
+    and one kept seed of width 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    U = 1 << 32
+    sp = rng.integers(0, U, (B, F, S))
+    kind = rng.random((B, F, S))
+    width = np.where(
+        kind < 0.35, 0, np.where(
+            kind < 0.7, rng.integers(1, 5, (B, F, S)), np.where(
+                kind < 0.9, rng.integers(5, max_occ + 1, (B, F, S)),
+                np.where(kind < 0.95,
+                         rng.integers(max_occ + 1, 4 * max_occ + 2, (B, F, S)),
+                         -rng.integers(1, 10, (B, F, S))))))
+    edges = [np.zeros((F, S), np.int64),                    # nothing kept
+             np.where(np.arange(S) % 2, max_occ + 1, -3)[None].repeat(F, 0),
+             np.full((F, S), max_occ),                      # total > LB
+             np.full((F, S), 3),                            # ties
+             np.where(np.arange(S) == 0, min(LB, max_occ), 0)[None].repeat(
+                 F, 0),
+             np.where(np.arange(S) == S - 1, 1, 0)[None].repeat(F, 0)]
+    for b, w in enumerate(edges[:B]):
+        width[b] = w
+    starts = np.sort(rng.integers(0, 90, (B, 1 if shared_starts else F, S)),
+                     axis=-1)
+    return {"sp": sp, "ep": (sp + width) % U, "starts": starts,
+            "lengths": rng.integers(40, 97, B).astype(np.int64)}
+
+
+def flat_cap_cuts(n_used: int, frame_occ, CAP: int) -> list:
+    """Buffer sizes of the expansion's edge cases for a batch whose frames
+    fill n_used slots (frame_occ: each frame's slots, in order): the
+    batch's own CAP, one slot, a cut inside a frame's run (n_used > CAP:
+    every slot filled, the reads past it dropped), a cut at a frame's
+    boundary, exactly n_used and past it."""
+    import numpy as np
+
+    base = np.cumsum(frame_occ) - frame_occ
+    big = np.flatnonzero(frame_occ >= 3)
+    inside = int(base[big[len(big) // 2]] + 1) if len(big) else 1
+    bounds = base[(base > 0) & (base < n_used)]
+    at = int(bounds[len(bounds) // 2]) if len(bounds) else 1
+    return sorted({CAP, 1, max(inside, 1), max(at, 1), max(n_used, 1),
+                   n_used + 5})
+
+
+def flat_sorted_keys(seed: int, B: int, F: int, Kc: int, CAP: int,
+                     L: int) -> dict:
+    """Seeded sorted keys of the flat dedup (numpy: keyS / perm int64 [CAP],
+    len_b int64 [CAP] per unsorted lane, overflow bool [B, F]): keys row <<
+    32 | anchor of R = B * F rows (row R with anchor INVALID for a lane
+    without an anchor), anchors repeated within a row and across rows, near
+    0 and near L (the reverse block's fwd anchor wraps).  Edge rows: row 0
+    with Kc + 7 distinct anchors and duplicates, row 1 with no lane (an
+    all-INVALID frame), rows 2 and 3 with the same anchors, the last row
+    with one lane."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    R = B * F
+    INV = 0xFFFFFFFF
+    rows = rng.integers(4, R, CAP)
+    rows[rng.random(CAP) < 0.2] = R
+    pick = rng.random(CAP)
+    anchor = np.where(pick < 0.5, rng.integers(0, 60, CAP), np.where(
+        pick < 0.7, rng.integers(max(L - 120, 0), L + 1, CAP),
+        rng.integers(0, INV, CAP)))
+    n0 = min(2 * (Kc + 7), CAP // 4)
+    rows[:n0] = 0
+    anchor[:n0] = np.arange(n0) % (Kc + 7) * 3
+    shared = rng.integers(0, 1000, 16)
+    rows[n0:n0 + 16], anchor[n0:n0 + 16] = 2, shared
+    rows[n0 + 16:n0 + 32], anchor[n0 + 16:n0 + 32] = 3, shared
+    rows[n0 + 32:][rows[n0 + 32:] == R - 1] = R
+    rows[n0 + 32] = R - 1
+    anchor[rows == R] = INV
+    key = rows.astype(np.int64) << 32 | anchor
+    lengths = rng.integers(40, 97, B)
+    len_b = np.where(rows < R, lengths[np.minimum(rows, R - 1) // F], 0)
+    return {"key": key.astype(np.int64), "len_b": len_b.astype(np.int64),
+            "overflow": rng.random((B, F)) < 0.1,
+            "lengths": lengths.astype(np.int64)}
+
+
+def flat_scores(seed: int, keep, e: int):
+    """Seeded verify scores (numpy int32) of the sorted lanes: 0..e, just
+    over e and INF, INF on most lanes that are not kept, as the verify
+    leaves them past n_valid."""
+    import numpy as np
+
+    from bitmapperbs_tpu_torch import constants as K
+
+    rng = np.random.default_rng(seed)
+    n = len(keep)
+    score = np.where(rng.random(n) < 0.6, rng.integers(0, e + 1, n),
+                     np.where(rng.random(n) < 0.5,
+                              rng.integers(e + 1, e + 4, n), K.INF_SCORE))
+    score[~keep & (rng.random(n) < 0.7)] = K.INF_SCORE
+    return score.astype(np.int32)
+
+
+def select_grids(seed: int, B: int, frames, Kc: int, e: int,
+                 L: int) -> dict:
+    """Seeded (B, F, Kc) grids of the selection (numpy: score int32, fwd /
+    frame_a int64 u32 values, INF / INVALID in empty slots, as the
+    candidate stages leave them; bp int64 [F], the frames' codes).  Edge
+    reads: nothing valid; two hits of one score at other fwd anchors; one
+    score and fwd in two frames (bp decides); one (score, fwd, bp) at two
+    frame anchors; seconds exactly e and e + 1 from the best; the best in
+    the last slot of the last frame."""
+    import numpy as np
+
+    from bitmapperbs_tpu_torch import constants as K
+
+    rng = np.random.default_rng(seed)
+    F = len(frames)
+    INF, INV = K.INF_SCORE, 0xFFFFFFFF
+    score = np.full((B, F, Kc), INF, np.int32)
+    fwd = np.full((B, F, Kc), INV, np.int64)
+    frame_a = np.full((B, F, Kc), INV, np.int64)
+    for b in range(B):
+        n = int(rng.integers(0, min(Kc, 6) + 1) if rng.random() < 0.9
+                else rng.integers(0, F * Kc + 1))
+        at = rng.choice(F * Kc, n, replace=False)
+        locus = int(rng.integers(0, L))
+        fa = locus + rng.integers(-2 * e, 2 * e + 1, n)
+        score.reshape(B, -1)[b, at] = rng.integers(0, e + 1, n)
+        frame_a.reshape(B, -1)[b, at] = fa % (1 << 32)
+        fwd.reshape(B, -1)[b, at] = (fa + rng.integers(0, 3, n)) % (1 << 32)
+    plants = [
+        [],
+        [(0, 0, 1, 500, 500), (1, 2, 1, 400, 400)],
+        [(0, 1, 2, 900, 900), (F - 1, 0, 2, 900, 950)],
+        [(0, 3, 0, 70, 80), (0, 4, 0, 70, 75)],
+        [(0, 0, 0, 300, 300), (0, 1, 1, 300 + e, 300 + e),
+         (0, 5, 2, 300 + e + 1, 300 + e + 1)],
+        [(0, 0, 3, 10, 10), (F - 1, Kc - 1, 0, 20, 20)],
+    ]
+    for b, row in enumerate(plants[:B]):
+        score[b], fwd[b], frame_a[b] = INF, INV, INV
+        for f, k, sc, fw, fa in row:
+            score[b, f, min(k, Kc - 1)] = sc
+            fwd[b, f, min(k, Kc - 1)] = fw
+            frame_a[b, f, min(k, Kc - 1)] = fa
+    return {"score": score, "fwd": fwd, "frame_a": frame_a,
+            "bp": np.array([bl * 2 + p for p, bl in frames], np.int64)}
+
+
 def recall(idx, sims, recs) -> float:
     """Share of the simulated reads placed on the true contig and strand
     within e of the true leftmost coordinate."""
@@ -1506,7 +1721,8 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
         f"{main_launches}")
     assert len(recs) == len(reads)
     # no seed extension below 512 Mbp: fm_extend belongs to phases 12-13
-    for name in ("verify_fused_gather", "fm_search", "fm_locate"):
+    for name in ("verify_fused_gather", "fm_search", "fm_locate",
+                 *FLAT_KERNELS):
         assert main_launches[name] > 0, f"{name} never ran on the SE path"
     assert main_launches["myers"] > 0, \
         "Myers kernel never ran: no batch took the gdrop dense re-run"
@@ -1597,6 +1813,12 @@ def run_se(idx, dix, card: str, prefix: str, workdir: str):
     graph_walls("10 Mbp SE", dix, cfg, batches, False, card)
     device_graphs.clear(dix)
 
+    # ---- phase 3 addition: the flat-buffer kernels on the arguments of
+    # phase 4's last batch (its low-complexity reads overflow the buffer:
+    # n_used > CAP, the gdrop case)
+    phase_flat_kernels({"10 Mbp SE, phase 4's last batch": capture_flat_args(
+        lambda: eager_call(dix, cfg, batches[-1], False))}, {}, card)
+
     return main_launches, gdrop_launches, {
         "fq": fq, "lines": lines, "stats": cli_stats, "cli_s": wall,
         "cfg": cfg, "reads": reads, "quals": quals, "qnames": qnames}
@@ -1679,7 +1901,7 @@ def run_pe(idx, dix, card: str, prefix: str, workdir: str):
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     assert len(recs) == 2 * len(pairs)
     for name in ("verify_fused_gather", "rescue_scan", "myers", "fm_search",
-                 "fm_locate", "pair_join"):
+                 "fm_locate", "pair_join", *FLAT_KERNELS):
         assert main_launches[name] > 0, f"{name} never ran on the PE path"
     lines = [r.line() for r in recs]
     t0 = time.perf_counter()
@@ -1807,6 +2029,8 @@ def run_pe(idx, dix, card: str, prefix: str, workdir: str):
     batches = host_batches(pairs, BUCKET, PE_PAIRS, pe=True)
     graphs_vs_eager("10 Mbp PE, phase 8's batches", dix, cfg, batches, True)
     graph_walls("10 Mbp PE", dix, cfg, batches, True, card)
+    phase_flat_kernels({"10 Mbp PE, phase 8's last batch": capture_flat_args(
+        lambda: eager_call(dix, cfg, batches[-1], True))}, {}, card)
     device_graphs.clear(dix)
     return main_launches, gdrop_launches, {
         "fq": fq, "lines": lines, "recs": recs, "pairs": pairs,
@@ -2275,16 +2499,18 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
         # ---- the FM step kernels on a sharded data slice's own arguments
         calls = capture_fm_calls(sdix, cfg, batch)
         for name in FM_KERNELS:
-            kern, args = getattr(kernels, name), calls[name]
+            # fm_locate's lane count (a keyword) goes to both instances
+            kern, (args, kw) = getattr(kernels, name), calls[name]
             planted = shard_edges(name, plant_fm_edges(sdix, name, args))
             check(kern(*planted), refs[name](*planted),
                   f"{name} on {ns} shards, edge lanes")
-            check(kern(*args), refs[name](*args), f"{name} on {ns} shards")
+            check(kern(*args, **kw), refs[name](*args, **kw),
+                  f"{name} on {ns} shards")
             whole = (dix,) + args[1:]
-            check(kern(*args), kern(*whole),
+            check(kern(*args, **kw), kern(*whole, **kw),
                   f"{name} on {ns} shards vs the whole table")
             rows = torch.zeros(args[1].shape, dtype=torch.int32, device=dev)
-            kern(*args, rows_out=rows)
+            kern(*args, **kw, rows_out=rows)
             n_rows = int(rows.sum())
             steps = n_rows / (1 if name == "fm_locate" else 2)
             b = bound(n_rows * CP_ROW_BYTES + rows.numel() * lane_bytes[name]
@@ -2292,8 +2518,9 @@ def phase_shard_kernels(idx, dix, cfg, batch) -> dict:
                       n_rows * FM_THREADS_PER_ROW
                       * SASS_OPS[name + " shard"]["loop"])
             out.setdefault(name, {})[key] = {
-                **record(name, ns, lambda: kern(*args),
-                         lambda: kern(*whole), lambda: refs[name](*args), b,
+                **record(name, ns, lambda: kern(*args, **kw),
+                         lambda: kern(*whole, **kw),
+                         lambda: refs[name](*args, **kw), b,
                          f", {rows.numel()} lanes ({n_rows} rows)",
                          graphs=True),
                 "lanes": rows.numel(), "rows_fetched": n_rows}
@@ -2656,7 +2883,8 @@ def phase_gather_kernel(dix, flat_lanes: int) -> dict:
 
 def capture_fm_calls(dix, cfg, batch) -> dict:
     """The arguments that one map_batch_device call hands to fm_search,
-    fm_extend and fm_locate."""
+    fm_extend and fm_locate: (positional, keyword) each (fm_locate's lane
+    count n_lanes is a keyword)."""
     from bitmapperbs_tpu_torch.models.aligner import map_batch_device
     from bitmapperbs_tpu_torch.ops import kernels
 
@@ -2664,9 +2892,9 @@ def capture_fm_calls(dix, cfg, batch) -> dict:
     calls = {}
 
     def recording(name):
-        def call(*args):
-            calls[name] = args
-            return saved[name](*args)
+        def call(*args, **kw):
+            calls[name] = (args, kw)
+            return saved[name](*args, **kw)
         return call
 
     try:
@@ -2769,15 +2997,24 @@ def phase_fm_kernels(dix, cfg, small, big) -> dict:
         for name in FM_KERNELS:
             kern = getattr(kernels, name)
             sets = [c[name] for c in calls]
-            planted = plant_fm_edges(dix, name, sets[0])
+            planted = plant_fm_edges(dix, name, sets[0][0])
             lanes = planted[1].shape
             as_tuple = (lambda r: r if isinstance(r, tuple) else (r,))
             err = 0
-            for args in (planted, sets[-1]):
-                want = as_tuple(refs[name](*args))
+            checks = [(planted, {}), sets[-1]]
+            if name == "fm_locate":
+                # the flat buffer's fill as the path hands it (the lanes
+                # past it write 0 and load nothing), and planted counts
+                n = lanes[0]
+                checks += [(planted, {"n_lanes": torch.tensor(
+                    [c], dtype=torch.int64, device=dix.device)})
+                    for c in (0, n // 3, n + 7)]
+                n_used = [int(kw["n_lanes"]) for _, kw in sets]
+            for args, kw in checks:
+                want = as_tuple(refs[name](*args, **kw))
                 rows = torch.full(lanes, -1, dtype=torch.int32,
                                   device=dix.device)
-                got = as_tuple(kern(*args, rows_out=rows))
+                got = as_tuple(kern(*args, **kw, rows_out=rows))
                 torch.cuda.synchronize()
                 for g, w in zip(got, want):
                     assert g.shape == w.shape == lanes, (g.shape, w.shape)
@@ -2789,16 +3026,19 @@ def phase_fm_kernels(dix, cfg, small, big) -> dict:
                 assert int(rows.min()) >= 0
             # the rows this data makes the kernel fetch, over the rotation
             n_rows, longest = 0, 0
-            for args in sets:
+            for args, kw in sets:
                 rows = torch.zeros(lanes, dtype=torch.int32,
                                    device=dix.device)
-                kern(*args, rows_out=rows)
+                kern(*args, **kw, rows_out=rows)
                 n_rows += int(rows.sum())
                 longest = max(longest, int(rows.max()))
             n_rows /= len(sets)
             L = rows.numel()
             steps = n_rows / rows_per_step[name]
-            other = L * lane_bytes[name] \
+            # locate's lanes past the fill write their 8 bytes and no more
+            live = statistics.mean(min(n, L) for n in n_used) \
+                if name == "fm_locate" else L
+            other = live * lane_bytes[name] + (L - live) * 8 \
                 + (steps if name != "fm_locate" else 0)
             b = bound(n_rows * CP_ROW_BYTES + other,
                       n_rows * FM_THREADS_PER_ROW * SASS_OPS[name]["loop"])
@@ -2814,14 +3054,19 @@ def phase_fm_kernels(dix, cfg, small, big) -> dict:
             def rotating(fn):
                 def call():
                     turn[0] += 1
-                    return fn(*sets[turn[0] % len(sets)])
+                    args, kw = sets[turn[0] % len(sets)]
+                    return fn(*args, **kw)
                 return call
 
             ms = median_ms(rotating(kern))      # as the main path calls it
             plain_ms = median_ms(rotating(refs[name]), reps=PLAIN_FM_REPS)
             inside = device_ms(rotating(kern), name + "_kernel")
+            fill = (f", the flat buffer's fill {statistics.mean(n_used):.0f} "
+                    f"lanes on average (lane counts 0, {L // 3} and {L + 7} "
+                    f"planted too)" if name == "fm_locate" else "")
             log(f"kernel {name}, {label} reads per batch: {L} lanes equal to "
-                f"plain, planted edge lanes included (max_abs_err {err}); "
+                f"plain, planted edge lanes included (max_abs_err {err}"
+                f"{fill}); "
                 f"median {ms:.4f} ms on the main path's arguments "
                 f"({fmt_ms(inside)} inside the kernel) vs plain "
                 f"{plain_ms:.3f} ms; {n_rows:.0f} rows fetched per call "
@@ -2835,6 +3080,8 @@ def phase_fm_kernels(dix, cfg, small, big) -> dict:
                      "device_ms": inside, "rows_fetched": n_rows,
                      "sector_bytes_ms": sector_ms,
                      "latency_floor_ms": chain * probe}
+            if name == "fm_locate":
+                shape["lanes_filled"] = statistics.mean(n_used)
             if name not in out:             # the record carries the 4,096 shape
                 out[name] = {"max_abs_err": err, **shape, "library_ms": None,
                              "dependent_load_ns": probe * 1e6,
@@ -2926,17 +3173,24 @@ def timed_stages(stages: dict, run_batch, batches):
 
 def stage_table(dix, cfg, batches) -> tuple[dict, float]:
     """The stage table of map_batch_device; `rest` is what runs between the
-    stages: conversion, seed ordering, the flat expansion, the sort dedup
-    and the scatter back."""
+    stages and is still plain PyTorch: conversion, frame stack, rolling
+    k-mers, seed bounds and the read planes, and the anchor mask and sort
+    keys."""
+    import torch
+
     from bitmapperbs_tpu_torch.models import aligner
     from bitmapperbs_tpu_torch.ops import fm, kernels
 
     stages = {"seed (KLT + backward search)": (fm, "search_patterns"),
               "extend seeds": (fm, "extend_seeds"),
+              "flat expand (one kernel)": (kernels, "flat_expand"),
               "locate": (fm, "locate"),
+              "sort (torch.sort)": (torch, "sort"),
+              "dedup (one kernel)": (kernels, "flat_dedup"),
               "window gather + verify (one kernel)":
                   (kernels, "verify_fused_gather"),
-              "select": (aligner, "select_se")}
+              "scatter back (one kernel)": (kernels, "scatter_back"),
+              "select (one kernel)": (kernels, "select_se")}
 
     def run_batch(batch):
         a, ln, mn = batch
@@ -2964,7 +3218,7 @@ def pe_stage_table(dix, cfg, batches) -> tuple[dict, float]:
     stages = {"candidate stage, mate 1": (mates, "stage1"),
               "candidate stage, mate 2": (mates, "stage2"),
               "pair join": (kernels, "pair_join"),
-              "select (both mates)": (paired, "select_se"),
+              "select (both mates, one kernel each)": (kernels, "select_se"),
               "rescue (one rescue_scan launch)": (paired, "_rescue_scan")}
 
     def run_batch(batch):
@@ -3086,13 +3340,50 @@ def graph_path(name: str, dix, run):
     return recs, replays, live
 
 
+def no_host_sync(label: str, dix, cfg, batch: tuple, pe: bool) -> None:
+    """The eager device call of a host batch (graph_call's form), its inputs
+    already on the card and the call warmed up once, run again under
+    torch.cuda.set_sync_debug_mode("error"): a host sync anywhere inside it
+    (a read of a device value, a blocking copy) raises.  Once per
+    configuration and mode (SYNC_CHECKED)."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models.aligner import map_batch_device
+    from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
+
+    if (cfg, pe) in SYNC_CHECKED:
+        return
+    t = [torch.from_numpy(x).to(dix.device) for x in batch[:4 if pe else 2]]
+
+    def call():
+        if pe:
+            return map_batch_pe_device(dix, cfg, *t, min_read_len1=batch[4],
+                                       min_read_len2=batch[5])
+        return map_batch_device(dix, cfg, *t, min_read_len=batch[2])
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    SYNC_CHECKED.add((cfg, pe))
+    log(f"no host sync, {label}: the eager device call ({len(out)} outputs, "
+        f"flat_chunks {cfg.flat_chunks}) ran under "
+        f"torch.cuda.set_sync_debug_mode('error')")
+
+
 def graphs_vs_eager(label: str, dix, cfg, batches: list, pe: bool) -> None:
     """Every batch dispatched through its graph before the first is read
     (at least three in flight), then every output leaf held to the eager
-    device call's on the same batch (torch.equal)."""
+    device call's on the same batch (torch.equal); the first batch's eager
+    call run once with no host sync allowed (no_host_sync)."""
     import torch
 
     assert len(batches) >= 3
+    no_host_sync(label, dix, cfg, batches[0], pe)
     outs = [graph_call(dix, cfg, b, pe) for b in batches]
     for i, (b, out) in enumerate(zip(batches, outs)):
         want = dict(leaves(eager_call(dix, cfg, b, pe)))
@@ -3116,6 +3407,7 @@ def graph_walls(label: str, dix, cfg, batches: list, pe: bool,
 
     from bitmapperbs_tpu_torch.models import graphs
 
+    no_host_sync(label, dix, cfg, batches[0], pe)
     sync = "pair_sum" if pe else "best_score"
     runs = {"eager": lambda b: eager_call(dix, cfg, b, pe),
             "graph": lambda b: graph_call(dix, cfg, b, pe)}
@@ -3465,6 +3757,185 @@ def phase_pair_join_kernel(dix, pcfg, pe_batches, card: str) -> dict:
     return rec
 
 
+def capture_flat_args(run) -> dict:
+    """The arguments that run() (device calls on the card) hands the four
+    flat-buffer wrappers: {kernel: [args of each call]}; the wrappers are
+    restored after."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    saved = {name: getattr(kernels, name) for name in FLAT_KERNELS}
+    seen: dict = {name: [] for name in FLAT_KERNELS}
+
+    def recording(name):
+        def call(*args):
+            seen[name].append(args)
+            return saved[name](*args)
+        return call
+
+    try:
+        for name in FLAT_KERNELS:
+            setattr(kernels, name, recording(name))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+    return seen
+
+
+def flat_edge_args(dev, B: int, frames, Kc: int, L: int, e: int) -> dict:
+    """Seeded arguments of the four flat-buffer kernels with their edge rows
+    planted (flat_expand_inputs at every buffer size of flat_cap_cuts, with
+    one start per read and with a start per frame; flat_sorted_keys and the
+    scatter back of flat_scores on their dedup; select_grids), on `dev`,
+    as phase_flat_kernels takes them: {label: {kernel: [args]}}."""
+    import torch
+
+    from bitmapperbs_tpu_torch.models import aligner
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    blocks = tuple(b for _, b in frames)
+    F = len(frames)
+    S, occ_max, LB, CAP = E + 1, 128, 256, B * 42
+    t = lambda a: torch.from_numpy(a).to(dev)        # noqa: E731
+    out: dict = {}
+    for shared in (True, False):
+        x = {k: t(v) for k, v in flat_expand_inputs(
+            40 + shared, B, F, S, occ_max, LB, shared).items()}
+        args = (x["sp"], x["ep"], x["starts"], x["lengths"], blocks,
+                occ_max, LB)
+        occ = aligner.order_seeds(x["sp"], x["ep"], x["starts"],
+                                  occ_max)[0].sum(-1).clamp(max=LB)
+        occ = occ.reshape(-1).cpu().numpy()
+        out[f"seeded intervals, {'a start per read' if shared else 'a start '
+            'per frame'}, n_used {int(occ.sum())}, CAP at each cut"] = {
+            "flat_expand": [args + (cap,) for cap in flat_cap_cuts(
+                int(occ.sum()), occ, CAP)]}
+    y = flat_sorted_keys(42, B, F, Kc, CAP, L)
+    keyS, perm = torch.sort(t(y["key"]), stable=True)
+    d_args = (keyS, perm, t(y["len_b"]), t(y["overflow"]), blocks, Kc)
+    dd = kernels.flat_dedup_ref(*d_args)
+    score = t(flat_scores(43, dd["keep"].cpu().numpy(), e))
+    out["seeded keys with edge rows, and seeded scores on them"] = {
+        "flat_dedup": [d_args],
+        "scatter_back": [(keyS, dd["keep"], dd["rank"], score,
+                          t(y["lengths"]), blocks, L, e, Kc)]}
+    z = select_grids(44, B, frames, Kc, e, L)
+    grids = {k: t(z[k]) for k in ("score", "fwd", "frame_a")}
+    grids["bp"] = t(z["bp"])[None, :, None].expand(B, F, Kc)
+    grids["overflow"] = torch.zeros(B, dtype=torch.bool, device=dev)
+    grids["gdrop"] = torch.ones(B, dtype=torch.bool, device=dev)
+    out["seeded grids with edge reads"] = {"select_se": [(grids, e)]}
+    return out
+
+
+def flat_bytes(name: str, args: tuple) -> int:
+    """The bytes a flat-buffer kernel must move for these arguments: each
+    input it needs read once (a broadcast start or bp code once), each
+    output written once.  The scatter back needs the keep byte of the lanes
+    of a row < R only, the score of the kept ones and the key and rank of
+    those that land (score <= e); the selection needs every score, and the
+    anchors and code of the cells with a finite score, or of every cell of
+    a read that has none."""
+    from bitmapperbs_tpu_torch import constants as K
+
+    if name == "flat_expand":
+        sp, _, starts, lengths, blocks, _, _, CAP = args
+        B, F, S = sp.shape
+        starts_n = B * S * (F if starts.stride(1) else 1)
+        return (2 * sp.numel() + starts_n + B) * 8 \
+            + CAP * (5 * 8 + 1) + 8 + B * F + B
+    if name == "flat_dedup":
+        keyS, _, _, overflow, _, _ = args
+        CAP, R = keyS.numel(), overflow.numel()
+        return CAP * 3 * 8 + R + CAP * (1 + 5 * 8) + R + 8
+    if name == "scatter_back":
+        keyS, keep, _, score, lengths, blocks, _, e, Kc = args
+        B = lengths.numel()
+        R = B * len(blocks)
+        n_valid = int(((keyS >> 32) < R).sum())
+        kept = int(keep.sum())
+        land = int((keep & (score <= e)).sum())
+        return n_valid + kept * 4 + land * (8 + 8) + B * 8 \
+            + R * Kc * (4 + 8 + 8)
+    grids, _ = args
+    score, bp = grids["score"], grids["bp"]
+    B, F, Kc = score.shape
+    finite = score < K.INF_SCORE
+    need = int((finite | ~finite.flatten(1).any(1)[:, None, None]).sum())
+    bp_n = F if bp.stride(0) == 0 and bp.stride(2) == 0 else need
+    return B * F * Kc * 4 + need * (8 + 8) + bp_n * 8 + B * (4 + 8 + 8 + 4)
+
+
+def flat_equal(name: str, args: tuple, what: str) -> int:
+    """A flat-buffer kernel against its plain version on the card, every
+    output torch.equal (dtype and shape included); returns the largest
+    absolute difference (0)."""
+    import torch
+
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    got = getattr(kernels, name)(*args)
+    want = getattr(kernels, name + "_ref")(*args)
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys(), (name, sorted(got), sorted(want))
+    bad = [k for k, w in want.items() if got[k].dtype != w.dtype
+           or got[k].shape != w.shape or not torch.equal(got[k], w)]
+    assert not bad, f"{name} != plain on {what}: {bad}"
+    return max(int((got[k].to(torch.int64) - w.to(torch.int64)).abs().max())
+               if w.numel() else 0 for k, w in want.items())
+
+
+def phase_flat_kernels(cases: dict, timed: dict, card: str) -> None:
+    """The four flat-buffer kernels (csrc/flat.cu, no TPU kernel behind
+    them) against their plain versions, every output torch.equal, on the
+    arguments in `cases` ({label: {kernel: [args]}}, captured from real
+    batches' device calls, and flat_edge_args' seeded edge rows); at the
+    shapes in `timed` ({label: {kernel: args}}) each kernel's median call,
+    inside (torch.profiler), CUDA-graph and plain times beside its bytes
+    bound.  Adds to FLAT_RECORD; the first shape timed is a kernel's
+    headline."""
+    from bitmapperbs_tpu_torch.ops import kernels
+
+    inside_names = {"flat_expand": "expand_", "flat_dedup": "dedup_kernel",
+                    "scatter_back": "scatter_back_kernel",
+                    "select_se": "select_se_kernel"}
+    for name in FLAT_KERNELS:
+        FLAT_RECORD.setdefault(name, {"max_abs_err": 0, "library_ms": None,
+                                      "checked": [], "shapes": {}})
+    rec = FLAT_RECORD
+    for label, by_kernel in cases.items():
+        for name, calls in by_kernel.items():
+            for i, args in enumerate(calls):
+                what = f"{label}, call {i + 1}"
+                err = flat_equal(name, args, what)
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+                rec[name]["checked"].append(what)
+            log(f"kernel {name}: all outputs equal to plain (torch.equal) "
+                f"on {label}, {len(calls)} call(s)")
+    for label, by_kernel in timed.items():
+        for name, args in by_kernel.items():
+            kern = getattr(kernels, name)
+            plain = getattr(kernels, name + "_ref")
+            ms = median_ms(lambda: kern(*args))
+            inside = device_ms(lambda: kern(*args), inside_names[name])
+            graph = graph_ms(lambda: kern(*args))
+            plain_ms = median_ms(lambda: plain(*args))
+            b = bound(flat_bytes(name, args), 0)
+            shape = {"ms": ms, "device_ms": inside, "graph_ms": graph,
+                     "plain_ms": plain_ms, **b}
+            if not rec[name]["shapes"]:
+                rec[name].update(shape)
+            rec[name]["shapes"][label] = shape
+            log(f"kernel {name}, {label}: median {ms:.4f} ms per call "
+                f"({fmt_ms(inside)} inside, CUDA graph {graph:.4f}), plain "
+                f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by bytes "
+                f"({flat_bytes(name, args) / 1e6:.2f} MB); no single PyTorch "
+                f"call computes it; {card}")
+
+
 def gbp_index(device):
     """The planted-repeat genome's index, on the host and on the card, and
     the configuration the CLI tunes for a genome over 512 Mbp."""
@@ -3607,14 +4078,83 @@ def gbp_stage_tables(dix, cfg, long_batch, pe_batches) -> None:
         + f"; peak device memory {peak:.2f} GB")
 
 
+def gbp_variant(key: str, label: str, idx, dix, cfg, items: list,
+                pe: bool, card: str) -> dict:
+    """One more Gbp-scale configuration's main path on the planted-repeat
+    index (phase 13c: the --pbat autotune, SE and PE; 13d: --sensitive):
+    `items` (reads, or pairs of mates) through map_batch / map_batch_pe
+    eager with its launches counted, SAM of a sample equal to the oracle's,
+    the same items through the CUDA graphs (records equal, the replays
+    under GRAPH_PATHS[key + "_graph"]), the batches against eager leaf by
+    leaf with no host sync in the eager call, and the synced walls, idle
+    share, kernels per batch, capture and pool (graph_walls).  Returns the
+    eager run's launches."""
+    import torch
+
+    from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.models import graphs as device_graphs
+    from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
+    from bitmapperbs_tpu_torch.ops import kernels
+    from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
+    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
+
+    mapper, oracle = (map_batch_pe, oracle_pe) if pe else (map_batch,
+                                                           map_batch_se)
+    names = [f"{key[:2]}{i}" for i in range(len(items))]
+    quals = [(("I" * len(a)), ("I" * len(b))) for a, b in items] if pe \
+        else ["I" * len(r) for r in items]
+    reset_launches()
+    t0 = time.perf_counter()
+    recs = mapper(idx, dix, cfg, items, quals, names, graphs=False)
+    launches = dict(kernels.LAUNCHES)
+    wall = time.perf_counter() - t0
+    for name in ("verify_fused_gather", "fm_locate", *FLAT_KERNELS,
+                 *(("pair_join", "rescue_scan") if pe else ())):
+        assert launches[name] > 0, f"{name} never ran on {label}"
+    lines = [r.line() for r in recs]
+    n = N_GBP_PE_ORACLE if pe else N_GBP_ORACLE
+    want = [r.line() for r in oracle(idx, cfg, items[:n], quals[:n],
+                                     names[:n])]
+    bad = [i for i, (a, b) in enumerate(zip(want, lines)) if a != b]
+    assert len(want) == (2 * n if pe else n) and not bad, \
+        f"{label}: oracle mismatch at record {bad[0]}:\n{want[bad[0]]}\n" \
+        f"{lines[bad[0]]}"
+    grecs, replays, live = graph_path(
+        key + "_graph", dix,
+        lambda: mapper(idx, dix, cfg, items, quals, names))
+    assert [r.line() for r in grecs] == lines, \
+        f"{label}: records through CUDA graphs differ from the eager run's"
+    mapped = sum(not r.flag & K.FLAG_UNMAPPED for r in recs) / len(recs)
+    cap = cfg.resolve_flat_cap(dix.genome_len,
+                               4 if cfg.non_directional else 2)
+    log(f"{label}: {len(items)} {'pairs' if pe else 'reads'} mapped eager in "
+        f"{wall:.2f} s (first call), launches {launches}; SAM of the first "
+        f"{n} equals the oracle; mapped {mapped:.4f}; through CUDA graphs "
+        f"{replays} replays of {len(live)} graph(s), records equal to the "
+        f"eager run's; the replays launched {GRAPH_PATHS[key + '_graph']}; "
+        f"flat cap {cap} slots per read, flat_chunks {cfg.flat_chunks}, Kc "
+        f"{cfg.max_candidates}")
+    host = host_batches(items, BUCKET, cfg.batch_size, pe)
+    graphs_vs_eager(label, dix, cfg, host, pe)
+    graph_walls(label, dix, cfg, host, pe, card)
+    device_graphs.clear(dix)
+    torch.cuda.synchronize()
+    return launches
+
+
 def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     """Phases 12-14 on the planted-repeat genome; returns the records of
     the kernels checked on its index (gather_rows, the FM kernels,
     verify_fused at the 288 bucket) and the launch counts of its main paths
-    (phase 12's 96 bp batches, its 280 bp batch, phase 13)."""
+    (phase 12's 96 bp batches, its 280 bp batch, phase 13, and phases 13c
+    and 13d's PBAT and --sensitive paths)."""
+    import argparse
+
     import torch
 
     from bitmapperbs_tpu_torch import constants as K
+    from bitmapperbs_tpu_torch.cli import autotune_for_genome
+    from bitmapperbs_tpu_torch.config import AlignerConfig
     from bitmapperbs_tpu_torch.index.build import save_index
     from bitmapperbs_tpu_torch.io.fastq import write_fastq
     from bitmapperbs_tpu_torch.io.stats import MapStats
@@ -3625,8 +4165,9 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
     from bitmapperbs_tpu_torch.ops import kernels
     from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as oracle_pe
-    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se
-    from bitmapperbs_tpu_torch.utils.simulate import simulate_reads
+    from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se, se_frames
+    from bitmapperbs_tpu_torch.utils.simulate import (simulate_pairs,
+                                                      simulate_reads)
 
     device = torch.device("cuda", 0)
     idx, dix, cfg = gbp_index(device)
@@ -3812,6 +4353,8 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     reset_launches()
     four_batches()
     per_batch = {k: v / 4 for k, v in kernels.LAUNCHES.items()}
+    # once per candidate stage, the selection once per SE call
+    assert all(per_batch[name] == 1 for name in FLAT_KERNELS), per_batch
     idle = idle_share(four_batches)
     log(f"Gbp SE, 4 batches of {GBP_BATCH} back to back: walls "
         f"{min(idle['walls_ms']):.2f}-{max(idle['walls_ms']):.2f} ms "
@@ -3866,6 +4409,8 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     per_batch = {k: v / len(pe_batches) for k, v in kernels.LAUNCHES.items()}
     assert per_batch["rescue_scan"] == 1, per_batch
     assert per_batch["pair_join"] == 1, per_batch
+    # two candidate stages, a selection for each mate
+    assert all(per_batch[name] == 2 for name in FLAT_KERNELS), per_batch
     log(f"Gbp PE: launches per map_batch_pe_device call {per_batch}")
     join = sum(int(h["pair_valid"].sum()) for h in hosts)
     resc = sum(int((h["resc_valid"] & ~h["pair_valid"]).sum()) for h in hosts)
@@ -3922,6 +4467,60 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     graph_walls("Gbp config PE", dix, pcfg, pe_host, True, card)
     device_graphs.clear(dix)
 
+    # ---- phase 13c: the --pbat autotune (flat cap 192 in 3 chunks), SE and
+    # PE; 13d: --sensitive (256 candidates in 2 chunks), SE -------------------
+    base = AlignerConfig(max_errors=E, indels=True, read_len_bucket=BUCKET,
+                         batch_size=GBP_BATCH)
+    bcfg = autotune_for_genome(base.replace(non_directional=True),
+                               argparse.Namespace(), GBP_GENOME_BP)
+    scfg = autotune_for_genome(base, argparse.Namespace(sensitive=True),
+                               GBP_GENOME_BP)
+    assert (bcfg.locate_flat_cap, bcfg.flat_chunks) == (192, 3), bcfg
+    assert (scfg.max_candidates, scfg.flat_chunks) == (256, 2), scfg
+    bpcfg = bcfg.replace(paired=True, min_insert=MIN_INSERT,
+                         max_insert=MAX_INSERT)
+    n_var = N_GBP_VARIANT_BATCHES * GBP_BATCH
+    pbat_reads = [x.codes for x in simulate_reads(
+        idx.genome, n_var, read_len=READ_LEN, seed=130, sub_rate=0.01,
+        indel_rate=0.005, protocols=("OT", "OB", "CTOT", "CTOB"))]
+    # PBAT libraries read mate 1 off the complementary strands: every other
+    # pair's mates swapped
+    pbat_pairs = [(b.codes, a.codes) if i % 2 else (a.codes, b.codes)
+                  for i, (a, b) in enumerate(simulate_pairs(
+                      idx.genome, n_var, read_len=READ_LEN, seed=131,
+                      sub_rate=0.01, indel_rate=0.005, min_insert=150,
+                      max_insert=480))]
+    variant_launches = {
+        "se_gbp_pbat": gbp_variant(
+            "se_gbp_pbat", "Gbp PBAT SE (--pbat autotune)", idx, dix, bcfg,
+            pbat_reads, False, card),
+        "pe_gbp_pbat": gbp_variant(
+            "pe_gbp_pbat", "Gbp PBAT PE (--pbat autotune)", idx, dix, bpcfg,
+            pbat_pairs, True, card),
+        "se_gbp_sensitive": gbp_variant(
+            "se_gbp_sensitive", "Gbp --sensitive SE", idx, dix, scfg,
+            reads[:n_var], False, card)}
+
+    # ---- phase 3 additions: the flat-buffer kernels on this index's batches
+    one = {"Gbp SE batch (4,096 reads, Kc 128)": capture_flat_args(
+        lambda: eager_call(dix, cfg, se_host[0], False)),
+        "Gbp PBAT SE batch (flat cap 192)": capture_flat_args(
+        lambda: eager_call(dix, bcfg, host_batches(
+            pbat_reads[:GBP_BATCH], BUCKET, GBP_BATCH, False)[0], False)),
+        "Gbp --sensitive SE batch (Kc 256)": capture_flat_args(
+        lambda: eager_call(dix, scfg, se_host[-1], False)),
+        "Gbp PE batch (both mates)": capture_flat_args(
+        lambda: eager_call(dix, pcfg, pe_host[0], True))}
+    edges = {f"{label}, {len(fr)} frames, Kc {kc}": calls
+             for fr, kc in ((tuple(se_frames(cfg)), cfg.max_candidates),
+                            (tuple(se_frames(bcfg)), WIDE_JOIN_KC))
+             for label, calls in flat_edge_args(
+                 device, GBP_BATCH, fr, kc, dix.genome_len, E).items()}
+    phase_flat_kernels({**one, **edges}, {
+        label: {name: calls[0] for name, calls in one[label].items()}
+        for label in list(one)[:3]}, card)
+    del one, edges                 # their tensors would count in later peaks
+
     # ---- phase 13b: trimmed reads -------------------------------------------
     phase_trimmed(idx, dix, cfg, pcfg, card)
 
@@ -3959,7 +4558,7 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
             f"and upload)")
     return kstats, {"se_gbp_config": se_launches,
                     "se_gbp_config_280bp": long_launches,
-                    "pe_gbp_config": pe_launches}
+                    "pe_gbp_config": pe_launches, **variant_launches}
 
 
 def run(card: str) -> dict:
@@ -4046,11 +4645,13 @@ def run(card: str) -> dict:
     # the SHARD instances' records beside each kernel's own
     for name, rec in shard_stats.items():
         kstats[name]["shard"] = rec
+    kstats.update(FLAT_RECORD)
     # what the graphed runs of the main paths launched: replays x captured
     assert set(GRAPH_PATHS) == {
         "se_10mbp_graph", "pe_10mbp_graph", "pe_10mbp_insert_100k_graph",
         "se_gbp_config_graph", "se_gbp_config_280bp_graph",
-        "pe_gbp_config_graph"}, sorted(GRAPH_PATHS)
+        "pe_gbp_config_graph", "se_gbp_pbat_graph", "pe_gbp_pbat_graph",
+        "se_gbp_sensitive_graph"}, sorted(GRAPH_PATHS)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
          "replaces": KERNEL_SOURCES[name][1],

@@ -175,8 +175,8 @@ def test_capture_and_replay_on_the_index_card(monkeypatch):
     (card_index(card=1), cfg(), BS, True),          # not the current card
     (card_index(), cfg(), BS // 2, False),          # a tail batch
     (card_index(), cfg(), 1, False),
-    (card_index(), cfg(flat_chunks=2), BS, False),  # reads n_used on the host
-    (card_index(), cfg(flat_chunks=3), BS, False),
+    (card_index(), cfg(flat_chunks=2), BS, True),   # lane counts on the card
+    (card_index(), cfg(flat_chunks=3), BS, True),
     (card_index(), cfg(compact=False), BS, False),  # the dense re-run
     (card_index(sharded=True), cfg(), BS, False),
     (types.SimpleNamespace(device=torch.device("cpu"), sharded=False), cfg(),

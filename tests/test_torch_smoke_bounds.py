@@ -106,10 +106,11 @@ def test_resident_warps(regs, smem, warps):
 
 
 def test_every_kernel_has_a_listing_name():
-    # the two row gathers and the pair join are bound by bytes: no
-    # operation count
+    # the two row gathers, the pair join and the four flat-buffer kernels
+    # are bound by bytes: no operation count
     assert set(chip_smoke.SASS_KERNELS) == set(chip_smoke.KERNEL_SOURCES) \
-        - {"gather_rows", "gather_rows_shard", "pair_join"}
+        - {"gather_rows", "gather_rows_shard", "pair_join", "flat_expand",
+           "flat_dedup", "scatter_back", "select_se"}
     assert all(lib in ("verify", "fm")
                for lib, _ in chip_smoke.SASS_KERNELS.values())
 
@@ -181,7 +182,8 @@ def test_rescue_columns_run_counts_the_warm_up(chunks):
 
 def test_every_tpu_kernel_names_its_entries():
     """Every entry stands for a TPU kernel or is one with no TPU kernel
-    behind it, never both: the pair join is the reference's plain jnp."""
+    behind it, never both: the pair join and the compact candidate stage's
+    flat buffer are the reference's plain jnp."""
     named = [n for names in chip_smoke.TPU_KERNEL_ENTRIES.values()
              for n in names]
     none = list(chip_smoke.NO_TPU_KERNEL_ENTRIES)
@@ -189,9 +191,18 @@ def test_every_tpu_kernel_names_its_entries():
     assert sorted(named + none) == sorted(chip_smoke.KERNEL_SOURCES)
     assert "rescue_scan" in chip_smoke.TPU_KERNEL_ENTRIES["myers_scan_pallas"]
     assert "paired.py:220-238" in chip_smoke.KERNEL_SOURCES["rescue_scan"][1]
-    assert none == ["pair_join"]
+    assert none == ["pair_join", "flat_expand", "flat_dedup", "scatter_back",
+                    "select_se"]
     assert "bitmapperbs_tpu/models/paired.py:80-145" in \
         chip_smoke.KERNEL_SOURCES["pair_join"][1]
+    for name, lines in (("flat_expand", "111-120 and 366-406"),
+                        ("flat_dedup", "421-437"),
+                        ("scatter_back", "490-515"),
+                        ("select_se", "520-548")):
+        assert chip_smoke.KERNEL_SOURCES[name] == (
+            "bitmapperbs_tpu_torch/csrc/flat.cu",
+            f"bitmapperbs_tpu/models/aligner.py:{lines} (plain jnp under "
+            f"jax.jit: no Pallas kernel)")
     assert chip_smoke.KERNEL_SOURCES["pair_join"][0].endswith("csrc/pair.cu")
 
 
@@ -210,6 +221,42 @@ def test_pair_join_bound_counts_its_bytes(B, F1, F2, Kc, ms):
     b = chip_smoke.bound(n, 0)
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("broadcast", [True, False])
+def test_select_bound_counts_the_finite_cells(broadcast):
+    """Every int32 score read; the fwd and frame anchors (and the bp code,
+    unless broadcast per frame) of the cells with a finite score only, and
+    of every cell of a read that has none; four outputs per read."""
+    torch = pytest.importorskip("torch")
+    from bitmapperbs_tpu_torch.constants import INF_SCORE as INF
+    B, F, Kc = 3, 2, 4
+    score = torch.full((B, F, Kc), INF, dtype=torch.int32)
+    score[0, 0, 1], score[0, 1, 3], score[2, 1, 0] = 3, 0, 4   # read 1: none
+    bp = torch.tensor([0, 3], dtype=torch.int64)[None, :, None]
+    bp = bp.expand(B, F, Kc) if broadcast else bp.repeat(B, 1, Kc)
+    grids = {"score": score, "bp": bp}
+    need = 2 + F * Kc + 1
+    want = B * F * Kc * 4 + need * 16 + (F if broadcast else need) * 8 \
+        + B * 24
+    assert chip_smoke.flat_bytes("select_se", (grids, 4)) == want
+
+
+def test_scatter_back_bound_counts_the_landing_lanes():
+    """The keep byte of each lane of a row < R, the score of each kept lane,
+    the key and rank of each that lands (score <= e), the lengths, and the
+    three grids written once."""
+    torch = pytest.importorskip("torch")
+    B, blocks, Kc, e = 2, (0, 1), 3, 4
+    R = B * len(blocks)
+    rows = torch.tensor([0, 0, 1, 3, 3, R, R, R])
+    keyS = rows << 32 | torch.arange(8)
+    keep = torch.tensor([1, 0, 1, 1, 1, 0, 0, 0], dtype=torch.bool)
+    score = torch.tensor([2, 9, 5, 0, 4, 0, 0, 0], dtype=torch.int32)
+    args = (keyS, keep, None, score, torch.tensor([90, 80]), blocks, 10**6,
+            e, Kc)
+    want = 5 + 4 * 4 + 3 * 16 + B * 8 + R * Kc * 20
+    assert chip_smoke.flat_bytes("scatter_back", args) == want
 
 
 def test_trimmed_length_model():

@@ -335,7 +335,7 @@ def test_long_bucket_takes_the_planes_entry():
     saved = (kernels.verify_fused, kernels.verify_fused_gather)
     kernels.verify_fused = lambda *a: calls.append("planes") or saved[0](*a)
     kernels.verify_fused_gather = \
-        lambda *a: calls.append("gather") or saved[1](*a)
+        lambda *a, **k: calls.append("gather") or saved[1](*a, **k)
     try:
         got = tal.map_batch_device(upload_index(idx), cfg,
                                    torch.from_numpy(arr),
