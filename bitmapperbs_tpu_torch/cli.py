@@ -16,15 +16,18 @@ numpy oracle on the host instead.  With more than one local card and no
 `--single-device`, batches are split over every card (parallel/shard.py),
 the index replicated on each, or split over `--shard-index N` cards per
 data slice.  On one card a full batch replays a CUDA graph of its device
-call (models/graphs.py); a `--profile` run stays eager, so that its trace
-names every kernel launch.
+call (models/graphs.py), under `--profile` too.
 
 Streaming runs checkpoint a (record, byte-offset) cursor next to the output,
 `<out>.cursor`, after every written group (the reference's JSON: a run
 killed under either package resumes under the other with `--resume`).
-`--profile DIR` writes a torch.profiler Chrome trace and prints the map /
-write stage walls (utils/profiling.StageTimer); `--dist-hosts N` maps
-one shard of the input per process (parallel/multihost.py).
+`--profile DIR` runs with utils/profiling's recorder on and writes a
+torch.profiler Chrome trace of the graphed path: the card's kernels,
+replays included, the host loop's spans as `btbs.*` ranges and one track
+per finalize worker; it prints the stage line: the map (`host.call`) and
+write (`io.write`) walls, every other span's, the graph captures, replays
+and replayed launches, and the eager calls by reason.  `--dist-hosts N`
+maps one shard of the input per process (parallel/multihost.py).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import time
 
 
 PLATFORMS = ("auto", "cpu", "gpu")
+STAGES = {"host.call": "map", "io.write": "write"}   # --profile's stage line
 
 
 def _translate_legacy(argv):
@@ -424,8 +428,8 @@ def cmd_search(args) -> int:
     from bitmapperbs_tpu_torch.io.sam import SamWriter
     from bitmapperbs_tpu_torch.io.stats import MapStats
     from bitmapperbs_tpu_torch.parallel import multihost
-    from bitmapperbs_tpu_torch.utils.profiling import (StageTimer,
-                                                       device_trace,
+    from bitmapperbs_tpu_torch.utils.profiling import (REC, device_trace,
+                                                       report, span,
                                                        trace_path)
 
     # ref may be the FASTA path (resolves <ref>.btidx) or an index prefix
@@ -566,7 +570,6 @@ def cmd_search(args) -> int:
         args.output,
         ("ab" if bam else "a") if resumed else ("wb" if bam else "w"))
     stats = MapStats()
-    timer = StageTimer()         # map / write walls, reported with --profile
     unmapped, ambiguous = [], []
     t0 = time.time()
     cl = "bitmapperbs_tpu_torch " + " ".join(sys.argv[1:])
@@ -608,15 +611,13 @@ def cmd_search(args) -> int:
         if args.oracle:
             return ose(idx, c, codes, quals, qnames)
         return map_batch(idx, dix, c, codes, quals, qnames, stats=stats,
-                         pool=pool, mappers=mappers_for(c),
-                         graphs=not args.profile)
+                         pool=pool, mappers=mappers_for(c), graphs=True)
 
     def run_pairs(c, prs, quals, qnames):
         if args.oracle:
             return ope(idx, c, prs, quals, qnames)
         return map_batch_pe(idx, dix, c, prs, quals, qnames, stats=stats,
-                            pool=pool, mappers=mappers_for(c),
-                            graphs=not args.profile)
+                            pool=pool, mappers=mappers_for(c), graphs=True)
 
     try:
         with device_trace(args.profile, device):
@@ -645,10 +646,9 @@ def cmd_search(args) -> int:
                         if not prs:
                             save_cursor(*cursor)
                             continue
-                    with timer("map"):
-                        recs = _map_grouped_pe(run_pairs, cfg, error_rate,
-                                               prs, quals, qn)
-                    with timer("write"):
+                    recs = _map_grouped_pe(run_pairs, cfg, error_rate, prs,
+                                           quals, qn)
+                    with span("io.write"):
                         # two records per pair: mate 1, mate 2
                         emit(recs, [r for p in prs for r in p],
                              [q for q in qn for _ in (0, 1)],
@@ -669,10 +669,9 @@ def cmd_search(args) -> int:
                     qnames = [c for g in gbuf for c in g[1]]
                     quals = [c for g in gbuf for c in g[2]]
                     gbuf.clear()
-                    with timer("map"):
-                        recs = _map_grouped_se(run_se, cfg, error_rate, codes,
-                                               quals, qnames)
-                    with timer("write"):
+                    recs = _map_grouped_se(run_se, cfg, error_rate, codes,
+                                           quals, qnames)
+                    with span("io.write"):
                         emit(recs, codes, qnames, quals)
                         out_fh.flush()
                         save_cursor(*last[0])
@@ -703,7 +702,7 @@ def cmd_search(args) -> int:
             sys.stderr.write(f"[bitmapperbs_tpu_torch] profiler trace -> "
                              f"{trace_path(args.profile)}\n"
                              f"[bitmapperbs_tpu_torch] stages: "
-                             f"{timer.report()}\n")
+                             f"{report(REC.snapshot(), STAGES)}\n")
         if bam:
             writer.close()
         stats.report(wall_s=time.time() - t0)

@@ -15,6 +15,7 @@ import os
 import numpy as np
 
 from bitmapperbs_tpu_torch.utils import dna
+from bitmapperbs_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -279,7 +280,9 @@ class Prefetcher:
     which iteration is over.  close() (also a context manager exit)
     unblocks and retires the thread when the consumer abandons the stream
     early -- without it the pump would sit blocked on the full queue,
-    pinning the open FASTQ handle for the rest of the process."""
+    pinning the open FASTQ handle for the rest of the process.  The
+    consumer's wait on the queue is span `io.read_wait`
+    (utils/profiling)."""
 
     _DONE = object()
 
@@ -334,7 +337,8 @@ class Prefetcher:
     def __next__(self):
         if self._finished:
             raise StopIteration
-        x = self._q.get()
+        with span("io.read_wait"):
+            x = self._q.get()
         if x is self._DONE:
             self._finished = True
             raise StopIteration

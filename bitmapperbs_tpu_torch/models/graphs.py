@@ -42,12 +42,17 @@ counts on the card (ops/kernels.flat_expand / flat_dedup), so the device
 call reads nothing back to the host, whatever --sensitive or the Gbp PBAT
 autotune set.
 models/host.map_batch / map_batch_pe take `graphs=False` to stay eager
-(the CLI's --profile run does, so that its trace names each launch).
+(the benchmark's roofline batch does); the CLI always passes True, under
+--profile too: the profiler sees the kernels inside a replay.
 
 The kernel wrappers count their launches in ops/kernels.LAUNCHES when they
 run in Python: in the warm-up and while capturing, not at a replay.  Each
 graph records what its capture launched (`DeviceGraph.launches`) and how
-often it replayed.
+often it replayed; while utils/profiling's recorder is on, a capture and a
+replay are also counted per key (`graph.capture[<key_label>]`,
+`graph.replay[...]`) and each replay adds its captured launches to
+`graph.launches[<kernel>]`.  `eager_reason` names why a call that does not
+replay stays eager, which models/host counts.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from bitmapperbs_tpu_torch.index.device import DeviceIndex
 from bitmapperbs_tpu_torch.models.aligner import map_batch_device
 from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
 from bitmapperbs_tpu_torch.ops import kernels
+from bitmapperbs_tpu_torch.utils.profiling import REC, count
 
 
 def eligible(dix: DeviceIndex, cfg: AlignerConfig, rows: int) -> bool:
@@ -69,11 +75,32 @@ def eligible(dix: DeviceIndex, cfg: AlignerConfig, rows: int) -> bool:
             and rows == cfg.batch_size)
 
 
+def eager_reason(dix: DeviceIndex, cfg: AlignerConfig, rows: int,
+                 graphs: bool = True) -> str:
+    """The counter of a device call on dix that does not replay a graph:
+    `eager.dense` (the gdrop re-run), `eager.tail` (a call that would
+    replay but for its rows) or `eager.ineligible` (CPU tensors, a sharded
+    index, graphs off)."""
+    if not cfg.compact:
+        return "eager.dense"
+    if graphs and eligible(dix, cfg, cfg.batch_size):
+        return "eager.tail"
+    return "eager.ineligible"
+
+
 def graph_key(cfg: AlignerConfig, rows: int, m_pad: int,
               *min_read_lens: int) -> tuple:
     """The cache key of a device call on one index: one min_read_len per
     mate."""
     return (cfg, rows, m_pad, *(mn // cfg.num_seeds for mn in min_read_lens))
+
+
+def key_label(key: tuple) -> str:
+    """A graph key as the counters name it: `e<max_errors>/<rows>x<m_pad>/
+    q<min_read_len // num_seeds>[,<mate 2's>]`."""
+    cfg, rows, m_pad, *qs = key
+    return (f"e{cfg.max_errors}/{rows}x{m_pad}/"
+            f"q{','.join(str(q) for q in qs)}")
 
 
 def _clone(out):
@@ -89,8 +116,9 @@ class DeviceGraph:
     the capture's wall seconds, the bytes its private pool reserved, and its
     replays."""
 
-    def __init__(self, fn, inputs: tuple, dev: torch.device):
-        self.device = dev
+    def __init__(self, fn, inputs: tuple, dev: torch.device,
+                 label: str = ""):
+        self.device, self.label = dev, label
         with torch.cuda.device(dev):
             self.inputs = tuple(torch.from_numpy(x).to(dev) for x in inputs)
             t0 = time.perf_counter()
@@ -123,6 +151,10 @@ class DeviceGraph:
                 dst.copy_(src)
             self.graph.replay()
             self.replays += 1
+            if REC.on:
+                count(f"graph.replay[{self.label}]")
+                for k, v in self.launches.items():
+                    count(f"graph.launches[{k}]", v)
             return _clone(self.outputs)
 
 
@@ -131,7 +163,9 @@ def _graph(dix: DeviceIndex, key: tuple, fn, inputs) -> DeviceGraph:
     `inputs` at its first call."""
     g = dix.graphs.get(key)
     if g is None:
-        g = dix.graphs[key] = DeviceGraph(fn, inputs, dix.device)
+        label = key_label(key)
+        g = dix.graphs[key] = DeviceGraph(fn, inputs, dix.device, label)
+        count(f"graph.capture[{label}]")
     return g
 
 

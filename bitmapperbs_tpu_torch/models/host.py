@@ -12,6 +12,12 @@ On one card a full batch's device call replays a CUDA graph
 (models/graphs.py, the counterpart of the reference's jax.jit) at any
 flat_chunks; tail batches, the gdrop dense re-run, CPU tensors and the
 mesh mappers stay eager, and `graphs=False` keeps every call eager.
+
+The loop is traced by utils/profiling's recorder when it is on (the CLI's
+--profile run; a benchmark's window): `host.call` per call, per batch
+`host.prepare`, `host.dispatch`, `host.d2h`, `host.gdrop`, `host.submit` /
+`host.finalize` and `host.finalize_wait`, the pool workers' `pool.task`,
+and the eager calls and gdrop batches counted.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from bitmapperbs_tpu_torch.models.pool import (_assemble_pe_local,
                                                _assemble_pe_task,
                                                _finalize_se_task,
                                                _finalize_se_task_local)
+from bitmapperbs_tpu_torch.utils.profiling import REC, count, span
 
 MAX_INFLIGHT = 3  # device batches dispatched ahead of host finalize
 
@@ -77,25 +84,27 @@ def _merge_where(sel, dense, fast):
 def to_host(out: dict) -> dict:
     """Device output dict (nested dicts allowed, as PE's se1/se2) -> numpy
     dict of the same shape in ONE device-to-host copy (the per-read vectors
-    are stacked as int64 first)."""
-    leaves = []
+    are stacked as int64 first); span `host.d2h`."""
+    with span("host.d2h"):
+        leaves = []
 
-    def flatten(d, path):
-        for k, v in d.items():
-            if isinstance(v, dict):
-                flatten(v, path + (k,))
-            else:
-                leaves.append((path + (k,), v))
+        def flatten(d, path):
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    flatten(v, path + (k,))
+                else:
+                    leaves.append((path + (k,), v))
 
-    flatten(out, ())
-    host = torch.stack([v.to(torch.int64) for _, v in leaves]).cpu().numpy()
-    res: dict = {}
-    for row, (path, v) in zip(host, leaves):
-        d = res
-        for k in path[:-1]:
-            d = d.setdefault(k, {})
-        d[path[-1]] = row.astype(bool) if v.dtype == torch.bool else row
-    return res
+        flatten(out, ())
+        host = torch.stack([v.to(torch.int64)
+                            for _, v in leaves]).cpu().numpy()
+        res: dict = {}
+        for row, (path, v) in zip(host, leaves):
+            d = res
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = row.astype(bool) if v.dtype == torch.bool else row
+        return res
 
 
 def _to_device(arr, lengths, device):
@@ -103,7 +112,8 @@ def _to_device(arr, lengths, device):
             torch.from_numpy(lengths).to(device))
 
 
-def _gdrop_fallback_se(dense_fn, cfg: AlignerConfig, arr, lengths, out_np):
+def _gdrop_fallback_se(dense_fn, cfg: AlignerConfig, arr, lengths, out_np,
+                       lo: int = -1):
     """Re-run flat-buffer-overflow reads through the dense path.
 
     The compact pipeline drops candidate entries batch-dependently when its
@@ -114,8 +124,11 @@ def _gdrop_fallback_se(dense_fn, cfg: AlignerConfig, arr, lengths, out_np):
     gdrop = out_np["gdrop"]
     if not (cfg.compact and gdrop.any()):
         return out_np
-    dense = to_host(dense_fn(arr, lengths, int(lengths.min())))
-    return _merge_where(gdrop, dense, out_np)
+    with span("host.gdrop", lo):
+        count("gdrop.batches")
+        count("gdrop.reads", int(gdrop.sum()))
+        dense = to_host(dense_fn(arr, lengths, int(lengths.min())))
+        return _merge_where(gdrop, dense, out_np)
 
 
 def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
@@ -130,6 +143,9 @@ def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
         def fn(arr, lengths, mn):
             if graphs and device_graphs.eligible(dix, c, arr.shape[0]):
                 return device_graphs.map_batch(dix, c, arr, lengths, mn)
+            if REC.on:
+                count(device_graphs.eager_reason(dix, c, arr.shape[0],
+                                                 graphs))
             return map_batch_device(dix, c,
                                     *_to_device(arr, lengths, dix.device),
                                     min_read_len=mn)
@@ -140,18 +156,25 @@ def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
 def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
     """Batches start at each lo in range(0, n, bs): dispatch(lo) enqueues
     one on the device (no sync) up to MAX_INFLIGHT batches ahead of
-    finish(item), which takes dispatch's result and returns its records, or
-    the finalize pool's AsyncResult of them.  Returns all records in input
-    order."""
+    finish(lo, item), which takes dispatch's result and returns its
+    records, or the finalize pool's AsyncResult of (records, pool.task
+    span or None).  Returns all records in input order."""
     parts, pending = [], []
     for lo in range(0, n, bs):
-        pending.append(dispatch(lo))
+        pending.append((lo, dispatch(lo)))
         if len(pending) >= MAX_INFLIGHT:
-            parts.append(finish(pending.pop(0)))
-    parts.extend(finish(item) for item in pending)
+            lo0, item = pending.pop(0)
+            parts.append((lo0, finish(lo0, item)))
+    parts.extend((lo, finish(lo, item)) for lo, item in pending)
     out: list[SamRecord] = []
-    for part in parts:   # ordered gather
-        out.extend(part if isinstance(part, list) else part.get())
+    for lo, part in parts:   # ordered gather
+        if isinstance(part, list):
+            out.extend(part)
+            continue
+        with span("host.finalize_wait", lo):
+            recs, task_span = part.get()
+        REC.add(task_span)
+        out.extend(recs)
     return out
 
 
@@ -179,23 +202,29 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
 
     def dispatch(lo):
         chunk = reads[lo:lo + bs]
-        arr, lengths = prepare_batch(chunk, m_pad,
-                                     batch=_pad_rows(len(chunk), bs, rnd))
-        out = map_fn(arr, lengths, int(lengths.min()))
-        return lo, len(chunk), arr, lengths, out
+        with span("host.prepare", lo):
+            arr, lengths = prepare_batch(chunk, m_pad,
+                                         batch=_pad_rows(len(chunk), bs, rnd))
+        with span("host.dispatch", lo):
+            out = map_fn(arr, lengths, int(lengths.min()))
+        return len(chunk), arr, lengths, out
 
-    def finish(item):
-        lo, n, arr, lengths, out = item
+    def finish(lo, item):
+        n, arr, lengths, out = item
         out_np = _gdrop_fallback_se(dense_fn, cfg, arr, lengths,
-                                    to_host(out))
+                                    to_host(out), lo)
         if stats is not None:
             stats.overflow_reads += int(out_np["overflow"][:n].sum())
         task = (arr, lengths, n, quals[lo:lo + n], qnames[lo:lo + n], out_np)
         if pool is not None:
-            return pool.apply_async(_finalize_se_task, (task + (cfg,),))
-        return _finalize_se_task_local(idx, rc_ref, cfg, task)
+            with span("host.submit", lo):
+                return pool.apply_async(
+                    _finalize_se_task, (task + (cfg, REC.task_trace(lo)),))
+        with span("host.finalize", lo):
+            return _finalize_se_task_local(idx, rc_ref, cfg, task)
 
-    return _pipelined(len(reads), bs, dispatch, finish)
+    with span("host.call", call=True):
+        return _pipelined(len(reads), bs, dispatch, finish)
 
 
 def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
@@ -209,6 +238,9 @@ def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
             if graphs and device_graphs.eligible(dix, c, a1.shape[0]):
                 return device_graphs.map_batch_pe(dix, c, a1, l1, a2, l2,
                                                   mn1, mn2)
+            if REC.on:
+                count(device_graphs.eager_reason(dix, c, a1.shape[0],
+                                                 graphs))
             return map_batch_pe_device(
                 dix, c, *_to_device(a1, l1, dix.device),
                 *_to_device(a2, l2, dix.device), min_read_len1=mn1,
@@ -242,25 +274,35 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
     def dispatch(lo):
         chunk = pairs[lo:lo + bs]
         B = _pad_rows(len(chunk), bs, rnd)
-        a1, l1 = prepare_batch([p[0] for p in chunk], m_pad, B)
-        a2, l2 = prepare_batch([p[1] for p in chunk], m_pad, B)
-        return lo, len(chunk), a1, l1, a2, l2, run(map_fn, a1, l1, a2, l2)
+        with span("host.prepare", lo):
+            a1, l1 = prepare_batch([p[0] for p in chunk], m_pad, B)
+            a2, l2 = prepare_batch([p[1] for p in chunk], m_pad, B)
+        with span("host.dispatch", lo):
+            out = run(map_fn, a1, l1, a2, l2)
+        return len(chunk), a1, l1, a2, l2, out
 
-    def finish(item):
-        lo, n, a1, l1, a2, l2, out = item
+    def finish(lo, item):
+        n, a1, l1, a2, l2, out = item
         host = to_host(out)
         if stats is not None:
             stats.overflow_reads += int((host["se1"]["overflow"][:n]
                                          | host["se2"]["overflow"][:n]).sum())
         if cfg.compact and host["gdrop"].any():
-            dense = to_host(run(dense_fn, a1, l1, a2, l2))
-            host = _merge_where(host["gdrop"], dense, host)
+            with span("host.gdrop", lo):
+                count("gdrop.batches")
+                count("gdrop.reads", int(host["gdrop"].sum()))
+                dense = to_host(run(dense_fn, a1, l1, a2, l2))
+                host = _merge_where(host["gdrop"], dense, host)
         task = (a1, l1, a2, l2, n,
                 quals[lo:lo + n] if quals else None,
                 qnames[lo:lo + n] if qnames else
                 [f"p{lo + i}" for i in range(n)], host)
         if pool is not None:
-            return pool.apply_async(_assemble_pe_task, (task + (cfg,),))
-        return _assemble_pe_local(idx, rc_ref, cfg, *task)
+            with span("host.submit", lo):
+                return pool.apply_async(
+                    _assemble_pe_task, (task + (cfg, REC.task_trace(lo)),))
+        with span("host.finalize", lo):
+            return _assemble_pe_local(idx, rc_ref, cfg, *task)
 
-    return _pipelined(len(pairs), bs, dispatch, finish)
+    with span("host.call", call=True):
+        return _pipelined(len(pairs), bs, dispatch, finish)

@@ -9,10 +9,15 @@ import them without torch, and share the genome via
 memory-mapped files so per-worker memory stays O(1) even for GRCh38.
 SURVEY.md C19's pthread pool becomes this: the device replaces the mapping
 workers, worker processes replace the rest.
+
+A task returns (records, span): the span is its `pool.task`, timed in the
+worker (utils/profiling.task_span) when the task was submitted with the
+recorder on, else None.
 """
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -23,6 +28,7 @@ from bitmapperbs_tpu_torch.models import native_finalize
 from bitmapperbs_tpu_torch.models.finalize import (finalize_batch,
                                              finalize_batch_device)
 from bitmapperbs_tpu_torch.oracle.pipeline import Hit, finalize_hit
+from bitmapperbs_tpu_torch.utils.profiling import task_span
 
 INF = K.INF_SCORE
 
@@ -72,24 +78,19 @@ def _pool_worker_init(codes_path, rc_path, L, names, offsets, lengths, cfg):
 
 
 def _finalize_se_task(args):
-    """Worker: device outputs -> SamRecords (hits + finalize + unmapped).
+    """Worker: device outputs -> (SamRecords (hits + finalize + unmapped),
+    pool.task span or None).
 
     Takes the PADDED read array + lengths (one pickle each) and the numpy
     device-output dict; everything per-read happens in the worker."""
-    idx = _POOL_CTX["idx"]
-    rc_ref = _POOL_CTX["rc_ref"]
+    t0 = time.perf_counter_ns()
     # per-task cfg override (cli -e rate mode maps each read-length budget
     # with its own static config); None = the pool's construction-time cfg
-    arr, lengths, n, quals, qnames, out_np, cfg = args
+    *task, cfg, trace = args
     cfg = cfg if cfg is not None else _POOL_CTX["cfg"]
-    recs = native_finalize.finalize_se_native(
-        idx, rc_ref, cfg, arr[:n], lengths[:n], quals, qnames, out_np)
-    if recs is None:   # library not built: numpy spec path
-        recs = finalize_batch_device(idx, rc_ref, cfg, arr[:n], lengths[:n],
-                                     quals, qnames, out_np)
-    return [rec if rec is not None
-            else unmapped_record(qnames[i], arr[i, :lengths[i]], quals[i])
-            for i, rec in enumerate(recs)]
+    recs = _finalize_se_task_local(_POOL_CTX["idx"], _POOL_CTX["rc_ref"],
+                                   cfg, task)
+    return recs, task_span(trace, t0)
 
 
 def make_finalize_pool(idx: BSIndex, cfg: AlignerConfig, threads: int,
@@ -148,11 +149,14 @@ def _finalize_se_task_local(idx, rc_ref, cfg, task):
 
 
 def _assemble_pe_task(args):
-    idx = _POOL_CTX["idx"]
-    rc_ref = _POOL_CTX["rc_ref"]
-    *rest, cfg = args
+    """Worker: _assemble_pe_local's records and the pool.task span or
+    None."""
+    t0 = time.perf_counter_ns()
+    *rest, cfg, trace = args
     cfg = cfg if cfg is not None else _POOL_CTX["cfg"]
-    return _assemble_pe_local(idx, rc_ref, cfg, *rest)
+    recs = _assemble_pe_local(_POOL_CTX["idx"], _POOL_CTX["rc_ref"], cfg,
+                              *rest)
+    return recs, task_span(trace, t0)
 
 
 def _cigar_ref_span(cig: str) -> int:

@@ -269,18 +269,25 @@ def test_profile_writes_a_chrome_trace(workdir, capsys):
 
 
 def test_stage_timer_accumulates_and_reports():
-    from bitmapperbs_tpu_torch.utils.profiling import StageTimer, \
-        device_trace
+    """The recorder (utils/profiling), which replaced StageTimer, keeps its
+    cases: spans of one name accumulate with their count, and the report
+    lists them by name as `name=<ms>ms/<n>x`."""
+    from bitmapperbs_tpu_torch.utils.profiling import (REC, device_trace,
+                                                       report, span, totals)
 
-    timer = StageTimer()
-    for _ in range(3):
-        with timer("seed", sync=torch.ones(4)):
-            torch.ones(8).sum()
-    with timer("verify"):
-        pass
-    assert timer.counts == {"seed": 3, "verify": 1}
-    assert timer.totals["seed"] > 0
-    rep = timer.report()
+    REC.start()
+    try:
+        for _ in range(3):
+            with span("seed"):
+                torch.ones(8).sum()
+        with span("verify"):
+            pass
+    finally:
+        snap = REC.stop()
+    tot = totals(snap)
+    assert {k: n for k, (_, n) in tot.items()} == {"seed": 3, "verify": 1}
+    assert tot["seed"][0] > 0
+    rep = report(snap)
     assert rep.startswith("seed=") and "ms/3x" in rep and "ms/1x" in rep
     assert rep.index("seed=") < rep.index("verify=")
     with device_trace(None):                # no directory: a no-op

@@ -1,7 +1,8 @@
 """PyTorch port, CUDA-graph replay of the single-card device calls
 (models/graphs.py): the graph key (jit's cache key), which calls replay a
 graph and which stay eager, how models/host dispatches between the two,
-the CLI's --profile run staying eager, and on the CPU records unchanged
+the CLI's --profile run replaying as any other, the replays and eager
+calls counted while the recorder is on, and on the CPU records unchanged
 whatever the `graphs` keyword says.  Capture and replay themselves need the
 card: chip_smoke.py holds every output leaf of a replay to the eager call's
 there."""
@@ -71,7 +72,7 @@ def test_key_distinct_across_shapes(other):
 class FakeGraph:
     """Stands for DeviceGraph where no card is: records its capture."""
 
-    def __init__(self, fn, inputs, dev):
+    def __init__(self, fn, inputs, dev, label=""):
         self.device, self.replays = dev, 0
 
 
@@ -231,6 +232,89 @@ def test_host_dispatch(dispatch, pe, flag):
 
 
 @pytest.mark.parametrize("pe", [False, True])
+def test_eager_calls_counted_by_reason(dispatch, pe):
+    """While the recorder is on, one card's calls that do not replay are
+    counted by reason: a tail batch, the dense re-run, and every call with
+    graphs off; a replayed call is not an eager one."""
+    from bitmapperbs_tpu_torch.utils.profiling import REC
+
+    arr = np.zeros((BS, 96), np.uint8)
+    ln = np.full(BS, 90, np.int32)
+    REC.start()
+    try:
+        for flag in (True, False):
+            if pe:
+                map_fn, dense_fn = host._pe_mappers(card_index(), cfg(),
+                                                    None, flag)
+                run = lambda fn, a, n: fn(a, n, a, n, 90, 90)  # noqa: E731
+            else:
+                map_fn, dense_fn = host._se_mappers(card_index(), cfg(),
+                                                    None, flag)
+                run = lambda fn, a, n: fn(a, n, 90)            # noqa: E731
+            run(map_fn, arr, ln)
+            run(map_fn, arr[:4], ln[:4])
+            run(dense_fn, arr, ln)
+    finally:
+        snap = REC.stop()
+    assert snap["counters"] == {"eager.tail": 1, "eager.dense": 2,
+                                "eager.ineligible": 2}
+    assert [d[0] for d in dispatch].count("graph") == 1
+
+
+@pytest.mark.parametrize("dix, c, rows, graphs_on, want", [
+    (card_index(), cfg(), BS // 2, True, "eager.tail"),
+    (card_index(), cfg(compact=False), BS, True, "eager.dense"),
+    (card_index(), cfg(compact=False), BS // 2, False, "eager.dense"),
+    (card_index(), cfg(), BS, False, "eager.ineligible"),
+    (card_index(sharded=True), cfg(), BS // 2, True, "eager.ineligible"),
+    (types.SimpleNamespace(device=torch.device("cpu"), sharded=False), cfg(),
+     BS, True, "eager.ineligible"),
+])
+def test_eager_reason(dix, c, rows, graphs_on, want):
+    assert graphs.eager_reason(dix, c, rows, graphs_on) == want
+
+
+def test_replays_counted_per_key_and_kernel(monkeypatch):
+    """While the recorder is on: a capture counted once per key, each
+    replay per key, and each replay's captured launches per kernel (what
+    ops/kernels.LAUNCHES cannot see); off, only DeviceGraph.replays
+    counts."""
+    import contextlib
+
+    from bitmapperbs_tpu_torch.utils.profiling import REC
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    key = graphs.graph_key(cfg(), BS, 96, 90)
+    label = graphs.key_label(key)
+    assert label == f"e4/{BS}x96/q{90 // cfg().num_seeds}"
+    assert graphs.key_label(graphs.graph_key(cfg(), BS, 96, 90, 60)) == \
+        f"{label},{60 // cfg().num_seeds}"
+    real = graphs.DeviceGraph
+    monkeypatch.setattr(graphs, "DeviceGraph", FakeGraph)
+    REC.start()
+    try:
+        dix = card_index()
+        assert graphs._graph(dix, key, None, ()) is \
+            graphs._graph(dix, key, None, ())
+        g = object.__new__(real)          # a captured graph, no card
+        g.device, g.label, g.inputs, g.replays = "cuda:0", label, (), 0
+        g.outputs = {"y": torch.zeros(2)}
+        g.graph = types.SimpleNamespace(replay=lambda: None)
+        g.launches = {"fm_search": 1, "verify_fused_gather": 2}
+        g()
+        g()
+    finally:
+        snap = REC.stop()
+    g()
+    assert g.replays == 3
+    assert snap["counters"] == {
+        f"graph.capture[{label}]": 1, f"graph.replay[{label}]": 2,
+        "graph.launches[fm_search]": 2,
+        "graph.launches[verify_fused_gather]": 4}
+
+
+@pytest.mark.parametrize("pe", [False, True])
 def test_mesh_mappers_stay_eager(dispatch, pe):
     """A mesh's mappers (parallel/shard.CliMappers) are used as they are:
     the host never replays a graph for them."""
@@ -243,8 +327,9 @@ def test_mesh_mappers_stay_eager(dispatch, pe):
 
 
 def test_profile_run_stays_eager(tmp_path, monkeypatch):
-    """The CLI passes graphs=False to the host exactly when --profile is
-    given, SE and PE."""
+    """The --profile run no longer stays eager: the CLI passes graphs=True
+    to the host with and without --profile, SE and PE, so the trace shows
+    the graphed path."""
     from bitmapperbs_tpu_torch import cli
 
     fa = random_genome_fasta(np.random.default_rng(5), contigs=(3000,))
@@ -277,8 +362,8 @@ def test_profile_run_stays_eager(tmp_path, monkeypatch):
             if prof:
                 args += ["--profile", str(tmp_path / "prof")]
             assert cli.main(args) == 0
-    assert seen == [("map_batch", True), ("map_batch", False),
-                    ("map_batch_pe", True), ("map_batch_pe", False)]
+    assert seen == [("map_batch", True), ("map_batch", True),
+                    ("map_batch_pe", True), ("map_batch_pe", True)]
 
 
 # ---- on the CPU the keyword changes nothing ---------------------------------
