@@ -26,7 +26,9 @@ torch.profiler Chrome trace of the graphed path: the card's kernels,
 replays included, the host loop's spans as `btbs.*` ranges and one track
 per finalize worker; it prints the stage line: the map (`host.call`) and
 write (`io.write`) walls, every other span's, the graph captures, replays
-and replayed launches, and the eager calls by reason.  `--dist-hosts N`
+and replayed launches, the eager calls by reason, and the records and
+characters of SAM text that came back from the finalize pool (`-t`).
+`--dist-hosts N`
 maps one shard of the input per process (parallel/multihost.py).
 """
 from __future__ import annotations

@@ -8,7 +8,7 @@ import re
 import struct
 import zlib
 
-from bitmapperbs_tpu_torch.io.sam import SamRecord
+from bitmapperbs_tpu_torch.io.sam import SamLine, SamRecord
 
 _BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
@@ -182,7 +182,9 @@ class BamWriter:
             self.bgzf.write(out)
         self.ref_ids = {str(n): i for i, n in enumerate(names)}
 
-    def write(self, rec: SamRecord) -> None:
+    def write(self, rec: SamRecord | SamLine) -> None:
+        if isinstance(rec, SamLine):
+            rec = SamRecord.from_line(rec.text)
         self.bgzf.write(_encode_record(rec, self.ref_ids))
 
     def flush(self) -> None:

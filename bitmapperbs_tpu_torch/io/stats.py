@@ -7,7 +7,7 @@ import json
 import sys
 
 from bitmapperbs_tpu_torch import constants as K
-from bitmapperbs_tpu_torch.io.sam import SamRecord
+from bitmapperbs_tpu_torch.io.sam import SamLine, SamRecord
 
 
 @dataclasses.dataclass
@@ -22,7 +22,7 @@ class MapStats:
                                 # silent caps eat recall -- SURVEY.md 5.5)
     nm_hist: dict = dataclasses.field(default_factory=dict)
 
-    def add_record(self, rec: SamRecord) -> None:
+    def add_record(self, rec: SamRecord | SamLine) -> None:
         self.total += 1
         if rec.flag & K.FLAG_UNMAPPED:
             self.unmapped += 1

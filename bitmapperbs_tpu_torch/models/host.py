@@ -13,11 +13,17 @@ On one card a full batch's device call replays a CUDA graph
 flat_chunks; tail batches, the gdrop dense re-run, CPU tensors and the
 mesh mappers stay eager, and `graphs=False` keeps every call eager.
 
+A pool task's records come back as SAM text (io/sam.SamText, the text in a
+file beside the pool's genome copies: models/pool._ship), which the main
+thread reads and splits into io/sam.SamLines: with a pool the calls return
+SamLines, without one SamRecords; writers and MapStats take either.
+
 The loop is traced by utils/profiling's recorder when it is on (the CLI's
 --profile run; a benchmark's window): `host.call` per call, per batch
 `host.prepare`, `host.dispatch`, `host.d2h`, `host.gdrop`, `host.submit` /
-`host.finalize` and `host.finalize_wait`, the pool workers' `pool.task`,
-and the eager calls and gdrop batches counted.
+`host.finalize`, `host.finalize_wait` and `host.unpack`, the pool workers'
+`pool.task`, the eager calls and gdrop batches counted, and the records and
+characters of SAM text that came back from the pool.
 """
 from __future__ import annotations
 
@@ -28,14 +34,15 @@ from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.config import AlignerConfig
 from bitmapperbs_tpu_torch.index.build import BSIndex
 from bitmapperbs_tpu_torch.index.device import DeviceIndex
-from bitmapperbs_tpu_torch.io.sam import SamRecord
+from bitmapperbs_tpu_torch.io.sam import SamLine, SamRecord
 from bitmapperbs_tpu_torch.models import graphs as device_graphs
 from bitmapperbs_tpu_torch.models.aligner import map_batch_device
 from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
 from bitmapperbs_tpu_torch.models.pool import (_assemble_pe_local,
                                                _assemble_pe_task,
                                                _finalize_se_task,
-                                               _finalize_se_task_local)
+                                               _finalize_se_task_local,
+                                               receive)
 from bitmapperbs_tpu_torch.utils.profiling import REC, count, span
 
 MAX_INFLIGHT = 3  # device batches dispatched ahead of host finalize
@@ -153,12 +160,14 @@ def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
     return on(cfg), on(cfg.replace(compact=False))
 
 
-def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
+def _pipelined(n: int, bs: int, dispatch, finish
+               ) -> list[SamRecord] | list[SamLine]:
     """Batches start at each lo in range(0, n, bs): dispatch(lo) enqueues
     one on the device (no sync) up to MAX_INFLIGHT batches ahead of
     finish(lo, item), which takes dispatch's result and returns its
-    records, or the finalize pool's AsyncResult of (records, pool.task
-    span or None).  Returns all records in input order."""
+    records, or the finalize pool's AsyncResult of (the records shipped as
+    SAM text, pool.task span or None), which are received and unpacked as
+    SamLines.  Returns all records in input order."""
     parts, pending = [], []
     for lo in range(0, n, bs):
         pending.append((lo, dispatch(lo)))
@@ -166,22 +175,29 @@ def _pipelined(n: int, bs: int, dispatch, finish) -> list[SamRecord]:
             lo0, item = pending.pop(0)
             parts.append((lo0, finish(lo0, item)))
     parts.extend((lo, finish(lo, item)) for lo, item in pending)
-    out: list[SamRecord] = []
+    out: list = []
     for lo, part in parts:   # ordered gather
         if isinstance(part, list):
             out.extend(part)
             continue
         with span("host.finalize_wait", lo):
-            recs, task_span = part.get()
+            shipped, task_span = part.get()
         REC.add(task_span)
+        with span("host.unpack", lo):
+            text = receive(shipped)
+            recs = text.lines()
+        count("pool.text_records", len(recs))
+        count("pool.text_bytes", len(text.text))
         out.extend(recs)
     return out
 
 
 def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
               quals=None, qnames=None, stats=None, pool=None,
-              mappers=None, graphs: bool = True) -> list[SamRecord]:
-    """End-to-end device mapping of a list of reads -> SAM records.
+              mappers=None, graphs: bool = True
+              ) -> list[SamRecord] | list[SamLine]:
+    """End-to-end device mapping of a list of reads -> SAM records
+    (SamLines when `pool` finalized them).
 
     Up to MAX_INFLIGHT batches are enqueued on the device ahead of the host
     finalize (map_batch_device does not sync); output order is preserved.
@@ -251,9 +267,11 @@ def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
 
 def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
                  quals=None, qnames=None, stats=None, pool=None,
-                 mappers=None, graphs: bool = True) -> list[SamRecord]:
+                 mappers=None, graphs: bool = True
+                 ) -> list[SamRecord] | list[SamLine]:
     """End-to-end device PE mapping of (read1, read2) code-array pairs ->
-    SAM records, two per pair, in input order.
+    SAM records (SamLines when `pool` assembled them), two per pair, in
+    input order.
 
     quals: optional per-pair (qual1, qual2); qnames: optional per-pair
     names (default p<i>).  As map_batch: up to MAX_INFLIGHT batches in

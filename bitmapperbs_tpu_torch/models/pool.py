@@ -10,12 +10,16 @@ memory-mapped files so per-worker memory stays O(1) even for GRCh38.
 SURVEY.md C19's pthread pool becomes this: the device replaces the mapping
 workers, worker processes replace the rest.
 
-A task returns (records, span): the span is its `pool.task`, timed in the
-worker (utils/profiling.task_span) when the task was submitted with the
-recorder on, else None.
+A task returns (shipped, span): its records packed as SAM text and the
+columns the main process reads (io/sam.SamText), the text left in a file of
+the pool's directory (`_ship`; `receive` takes it back in the main process,
+which unpacks it as SamLines), and its `pool.task`, timed in the worker,
+formatting and packing included (utils/profiling.task_span), when the task
+was submitted with the recorder on, else None.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
@@ -23,7 +27,7 @@ import numpy as np
 
 from bitmapperbs_tpu_torch import constants as K
 from bitmapperbs_tpu_torch.config import AlignerConfig
-from bitmapperbs_tpu_torch.io.sam import SamRecord, unmapped_record
+from bitmapperbs_tpu_torch.io.sam import SamRecord, SamText, unmapped_record
 from bitmapperbs_tpu_torch.models import native_finalize
 from bitmapperbs_tpu_torch.models.finalize import (finalize_batch,
                                              finalize_batch_device)
@@ -57,6 +61,7 @@ def device_results_to_hits(cfg: AlignerConfig, genome_len: int, lengths,
 
 
 _POOL_CTX: dict = {}
+_SHIPPED = itertools.count()     # this worker's text files
 
 
 def _pool_worker_init(codes_path, rc_path, L, names, offsets, lengths, cfg):
@@ -75,11 +80,36 @@ def _pool_worker_init(codes_path, rc_path, L, names, offsets, lengths, cfg):
     _POOL_CTX["idx"] = idx
     _POOL_CTX["rc_ref"] = rc
     _POOL_CTX["cfg"] = cfg
+    _POOL_CTX["dir"] = os.path.dirname(codes_path)
+
+
+def _ship(recs) -> tuple[str, SamText]:
+    """Worker: the records packed (io/sam.SamText), with their text written
+    to a file of the pool's directory and left out: (path, SamText with an
+    empty text).  A few MB through the pool's result pipe would cross in
+    64 KiB reads by the main process's result-handler thread, each waiting
+    for the GIL while the main process runs Python."""
+    text = SamText.pack(recs)
+    path = os.path.join(_POOL_CTX["dir"],
+                        f"task-{os.getpid()}-{next(_SHIPPED)}.sam")
+    with open(path, "wb") as f:
+        f.write(text.text.encode())
+    return path, text._replace(text="")
+
+
+def receive(shipped: tuple[str, SamText]) -> SamText:
+    """Main process: a task's SamText, its text read back from _ship's file,
+    which is removed."""
+    path, text = shipped
+    with open(path, "rb") as f:
+        data = f.read()
+    os.unlink(path)
+    return text._replace(text=data.decode())
 
 
 def _finalize_se_task(args):
-    """Worker: device outputs -> (SamRecords (hits + finalize + unmapped),
-    pool.task span or None).
+    """Worker: device outputs -> (the records (hits + finalize + unmapped)
+    shipped by _ship, pool.task span or None).
 
     Takes the PADDED read array + lengths (one pickle each) and the numpy
     device-output dict; everything per-read happens in the worker."""
@@ -90,7 +120,8 @@ def _finalize_se_task(args):
     cfg = cfg if cfg is not None else _POOL_CTX["cfg"]
     recs = _finalize_se_task_local(_POOL_CTX["idx"], _POOL_CTX["rc_ref"],
                                    cfg, task)
-    return recs, task_span(trace, t0)
+    shipped = _ship(recs)
+    return shipped, task_span(trace, t0)
 
 
 def make_finalize_pool(idx: BSIndex, cfg: AlignerConfig, threads: int,
@@ -149,14 +180,15 @@ def _finalize_se_task_local(idx, rc_ref, cfg, task):
 
 
 def _assemble_pe_task(args):
-    """Worker: _assemble_pe_local's records and the pool.task span or
-    None."""
+    """Worker: _assemble_pe_local's records shipped by _ship, and the
+    pool.task span or None."""
     t0 = time.perf_counter_ns()
     *rest, cfg, trace = args
     cfg = cfg if cfg is not None else _POOL_CTX["cfg"]
     recs = _assemble_pe_local(_POOL_CTX["idx"], _POOL_CTX["rc_ref"], cfg,
                               *rest)
-    return recs, task_span(trace, t0)
+    shipped = _ship(recs)
+    return shipped, task_span(trace, t0)
 
 
 def _cigar_ref_span(cig: str) -> int:

@@ -27,9 +27,12 @@ the span is not one batch's), and its process.  The spans:
   host.submit        handing one batch's finalize task to the pool
   host.finalize      one batch's finalize in this process (no pool)
   host.finalize_wait blocked on one pool task's result, in input order
-  pool.task          one task's finalize in its worker process: timed
-                     there, handed back with the task's records when the
-                     task was submitted with the recorder on
+  host.unpack        one pool task's SAM text read back from its file and
+                     split into its records
+  pool.task          one task's finalize, formatting and packing in its
+                     worker process: timed there, handed back with the
+                     task's records when the task was submitted with the
+                     recorder on
   io.read_wait       io/fastq.Prefetcher: blocked on the decode-ahead queue
   io.write           cli.cmd_search: one group's records through SamWriter
                      / BamWriter
@@ -43,6 +46,8 @@ The counters (plain integers):
   eager.tail, eager.ineligible, eager.dense  one card's device calls that
       did not replay, by reason (models/graphs.eager_reason)
   gdrop.batches, gdrop.reads  batches re-run dense, and their flagged reads
+  pool.text_records, pool.text_bytes  records that came back from the pool
+      as SAM text, and the text's length (one byte a character of SAM)
 
 One clock: perf_counter_ns is CLOCK_MONOTONIC on Linux, shared by every
 process of the host, so the pool workers' spans compare with the main

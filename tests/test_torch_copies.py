@@ -204,6 +204,20 @@ def test_oracle_records(oracle_records, kind):
     assert sum("\t4\t" not in ln[:40] for ln in got) > len(got) // 2
 
 
+@pytest.mark.parametrize("kind", ["se", "pe"])
+def test_from_line_inverts_line(oracle_records, kind):
+    """SamRecord.from_line (how BamWriter reads a pooled SamLine) gives each
+    oracle record back from its line, and each with its qual as `*`: tags
+    left out among them, and NM None in the SE records (unmapped reads)."""
+    from bitmapperbs_tpu_torch.io.sam import SamRecord
+
+    recs = oracle_records[1][0 if kind == "se" else 1]
+    recs = recs + [dataclasses.replace(r, qual="*") for r in recs]
+    assert [SamRecord.from_line(r.line()) for r in recs] == recs
+    assert any(r.xg for r in recs)
+    assert any(r.nm is None for r in recs) == (kind == "se")
+
+
 @pytest.mark.parametrize("fmt", ["sam", "bam"])
 def test_sam_and_bam_bytes(indexes, oracle_records, fmt):
     jmod, tmod = both("io." + fmt)

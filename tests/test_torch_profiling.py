@@ -255,6 +255,47 @@ def test_pool_task_spans_on_the_main_clock(world, pe):
     assert not [s for s in snap["spans"] if s.name == "host.finalize"]
 
 
+@pytest.mark.parametrize("pe", [False, True])
+def test_pool_text_counters_and_unpack_spans(world, pe):
+    """A pool of 2 with the recorder on: pool.text_records counts every
+    record the tasks returned, pool.text_bytes their lines and newlines,
+    and each task's text is split under one host.unpack span, after its
+    host.finalize_wait; in-process, neither counts."""
+    idx = world[0]
+    pool = make_finalize_pool(idx, cfg(paired=pe), 2)
+    try:
+        REC.start()
+        try:
+            recs = run(world, pe, pool=pool)
+        finally:
+            snap = REC.stop()
+    finally:
+        pool.terminate()
+        pool.join()
+    n = len(world[3] if pe else world[2])
+    c = snap["counters"]
+    assert c["pool.text_records"] == len(recs) == n * (2 if pe else 1)
+    assert c["pool.text_bytes"] == sum(len(r.line()) + 1 for r in recs) - (
+        len(range(0, n, BS)))
+    unpacks = {s.lo: s for s in snap["spans"] if s.name == "host.unpack"}
+    waits = {s.lo: s for s in snap["spans"] if s.name == "host.finalize_wait"}
+    assert sorted(unpacks) == sorted(waits) == list(range(0, n, BS))
+    assert len([s for s in snap["spans"] if s.name == "host.unpack"]) \
+        == len(unpacks)
+    (call,) = [s for s in snap["spans"] if s.name == "host.call"]
+    for lo, s in unpacks.items():
+        assert s.parent == call.sid
+        assert waits[lo].end <= s.start <= s.end <= call.end
+    REC.start()
+    try:
+        run(world, pe)
+    finally:
+        snap = REC.stop()
+    assert not {"pool.text_records", "pool.text_bytes"} & set(
+        snap["counters"])
+    assert not [s for s in snap["spans"] if s.name == "host.unpack"]
+
+
 def test_task_trace_carries_the_open_call():
     REC.start()
     try:
