@@ -225,7 +225,8 @@ int btbs_finalize_se(
                 continue;
             }
             ops.assign(chron.begin() + first, chron.begin() + last_k + 1);
-            if (rev) std::reverse(ops.begin(), ops.end());
+            // the CIGAR runs along the frame's genome strand, not FLAG 0x10
+            if (ga) std::reverse(ops.begin(), ops.end());
             frame_pos = a - e + jcur + first;
             ref_span = 0;
             for (uint8_t op : ops) if (op != 3) ref_span++;

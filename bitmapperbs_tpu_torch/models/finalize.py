@@ -274,8 +274,10 @@ def _finalize_core(idx, rc_ref, cfg, arr_all, lens_all, quals, qnames,
         nsteps = (opbuf != 0).sum(axis=1)
         # Light per-read pass: trim leading/trailing D runs (frame space),
         # record the frame position, and lay the trimmed ops out
-        # chronologically in FWD orientation (a reversed hit's fwd cigar is
-        # the frame cigar reversed).  Everything downstream -- match table,
+        # chronologically in FWD orientation (a hit on the reverse strand's
+        # frame, block 1, has the frame cigar reversed; the read's own
+        # orientation, FLAG 0x10, differs from it on the G->A frames and
+        # does not enter).  Everything downstream -- match table,
         # NM, Bismark XM, MD events -- is then computed in one vectorized
         # pass over the (ns, A_max) aligned-column grid, mirroring
         # oracle/align.cigar_md_nm column for column; only MD/CIGAR string
@@ -305,7 +307,7 @@ def _finalize_core(idx, rc_ref, cfg, arr_all, lens_all, quals, qnames,
         A_max = max(int(tlenS.max()), 1)
         j2 = np.arange(A_max)
         within = j2[None, :] < tlenS[:, None]
-        src2 = first[:, None] + np.where(revS[:, None],
+        src2 = first[:, None] + np.where((blkS == K.BLOCK_RC)[:, None],
                                          tlenS[:, None] - 1 - j2[None, :],
                                          j2[None, :])
         ops_f = np.where(within,

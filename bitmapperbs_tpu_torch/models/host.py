@@ -22,8 +22,10 @@ The loop is traced by utils/profiling's recorder when it is on (the CLI's
 --profile run; a benchmark's window): `host.call` per call, per batch
 `host.prepare`, `host.dispatch`, `host.d2h`, `host.gdrop`, `host.submit` /
 `host.finalize`, `host.finalize_wait` and `host.unpack`, the pool workers'
-`pool.task`, the eager calls and gdrop batches counted, and the records and
-characters of SAM text that came back from the pool.
+`pool.task`, the eager calls and gdrop batches counted, the records and
+characters of SAM text that came back from the pool, the G->A records with
+an indel, and for pairs the pairs, rescues, proper-pair records and records
+whose mate is unmapped.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from bitmapperbs_tpu_torch.models.pool import (_assemble_pe_local,
                                                _assemble_pe_task,
                                                _finalize_se_task,
                                                _finalize_se_task_local,
-                                               receive)
+                                               ga_gapped_records, receive)
 from bitmapperbs_tpu_torch.utils.profiling import REC, count, span
 
 MAX_INFLIGHT = 3  # device batches dispatched ahead of host finalize
@@ -160,14 +162,41 @@ def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
     return on(cfg), on(cfg.replace(compact=False))
 
 
-def _pipelined(n: int, bs: int, dispatch, finish
+def _count_records(flag: np.ndarray, ga: int, pe: bool) -> None:
+    """The counters of one part's records, from their FLAG column and the
+    count of G->A records with an indel: for pairs (`pe`), the records of a
+    proper pair (0x2) and those whose mate is unmapped (0x8)."""
+    count("sam.ga_gapped_records", ga)
+    if pe:
+        count("pe.proper_records",
+              int(np.count_nonzero(flag & K.FLAG_PROPER)))
+        count("pe.mate_unmapped_records",
+              int(np.count_nonzero(flag & K.FLAG_MATE_UNMAPPED)))
+
+
+def _slices(n: int, k: int) -> list[tuple[int, int]]:
+    """[start, end) of at most k contiguous, nearly equal slices of n."""
+    step = max(1, -(-n // k))
+    return [(s, min(n, s + step)) for s in range(0, n, step)]
+
+
+def _slice_tree(d: dict, s: int, e: int) -> dict:
+    """Rows [s, e) of every array of a (nested) host output dict."""
+    return {k: _slice_tree(v, s, e) if isinstance(v, dict) else v[s:e]
+            for k, v in d.items()}
+
+
+def _pipelined(n: int, bs: int, dispatch, finish, pe: bool = False
                ) -> list[SamRecord] | list[SamLine]:
     """Batches start at each lo in range(0, n, bs): dispatch(lo) enqueues
     one on the device (no sync) up to MAX_INFLIGHT batches ahead of
     finish(lo, item), which takes dispatch's result and returns its
-    records, or the finalize pool's AsyncResult of (the records shipped as
-    SAM text, pool.task span or None), which are received and unpacked as
-    SamLines.  Returns all records in input order."""
+    records, or a tuple of (first read, the finalize pool's AsyncResult)
+    per pool task of the batch, whose results, (the records shipped as
+    SAM text, pool.task span or None, sam.ga_gapped_records or None), are
+    received and unpacked as SamLines in that order.  Returns all records
+    in input order; with the recorder on, counts them (`pe`: the pairs'
+    FLAG counters too)."""
     parts, pending = [], []
     for lo in range(0, n, bs):
         pending.append((lo, dispatch(lo)))
@@ -176,19 +205,25 @@ def _pipelined(n: int, bs: int, dispatch, finish
             parts.append((lo0, finish(lo0, item)))
     parts.extend((lo, finish(lo, item)) for lo, item in pending)
     out: list = []
-    for lo, part in parts:   # ordered gather
-        if isinstance(part, list):
+    for _, part in parts:   # ordered gather
+        if not isinstance(part, tuple):     # finalized in this process
+            if REC.on:
+                _count_records(np.array([r.flag for r in part], np.int32),
+                               ga_gapped_records(part), pe)
             out.extend(part)
             continue
-        with span("host.finalize_wait", lo):
-            shipped, task_span = part.get()
-        REC.add(task_span)
-        with span("host.unpack", lo):
-            text = receive(shipped)
-            recs = text.lines()
-        count("pool.text_records", len(recs))
-        count("pool.text_bytes", len(text.text))
-        out.extend(recs)
+        for lo, result in part:
+            with span("host.finalize_wait", lo):
+                shipped, task_span, ga = result.get()
+            REC.add(task_span)
+            with span("host.unpack", lo):
+                text = receive(shipped)
+                recs = text.lines()
+                if REC.on:
+                    count("pool.text_records", len(recs))
+                    count("pool.text_bytes", len(text.text))
+                    _count_records(text.flag, ga or 0, pe)
+            out.extend(recs)
     return out
 
 
@@ -234,8 +269,8 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
         task = (arr, lengths, n, quals[lo:lo + n], qnames[lo:lo + n], out_np)
         if pool is not None:
             with span("host.submit", lo):
-                return pool.apply_async(
-                    _finalize_se_task, (task + (cfg, REC.task_trace(lo)),))
+                return ((lo, pool.apply_async(
+                    _finalize_se_task, (task + (cfg, REC.task_trace(lo)),))),)
         with span("host.finalize", lo):
             return _finalize_se_task_local(idx, rc_ref, cfg, task)
 
@@ -277,7 +312,8 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
     names (default p<i>).  As map_batch: up to MAX_INFLIGHT batches in
     flight, one D2H copy per batch, a whole-batch dense re-run merged per
     pair when any pair has gdrop, stats.overflow_reads counts pairs with a
-    capacity overflow in either mate, `pool` fans the assembly out,
+    capacity overflow in either mate, `pool` fans the assembly out (a
+    batch's pairs in one slice per worker),
     `mappers` maps over a mesh (pe / pe_dense), and `graphs` replays a CUDA
     graph per full batch on one card."""
     m_pad = cfg.read_len_bucket
@@ -302,6 +338,10 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
     def finish(lo, item):
         n, a1, l1, a2, l2, out = item
         host = to_host(out)
+        count("pe.pairs", n)
+        if REC.on:
+            count("pe.rescue_hits", int(np.count_nonzero(
+                host["resc_valid"][:n] & ~host["pair_valid"][:n])))
         if stats is not None:
             stats.overflow_reads += int((host["se1"]["overflow"][:n]
                                          | host["se2"]["overflow"][:n]).sum())
@@ -311,16 +351,26 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
                 count("gdrop.reads", int(host["gdrop"].sum()))
                 dense = to_host(run(dense_fn, a1, l1, a2, l2))
                 host = _merge_where(host["gdrop"], dense, host)
-        task = (a1, l1, a2, l2, n,
-                quals[lo:lo + n] if quals else None,
-                qnames[lo:lo + n] if qnames else
-                [f"p{lo + i}" for i in range(n)], host)
-        if pool is not None:
-            with span("host.submit", lo):
-                return pool.apply_async(
-                    _assemble_pe_task, (task + (cfg, REC.task_trace(lo)),))
-        with span("host.finalize", lo):
-            return _assemble_pe_local(idx, rc_ref, cfg, *task)
+        qs = quals[lo:lo + n] if quals else None
+        qn = (qnames[lo:lo + n] if qnames else
+              [f"p{lo + i}" for i in range(n)])
+        if pool is None:
+            with span("host.finalize", lo):
+                return _assemble_pe_local(idx, rc_ref, cfg, a1, l1, a2, l2,
+                                          n, qs, qn, host)
+        # one call maps one batch of pairs: its assembly is split over the
+        # pool's workers (pairs are assembled independently), where one
+        # task a batch would keep all but one worker idle
+        tasks = []
+        for s, e in _slices(n, pool._processes):
+            with span("host.submit", lo + s):
+                task = (a1[s:e], l1[s:e], a2[s:e], l2[s:e], e - s,
+                        qs[s:e] if qs else None, qn[s:e],
+                        _slice_tree(host, s, e))
+                tasks.append((lo + s, pool.apply_async(
+                    _assemble_pe_task,
+                    (task + (cfg, REC.task_trace(lo + s)),))))
+        return tuple(tasks)
 
     with span("host.call", call=True):
-        return _pipelined(len(pairs), bs, dispatch, finish)
+        return _pipelined(len(pairs), bs, dispatch, finish, pe=True)

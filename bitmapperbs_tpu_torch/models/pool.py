@@ -10,12 +10,13 @@ memory-mapped files so per-worker memory stays O(1) even for GRCh38.
 SURVEY.md C19's pthread pool becomes this: the device replaces the mapping
 workers, worker processes replace the rest.
 
-A task returns (shipped, span): its records packed as SAM text and the
+A task returns (shipped, span, ga): its records packed as SAM text and the
 columns the main process reads (io/sam.SamText), the text left in a file of
 the pool's directory (`_ship`; `receive` takes it back in the main process,
-which unpacks it as SamLines), and its `pool.task`, timed in the worker,
-formatting and packing included (utils/profiling.task_span), when the task
-was submitted with the recorder on, else None.
+which unpacks it as SamLines); its `pool.task`, timed in the worker,
+formatting and packing included (utils/profiling.task_span), and its count
+of `sam.ga_gapped_records`, when the task was submitted with the recorder
+on, else None and None.
 """
 from __future__ import annotations
 
@@ -97,6 +98,22 @@ def _ship(recs) -> tuple[str, SamText]:
     return path, text._replace(text="")
 
 
+def ga_gapped_records(recs) -> int:
+    """Records of a G->A search (XR:Z:GA) whose CIGAR has an insertion or
+    a deletion: the records whose CIGAR order depends on following the
+    frame's genome strand rather than FLAG 0x10."""
+    return sum(1 for r in recs
+               if r.xr == "GA" and ("I" in r.cigar or "D" in r.cigar))
+
+
+def _shipped_task(recs, trace, t0: int):
+    """Worker: what a task returns, (the records shipped by _ship, its
+    pool.task span, its sam.ga_gapped_records), the last two None for a
+    task submitted with the recorder off."""
+    ga = None if trace is None else ga_gapped_records(recs)
+    return _ship(recs), task_span(trace, t0), ga
+
+
 def receive(shipped: tuple[str, SamText]) -> SamText:
     """Main process: a task's SamText, its text read back from _ship's file,
     which is removed."""
@@ -120,8 +137,7 @@ def _finalize_se_task(args):
     cfg = cfg if cfg is not None else _POOL_CTX["cfg"]
     recs = _finalize_se_task_local(_POOL_CTX["idx"], _POOL_CTX["rc_ref"],
                                    cfg, task)
-    shipped = _ship(recs)
-    return shipped, task_span(trace, t0)
+    return _shipped_task(recs, trace, t0)
 
 
 def make_finalize_pool(idx: BSIndex, cfg: AlignerConfig, threads: int,
@@ -187,39 +203,7 @@ def _assemble_pe_task(args):
     cfg = cfg if cfg is not None else _POOL_CTX["cfg"]
     recs = _assemble_pe_local(_POOL_CTX["idx"], _POOL_CTX["rc_ref"], cfg,
                               *rest)
-    shipped = _ship(recs)
-    return shipped, task_span(trace, t0)
-
-
-def _cigar_ref_span(cig: str) -> int:
-    """Reference bases consumed by a CIGAR (M/D ops).  The ungapped "NNM"
-    form -- the overwhelming majority -- parses without the regex that
-    dominated the PE patch stage."""
-    if cig[-1] == "M" and cig[:-1].isdigit():
-        return int(cig[:-1])
-    span = 0
-    v = 0
-    for ch in cig:
-        if "0" <= ch <= "9":
-            v = v * 10 + ord(ch) - 48
-        else:
-            if ch in "MD":
-                span += v
-            v = 0
-    return span
-
-
-def _patch_pair_fields(r1, r2, proper: bool):
-    """opaired._emit_pair's tail: RNEXT/PNEXT(/TLEN when proper)."""
-    if r1.rname == r2.rname:
-        r1.rnext = r2.rnext = "="
-        if proper:
-            left, right = (r1, r2) if r1.pos <= r2.pos else (r2, r1)
-            tlen = right.pos + _cigar_ref_span(right.cigar) - left.pos
-            left.tlen, right.tlen = tlen, -tlen
-    else:
-        r1.rnext, r2.rnext = r2.rname, r1.rname
-    r1.pnext, r2.pnext = r2.pos, r1.pos
+    return _shipped_task(recs, trace, t0)
 
 
 def _assemble_pe_local(idx, rc_ref, cfg, a1, l1, a2, l2, n, quals, qnames,
@@ -338,7 +322,7 @@ def _assemble_pe_local(idx, rc_ref, cfg, a1, l1, a2, l2, n, quals, qnames,
         if branch in ("pair", "resc"):
             r1r, r2r = recs_flat[js[0]], recs_flat[js[1]]
             if r1r is not None and r2r is not None:
-                _patch_pair_fields(r1r, r2r, proper=True)
+                opaired.mate_fields(r1r, r2r)
                 out.extend((r1r, r2r))
                 continue
             # rare: finalize rejected -> full per-pair decision tree
@@ -360,10 +344,7 @@ def _assemble_pe_local(idx, rc_ref, cfg, a1, l1, a2, l2, n, quals, qnames,
                         qn, (reads1[i], reads2[i])[mi], q[mi],
                         flag_extra=it_flags[j])
             pair_recs.append(rec)
-        r1r, r2r = pair_recs
-        if not (r1r.flag & K.FLAG_UNMAPPED) \
-                and not (r2r.flag & K.FLAG_UNMAPPED):
-            _patch_pair_fields(r1r, r2r, proper=False)
+        opaired.mate_fields(*pair_recs)
         out.extend(pair_recs)
     return out
 
@@ -475,11 +456,5 @@ def _assemble_pair(idx, rc_ref, cfg, reads, q, qn, host, i, L, e,
         if rec is None:
             rec = unmapped_record(qn, reads[mi], q[mi], flag_extra=extra)
         recs.append(rec)
-    r1r, r2r = recs
-    if not (r1r.flag & K.FLAG_UNMAPPED) and not (r2r.flag & K.FLAG_UNMAPPED):
-        if r1r.rname == r2r.rname:
-            r1r.rnext = r2r.rnext = "="
-        else:
-            r1r.rnext, r2r.rnext = r2r.rname, r1r.rname
-        r1r.pnext, r2r.pnext = r2r.pos, r1r.pos
+    opaired.mate_fields(*recs)
     return recs

@@ -21,8 +21,14 @@ Frozen PE spec (device pipeline must reproduce):
   per-column rule; best (score, fwd_pos) wins if score <= e.  Rescued pair
   is proper; its MAPQ = min(anchored mate's own SE MAPQ, gap MAPQ over
   rescue scores at loci > e apart).
-- TLEN: computed from final (post-traceback) POS/end: leftmost mate gets
-  +span, the other -span; 0 when either unmapped or different contigs.
+- Mate fields (SAM v1 1.4, `mate_fields`): two mapped mates give each
+  other RNEXT (`=` on one contig) and PNEXT; on one contig TLEN runs from
+  the leftmost to the rightmost mapped base of the two, plus on the
+  leftmost mate (mate 1 at equal POS), minus on the other; 0 across
+  contigs.  An unmapped mate (RNAME `*`, POS 0) takes its mapped mate's
+  RNAME / POS as RNEXT / PNEXT.  (The JAX package writes RNEXT `*` / PNEXT
+  0 on an unmapped mate, TLEN 0 for a pair that is not proper, and ends a
+  proper pair's TLEN at the right-starting mate's end.)
 """
 from __future__ import annotations
 
@@ -158,22 +164,44 @@ def _emit_pair(idx, rc_ref, cfg, reads, quals, qname, h1, h2, mapq1, mapq2):
         if rec is None:
             return None
         recs.append(rec)
-    r1, r2 = recs
-    if r1.rname == r2.rname:
-        r1.rnext = r2.rnext = "="
-        left, right = (r1, r2) if r1.pos <= r2.pos else (r2, r1)
-        right_span = sum(int(n) for n, op in _cig(right.cigar) if op in "MD")
-        tlen = right.pos + right_span - left.pos
-        left.tlen, right.tlen = tlen, -tlen
-    else:
-        r1.rnext, r2.rnext = r2.rname, r1.rname
-    r1.pnext, r2.pnext = r2.pos, r1.pos
+    mate_fields(*recs)
     return recs
 
 
-def _cig(cigar: str):
-    import re
-    return re.findall(r"(\d+)([MID])", cigar)
+def cigar_ref_span(cig: str) -> int:
+    """Reference bases a CIGAR consumes (M / D ops).  The ungapped "NNM"
+    form, nearly every record, parses without a loop."""
+    if cig[-1] == "M" and cig[:-1].isdigit():
+        return int(cig[:-1])
+    span = v = 0
+    for ch in cig:
+        if "0" <= ch <= "9":
+            v = v * 10 + ord(ch) - 48
+        else:
+            if ch in "MD":
+                span += v
+            v = 0
+    return span
+
+
+def mate_fields(r1: SamRecord, r2: SamRecord) -> None:
+    """RNEXT, PNEXT and TLEN of a pair's two records, in place (the module
+    docstring's rule); FLAG and MAPQ are left as they are."""
+    u1, u2 = r1.flag & K.FLAG_UNMAPPED, r2.flag & K.FLAG_UNMAPPED
+    if u1 or u2:
+        if not (u1 and u2):
+            r, mate = (r1, r2) if u1 else (r2, r1)
+            r.rnext, r.pnext = mate.rname, mate.pos
+        return
+    same = r1.rname == r2.rname
+    r1.rnext, r2.rnext = ("=", "=") if same else (r2.rname, r1.rname)
+    r1.pnext, r2.pnext = r2.pos, r1.pos
+    if not same:
+        return
+    left, right = (r1, r2) if r1.pos <= r2.pos else (r2, r1)
+    tlen = max(r1.pos + cigar_ref_span(r1.cigar),
+               r2.pos + cigar_ref_span(r2.cigar)) - left.pos
+    left.tlen, right.tlen = tlen, -tlen
 
 
 def map_pair(idx: BSIndex, rc_ref, cfg: AlignerConfig, r1, r2,
@@ -247,13 +275,7 @@ def map_pair(idx: BSIndex, rc_ref, cfg: AlignerConfig, r1, r2,
         if rec is None:
             rec = unmapped_record(qname, reads[i], quals[i], flag_extra=extra)
         recs.append(rec)
-    r1r, r2r = recs
-    if not (r1r.flag & K.FLAG_UNMAPPED) and not (r2r.flag & K.FLAG_UNMAPPED):
-        if r1r.rname == r2r.rname:
-            r1r.rnext = r2r.rnext = "="
-        else:
-            r1r.rnext, r2r.rnext = r2r.rname, r1r.rname
-        r1r.pnext, r2r.pnext = r2r.pos, r1r.pos
+    mate_fields(*recs)
     return recs
 
 

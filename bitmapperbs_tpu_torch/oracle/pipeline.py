@@ -236,9 +236,11 @@ def finalize_hit(idx: BSIndex, rc_ref: np.ndarray, cfg: AlignerConfig,
     if mapq_override is not None:
         mapq = mapq_override
 
+    # SEQ follows the read's orientation (FLAG 0x10), the CIGAR the frame's
+    # genome strand: they differ on the G->A frames (CTOT, CTOB)
     rev = K.IS_REVERSE[(b, p)]
     fwd_read = dna.revcomp(read) if rev else read
-    cigar_fwd = list(reversed(cigar)) if rev else cigar
+    cigar_fwd = list(reversed(cigar)) if b == K.BLOCK_RC else cigar
     fwd_window = frame_slice(idx.genome.codes, fwd_pos, ref_span)
     md, nm, xm = align.cigar_md_nm(fwd_window, fwd_read, 0, cigar_fwd,
                                    ga=(b == K.BLOCK_RC),

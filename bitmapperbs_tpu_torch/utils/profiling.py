@@ -48,6 +48,14 @@ The counters (plain integers):
   gdrop.batches, gdrop.reads  batches re-run dense, and their flagged reads
   pool.text_records, pool.text_bytes  records that came back from the pool
       as SAM text, and the text's length (one byte a character of SAM)
+  sam.ga_gapped_records  records of a G->A search (XR:Z:GA) whose CIGAR has
+      an I or a D, counted by the pool worker beside its pool.task span (or
+      in models/host for a finalize in this process)
+  pe.pairs, pe.rescue_hits  pairs finished by models/host.map_batch_pe, and
+      of them those whose mate came from the rescue scan (no proper pair
+      from the join, a rescue hit: the D2H outputs pair_valid, resc_valid)
+  pe.proper_records, pe.mate_unmapped_records  PE records with FLAG 0x2,
+      and with FLAG 0x8, read from each task's FLAG column (io/sam.SamText)
 
 One clock: perf_counter_ns is CLOCK_MONOTONIC on Linux, shared by every
 process of the host, so the pool workers' spans compare with the main

@@ -1,6 +1,8 @@
 """PyTorch port: map_batch_device (best, second) tuples equal the JAX CPU
 map_batch_device's in every pipeline configuration, and the port's host
-loop writes SAM byte-identical to the reference's and the oracle's."""
+loop writes SAM byte-identical to the reference's and the oracle's, taken
+to their SAM v1 form (tests/sam_v1.py); the reads are of the directional
+strands, so the form changes none of them, PBAT configurations included."""
 import numpy as np
 import pytest
 
@@ -21,6 +23,16 @@ from bitmapperbs_tpu_torch.index.device import upload_index  # noqa: E402
 from bitmapperbs_tpu_torch.models import aligner as tal  # noqa: E402
 from bitmapperbs_tpu_torch.models.host import (map_batch,  # noqa: E402
                                                prepare_batch)
+from sam_v1 import sam_v1  # noqa: E402
+
+
+def v1(idx, recs) -> list[str]:
+    """The JAX package's SE records as SAM v1 lines: none of these tests'
+    records changes."""
+    lines, changed = sam_v1([r.line() for r in recs], idx.genome,
+                            paired=False)
+    assert changed == 0
+    return lines
 
 B = 48
 BASE = AlignerConfig(max_errors=4, indels=True, read_len_bucket=96,
@@ -92,8 +104,8 @@ def test_map_batch_sam_matches_reference_and_oracle(setup, name):
     idx, jd, td, reads, quals = setup
     cfg = CONFIGS[name]
     got = [r.line() for r in map_batch(idx, td, cfg, reads, quals)]
-    ref = [r.line() for r in map_batch_tpu(idx, jd, cfg, reads, quals)]
-    oracle = [r.line() for r in map_batch_se(idx, cfg, reads, quals)]
+    ref = v1(idx, map_batch_tpu(idx, jd, cfg, reads, quals))
+    oracle = v1(idx, map_batch_se(idx, cfg, reads, quals))
     assert got == ref
     assert got == oracle
 
@@ -182,8 +194,8 @@ def test_gbp_config_sam_matches_reference_and_oracle(repeat_setup, name):
     idx, jd, td, reads, quals = repeat_setup
     cfg = GBP_CONFIGS[name]
     got = [r.line() for r in map_batch(idx, td, cfg, reads, quals)]
-    ref = [r.line() for r in map_batch_tpu(idx, jd, cfg, reads, quals)]
-    oracle = [r.line() for r in map_batch_se(idx, cfg, reads, quals)]
+    ref = v1(idx, map_batch_tpu(idx, jd, cfg, reads, quals))
+    oracle = v1(idx, map_batch_se(idx, cfg, reads, quals))
     assert got == ref
     assert got == oracle
 
@@ -210,9 +222,8 @@ def test_long_bucket_sam_matches_reference_and_oracle(bucket, read_len, pbat):
     quals = [s.qual[:len(r)] for s, r in zip(sims, reads)]
     got = [r.line() for r in map_batch(idx, upload_index(idx), cfg, reads,
                                        quals)]
-    ref = [r.line() for r in map_batch_tpu(idx, jupload(idx), cfg, reads,
-                                           quals)]
+    ref = v1(idx, map_batch_tpu(idx, jupload(idx), cfg, reads, quals))
     assert got == ref
-    assert got == [r.line() for r in map_batch_se(idx, cfg, reads, quals)]
+    assert got == v1(idx, map_batch_se(idx, cfg, reads, quals))
     mapped = sum(not int(ln.split("\t")[1]) & 4 for ln in got)
     assert mapped > n // 2

@@ -2,7 +2,10 @@
 end and `--pe`), the GPU platform refuses to fall back to the CPU, `--pe`
 needs both mate files, `--oracle` and `--profile` work as the reference's,
 the mesh over several devices (replicated and `--shard-index`) writes the
-single device's records, and the package never imports jax."""
+single device's records, and the package never imports jax.  The
+reference's records are taken to their SAM v1 form first (tests/sam_v1.py:
+the G->A gapped records and PE mate fields that the JAX package writes
+otherwise), and its stats with them."""
 import json
 import os
 import subprocess
@@ -19,6 +22,7 @@ from bitmapperbs_tpu.io.fastq import write_fastq  # noqa: E402
 from bitmapperbs_tpu.utils.simulate import (random_genome_fasta,  # noqa: E402
                                             simulate_pairs, simulate_reads)
 from bitmapperbs_tpu_torch.cli import main  # noqa: E402
+from sam_v1 import restat, sam_v1  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,6 +52,12 @@ def records(path):
             if not ln.startswith("@PG")]
 
 
+def v1_records(d, path, paired: bool) -> tuple[list[str], int]:
+    """records(path) of a reference run in SAM v1 form, and how many
+    changed."""
+    return sam_v1(records(path), parse_fasta(str(d / "ref.fa")), paired)
+
+
 @pytest.mark.parametrize("extra", [[], ["--pbat", "-e", "0.05"]])
 def test_search_matches_reference_cli(workdir, extra):
     d = workdir
@@ -57,8 +67,10 @@ def test_search_matches_reference_cli(workdir, extra):
                  "--stats-json", str(d / "port.json")]) == 0
     assert jmain([*common, "--single-device", "-o", str(d / "ref.sam"),
                   "--stats-json", str(d / "ref.json")]) == 0
-    got, want = records(d / "port.sam"), records(d / "ref.sam")
+    got, (want, changed) = records(d / "port.sam"), v1_records(
+        d, d / "ref.sam", paired=False)
     assert got == want
+    assert changed == 0
     assert sum(not ln.startswith("@") for ln in got) == 40
     assert (d / "port.json").read_text() == (d / "ref.json").read_text()
 
@@ -74,13 +86,38 @@ def test_search_pe_matches_reference_cli(workdir, extra):
                  "--stats-json", str(d / "port_pe.json")]) == 0
     assert jmain([*common, "--single-device", "-o", str(d / "ref_pe.sam"),
                   "--stats-json", str(d / "ref_pe.json")]) == 0
-    got, want = records(d / "port_pe.sam"), records(d / "ref_pe.sam")
+    got, (want, changed) = records(d / "port_pe.sam"), v1_records(
+        d, d / "ref_pe.sam", paired=True)
     assert got == want
+    assert changed > 0
     body = [ln for ln in got if not ln.startswith("@")]
     assert len(body) == 48
     assert sum(int(ln.split("\t")[1]) & 0x2 > 0 for ln in body) > 24
-    assert (d / "port_pe.json").read_text() == \
-        (d / "ref_pe.json").read_text()
+    assert (d / "port_pe.json").read_text() == restat(
+        (d / "ref_pe.json").read_text(), records(d / "ref_pe.sam"), want)
+
+
+PE_OPTIONS = {"t2_rg": ["-t", "2", "--rg", "lib1"], "fast": ["--fast"],
+              "sensitive": ["--sensitive"], "pbat": ["--pbat"]}
+
+
+@pytest.mark.parametrize("name", PE_OPTIONS)
+def test_search_pe_options_match_reference_cli(workdir, name):
+    """`--pe` under a finalize pool of two with a read group, `--fast`,
+    `--sensitive` and `--pbat`: the records equal the reference CLI's in
+    their SAM v1 form."""
+    d = workdir
+    common = ["search", str(d / "ref.fa"), "--pe", "--seq1",
+              str(d / "pairs_1.fq"), "--seq2", str(d / "pairs_2.fq"),
+              "--batch-size", "16", "--min", "100", "--max", "400",
+              "--platform", "cpu", *PE_OPTIONS[name]]
+    assert main([*common, "-o", str(d / f"po_{name}.sam")]) == 0
+    assert jmain([*common, "--single-device", "-o",
+                  str(d / f"jpo_{name}.sam")]) == 0
+    want, changed = v1_records(d, d / f"jpo_{name}.sam", paired=True)
+    assert records(d / f"po_{name}.sam") == want
+    assert changed > 0
+    assert sum(not ln.startswith("@") for ln in want) == 48
 
 
 @pytest.mark.parametrize("mate", ["--seq1", "--seq2"])
@@ -147,7 +184,8 @@ def test_search_on_a_mesh_matches_single_device_and_reference(
             assert "mapping over" not in err
     assert jmain([*common, "--shard-index", "4", "-o",
                   str(d / f"m_{tag}_ref.sam")]) == 0
-    want = records(d / f"m_{tag}_ref.sam")
+    want, changed = v1_records(d, d / f"m_{tag}_ref.sam", paired=pe)
+    assert (changed > 0) == pe
     for name in runs:
         assert records(d / f"m_{tag}_{name}.sam") == want, name
     assert sum(not ln.startswith("@") for ln in want) == (48 if pe else 40)
@@ -235,8 +273,9 @@ def test_oracle_matches_reference_and_device(workdir, capsys, pe):
     assert main([*common, "--platform", "cpu", "-o",
                  str(d / f"dev_{tag}.sam")]) == 0
     got = records(d / f"or_{tag}.sam")
-    assert got == records(d / f"jor_{tag}.sam") == \
-        records(d / f"dev_{tag}.sam")
+    want, changed = v1_records(d, d / f"jor_{tag}.sam", paired=pe)
+    assert got == want == records(d / f"dev_{tag}.sam")
+    assert (changed > 0) == pe
     assert sum(not ln.startswith("@") for ln in got) == (48 if pe else 40)
 
 

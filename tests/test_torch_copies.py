@@ -2,7 +2,9 @@
 artifact format, resample, FASTQ, SAM / BAM, stats, finalize, oracle, CLI
 config tuning, simulator) give the reference package's bytes and records on
 the same seeded inputs.  Exact equality throughout (integers and bytes;
-tolerance 0)."""
+tolerance 0), after the reference's records are taken to their SAM v1
+form (tests/sam_v1.py: the G->A gapped records and PE mate fields, which
+the port writes as SAM v1 does and the reference otherwise)."""
 import dataclasses
 import importlib
 import io
@@ -11,6 +13,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from sam_v1 import jax_record, sam_v1, sam_v1_records  # noqa: E402
 
 REF, PORT = "bitmapperbs_tpu", "bitmapperbs_tpu_torch"
 
@@ -52,7 +56,7 @@ def reads(indexes):
                                 sub_rate=0.01, indel_rate=0.005)
         pe = sim.simulate_pairs(idx.genome, 16, read_len=80, seed=6,
                                 min_insert=150, max_insert=300,
-                                sub_rate=0.01)
+                                sub_rate=0.01, indel_rate=0.005)
         out.append((se, pe))
     (jse, jpe), (tse, tpe) = out
     for a, b in zip(jse + [m for p in jpe for m in p],
@@ -195,11 +199,13 @@ def oracle_records(indexes, reads):
 
 
 @pytest.mark.parametrize("kind", ["se", "pe"])
-def test_oracle_records(oracle_records, kind):
+def test_oracle_records(indexes, oracle_records, kind):
     k = 0 if kind == "se" else 1
-    want = [r.line() for r in oracle_records[0][k]]
+    want, changed = sam_v1([r.line() for r in oracle_records[0][k]],
+                           indexes[0].genome, paired=kind == "pe")
     got = [r.line() for r in oracle_records[1][k]]
     assert got == want
+    assert (changed > 0) == (kind == "pe")  # directional SE: none
     assert len(got) == (40 if kind == "se" else 32)
     assert sum("\t4\t" not in ln[:40] for ln in got) > len(got) // 2
 
@@ -222,9 +228,15 @@ def test_from_line_inverts_line(oracle_records, kind):
 def test_sam_and_bam_bytes(indexes, oracle_records, fmt):
     jmod, tmod = both("io." + fmt)
     jstats, tstats = both("io.stats")
+    jsam, tsam = both("io.sam")
+    from_line = jax_record(tsam.SamRecord, jsam.SamRecord)
+    (jse, _), (jpe, changed) = (
+        sam_v1_records(recs, indexes[0].genome, paired, from_line)
+        for recs, paired in zip(oracle_records[0], (False, True)))
+    assert changed > 0
     out = []
     for mod, stats_mod, idx, recs in (
-            (jmod, jstats, indexes[0], oracle_records[0]),
+            (jmod, jstats, indexes[0], (jse, jpe)),
             (tmod, tstats, indexes[1], oracle_records[1])):
         fh = io.BytesIO() if fmt == "bam" else io.StringIO()
         cls = mod.BamWriter if fmt == "bam" else mod.SamWriter
@@ -269,7 +281,10 @@ def test_finalize_records(indexes, reads, monkeypatch):
     want = jpool._finalize_se_task_local(
         indexes[0], indexes[0].genome.rc_codes(),
         jc.AlignerConfig(**dataclasses.asdict(cfg)), task)
-    assert [r.line() for r in got] == [r.line() for r in want]
+    want, changed = sam_v1([r.line() for r in want], indexes[0].genome,
+                           paired=False)
+    assert [r.line() for r in got] == want
+    assert changed == 0                     # directional SE: none
     hits_t = tpool.device_results_to_hits(cfg, indexes[1].genome.length, lens,
                                           out_np)
     hits_j = jpool.device_results_to_hits(cfg, indexes[0].genome.length, lens,

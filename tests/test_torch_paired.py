@@ -2,7 +2,9 @@
 JAX verify.myers_scan, map_batch_pe_device equals the JAX CPU
 map_batch_pe_device key for key (nested se1/se2 included) in every
 pipeline configuration, and the port's map_batch_pe writes SAM
-byte-identical to map_batch_pe_tpu and to the numpy oracle."""
+byte-identical to map_batch_pe_tpu and to the numpy oracle, each taken to
+its SAM v1 form (tests/sam_v1.py: the G->A gapped records and the mate
+fields that the JAX package writes otherwise)."""
 import numpy as np
 import pytest
 
@@ -30,8 +32,14 @@ from bitmapperbs_tpu_torch.models.host import (map_batch_pe as tmap_pe,  # noqa:
 from bitmapperbs_tpu_torch.ops import kernels  # noqa: E402
 from bitmapperbs_tpu_torch.ops import verify as tv  # noqa: E402
 from chip_smoke import straddling_pairs, tandem_genome_fasta  # noqa: E402
+from sam_v1 import sam_v1  # noqa: E402
 
 B = 48
+
+
+def v1(idx, recs) -> tuple[list[str], int]:
+    """The JAX package's PE records as SAM v1 lines, and how many changed."""
+    return sam_v1([r.line() for r in recs], idx.genome, paired=True)
 
 
 def cfg_pe(**kw):
@@ -259,8 +267,11 @@ def _sam_cases(idx):
     }
 
 
-SAM_CASES = ["clean", "indels", "rescue", "discordant", "underflow",
-             "underflow_fwd", "non_directional"]
+# case: whether its JAX-package records hold any that SAM v1 writes
+# otherwise (G->A hits with an indel; mate fields)
+SAM_CASES = {"clean": False, "indels": True, "rescue": False,
+             "discordant": True, "underflow": True, "underflow_fwd": True,
+             "non_directional": True}
 
 
 @pytest.mark.parametrize("name", SAM_CASES)
@@ -268,10 +279,11 @@ def test_map_batch_pe_sam_matches_reference_and_oracle(setup, name):
     idx, jd, td = setup
     pairs, cfg = _sam_cases(idx)[name]
     got = [r.line() for r in tmap_pe(idx, td, cfg, pairs)]
-    ref = [r.line() for r in map_batch_pe_tpu(idx, jd, cfg, pairs)]
+    ref, changed = v1(idx, map_batch_pe_tpu(idx, jd, cfg, pairs))
     orecs = map_batch_pe(idx, cfg, pairs)
     assert got == ref
-    assert got == [r.line() for r in orecs]
+    assert got == v1(idx, orecs)[0]
+    assert (changed > 0) == SAM_CASES[name]
     proper = sum(bool(r.flag & K.FLAG_PROPER) for r in orecs)
     if name == "rescue":
         assert proper >= 40          # most pairs recovered through rescue
@@ -293,9 +305,9 @@ def test_map_batch_pe_gdrop_rerun_and_stats(setup, pair_sets):
     got = [r.line() for r in tmap_pe(idx, td, cfg, pairs, stats=st_t)]
     dense = [r.line() for r in tmap_pe(idx, td, cfg.replace(compact=False),
                                        pairs)]
-    ref = [r.line() for r in map_batch_pe_tpu(idx, jd, cfg, pairs,
-                                              stats=st_j)]
+    ref, changed = v1(idx, map_batch_pe_tpu(idx, jd, cfg, pairs, stats=st_j))
     assert got == dense == ref
+    assert changed > 0
     assert len(got) == 2 * len(pairs)
     assert st_t.overflow_reads == st_j.overflow_reads
 
@@ -328,9 +340,11 @@ def test_rescue_branch_in_repeats(indels):
     decided = (got["resc_valid"] & ~got["pair_valid"]).numpy()
     assert decided[:32].sum() >= 16
     sam = [r.line() for r in tmap_pe(idx, td, cfg, pairs)]
-    assert sam == [r.line() for r in map_batch_pe_tpu(idx, jd, cfg, pairs)]
+    ref, changed = v1(idx, map_batch_pe_tpu(idx, jd, cfg, pairs))
+    assert sam == ref
     orecs = map_batch_pe(idx, cfg, pairs)
-    assert sam == [r.line() for r in orecs]
+    assert sam == v1(idx, orecs)[0]
+    assert changed == 0
     proper = np.array([bool(r.flag & K.FLAG_PROPER) for r in orecs[::2]])
     assert proper[:len(decided)][decided].all()
 
@@ -393,6 +407,7 @@ def test_gbp_config_pe_sam_matches_reference_and_oracle(repeat_setup, name):
     idx, jd, td, pairs = repeat_setup
     cfg = GBP_CASES[name]
     got = [r.line() for r in tmap_pe(idx, td, cfg, pairs)]
-    ref = [r.line() for r in map_batch_pe_tpu(idx, jd, cfg, pairs)]
+    ref, changed = v1(idx, map_batch_pe_tpu(idx, jd, cfg, pairs))
     assert got == ref
-    assert got == [r.line() for r in map_batch_pe(idx, cfg, pairs)]
+    assert got == v1(idx, map_batch_pe(idx, cfg, pairs))[0]
+    assert changed > 0

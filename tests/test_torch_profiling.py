@@ -217,6 +217,15 @@ def test_host_spans_nest_under_their_call(world, recording, pe):
     assert snap["counters"]["eager.ineligible"] == 2 * len(los)
 
 
+def task_los(n: int, pe: bool, workers: int = 2) -> list[int]:
+    """The first read (pair) of each pool task: one task a batch for SE; a
+    PE batch's pairs split over the pool's workers."""
+    if not pe:
+        return list(range(0, n, BS))
+    return [lo + s for lo in range(0, n, BS)
+            for s, _ in host._slices(min(BS, n - lo), workers)]
+
+
 @pytest.mark.parametrize("pe", [False, True])
 def test_pool_task_spans_on_the_main_clock(world, pe):
     """A spawned pool of 2 made before the recorder was switched on: each
@@ -245,7 +254,9 @@ def test_pool_task_spans_on_the_main_clock(world, pe):
     submits = {s.lo: s for s in snap["spans"] if s.name == "host.submit"}
     n = len(world[3] if pe else world[2])
     assert sorted(s.lo for s in tasks) == sorted(waits) == sorted(submits) \
-        == list(range(0, n, BS))
+        == task_los(n, pe)
+    if pe:      # two tasks a batch
+        assert len(tasks) == 2 * len(range(0, n, BS))
     assert {s.pid for s in tasks} <= {p.pid for p in pool._pool} \
         and os.getpid() not in {s.pid for s in tasks}
     for t in tasks:
@@ -276,10 +287,10 @@ def test_pool_text_counters_and_unpack_spans(world, pe):
     c = snap["counters"]
     assert c["pool.text_records"] == len(recs) == n * (2 if pe else 1)
     assert c["pool.text_bytes"] == sum(len(r.line()) + 1 for r in recs) - (
-        len(range(0, n, BS)))
+        len(task_los(n, pe)))
     unpacks = {s.lo: s for s in snap["spans"] if s.name == "host.unpack"}
     waits = {s.lo: s for s in snap["spans"] if s.name == "host.finalize_wait"}
-    assert sorted(unpacks) == sorted(waits) == list(range(0, n, BS))
+    assert sorted(unpacks) == sorted(waits) == task_los(n, pe)
     assert len([s for s in snap["spans"] if s.name == "host.unpack"]) \
         == len(unpacks)
     (call,) = [s for s in snap["spans"] if s.name == "host.call"]

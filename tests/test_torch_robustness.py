@@ -4,7 +4,8 @@ poly-A / poly-T, 3-base and 1-base reads (directional, PBAT, mismatch-only);
 pairs with an all-N, a 3-base or a 40-base mate and with both mates all-N;
 and command-line cases: mixed read lengths under an error rate, a grown
 read bucket, gzipped input with the side files, an empty FASTQ, BAM to
-stdout and a missing index."""
+stdout and a missing index.  The reference's records are taken to their
+SAM v1 form first (tests/sam_v1.py)."""
 import gzip
 import os
 
@@ -26,6 +27,7 @@ from bitmapperbs_tpu_torch.cli import main  # noqa: E402
 from bitmapperbs_tpu_torch.config import AlignerConfig as TConfig  # noqa: E402
 from bitmapperbs_tpu_torch.index.device import upload_index  # noqa: E402
 from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe  # noqa: E402
+from sam_v1 import sam_v1  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +79,10 @@ def test_se_edge_reads_match_the_reference(setup, name):
     cfg = AlignerConfig(max_errors=e, indels=indels, non_directional=pbat,
                         read_len_bucket=bucket, batch_size=len(reads))
     got = [r.line() for r in map_batch(idx, dix, port_cfg(cfg), reads)]
-    want = [r.line() for r in oracle_se(idx, cfg, reads)]
+    want, changed = sam_v1([r.line() for r in oracle_se(idx, cfg, reads)],
+                           idx.genome, paired=False)
     assert got == want
+    assert changed == 0
     assert sum("\t4\t*\t" not in ln for ln in got) >= 10   # most map
 
 
@@ -104,8 +108,10 @@ def test_pe_edge_mates_match_the_reference(setup, name):
                                   read_len_bucket=96, batch_size=len(prs)),
                            **PE_CASES[name]})
     got = [r.line() for r in map_batch_pe(idx, dix, port_cfg(cfg), prs)]
-    want = [r.line() for r in oracle_pe(idx, cfg, prs)]
+    want, changed = sam_v1([r.line() for r in oracle_pe(idx, cfg, prs)],
+                           idx.genome, paired=True)
     assert got == want
+    assert changed > 0              # the all-N and 3-base mates' fields
     assert len(got) == 2 * len(prs)
     assert sum(int(ln.split("\t")[1]) & 0x2 > 0 for ln in got) >= 6
 
