@@ -8,11 +8,13 @@
 
 Counterpart of bitmapperbs_tpu/cli.py, with the same options: the parser,
 `index`, `resample`, config building, genome-size autotune and the per-read
-budget grouping are kept equal to the reference CLI's.  `search` maps
-single-end reads through models/host.map_batch and pairs through
-models/host.map_batch_pe on the GPUs (`--platform auto|gpu`) or, when asked
-for explicitly, on the CPU (`--platform cpu`); `--oracle` maps through the
-numpy oracle on the host instead.  With more than one local card and no
+budget grouping are kept equal to the reference CLI's.  `search` runs the
+one mapping loop, models/host.map_reader_batches, over the FASTQ reader's
+batches, SE and PE alike: it maps single-end reads through
+models/host.map_batch and pairs through models/host.map_batch_pe on the
+GPUs (`--platform auto|gpu`) or, when asked for explicitly, on the CPU
+(`--platform cpu`); `--oracle` maps through the numpy oracle on the host
+instead.  With more than one local card and no
 `--single-device`, batches are split over every card (parallel/shard.py),
 the index replicated on each, or split over `--shard-index N` cards per
 data slice.  On one card a full batch replays a CUDA graph of its device
@@ -39,6 +41,7 @@ import os
 import re
 import sys
 import time
+from functools import partial
 
 
 PLATFORMS = ("auto", "cpu", "gpu")
@@ -339,51 +342,18 @@ def _cfg_key(cfg, rate, length: int):
     return (b, bk)
 
 
+# The benchmark's window (wgbs_bench/run.py) calls these two; cmd_search
+# calls models/host.map_grouped through host.map_reader_batches.
 def _map_grouped_se(run, cfg, rate, codes, quals, qnames):
-    """Partition a batch by per-read (budget, bucket) and map each group
-    with its own static config; records are reassembled in input order."""
-    keys = [_cfg_key(cfg, rate, len(c)) for c in codes]
-    uniq = sorted(set(keys))
-    if len(uniq) == 1:
-        b, bk = uniq[0]
-        return run(cfg.replace(max_errors=b, read_len_bucket=bk),
-                   codes, quals, qnames)
-    recs = [None] * len(codes)
-    for key in uniq:
-        b, bk = key
-        sel = [i for i, v in enumerate(keys) if v == key]
-        sub = run(cfg.replace(max_errors=b, read_len_bucket=bk),
-                  [codes[i] for i in sel],
-                  [quals[i] for i in sel], [qnames[i] for i in sel])
-        for i, r in zip(sel, sub):
-            recs[i] = r
-    return recs
+    from bitmapperbs_tpu_torch.models.host import map_grouped
+    return map_grouped(run, cfg, partial(_cfg_key, cfg, rate), codes, quals,
+                       qnames)
 
 
 def _map_grouped_pe(run, cfg, rate, prs, quals, qn):
-    """PE analogue of _map_grouped_se: a pair's key is the max of its two
-    mates' (equal-length mates -- the norm -- resolve exactly per read);
-    two records per pair, input order preserved."""
-    keys = []
-    for a, b in prs:
-        ka = _cfg_key(cfg, rate, len(a))
-        kb = _cfg_key(cfg, rate, len(b))
-        keys.append((max(ka[0], kb[0]), max(ka[1], kb[1])))
-    uniq = sorted(set(keys))
-    if len(uniq) == 1:
-        b, bk = uniq[0]
-        return run(cfg.replace(max_errors=b, read_len_bucket=bk),
-                   prs, quals, qn)
-    recs = [None] * (2 * len(prs))
-    for key in uniq:
-        b, bk = key
-        sel = [i for i, v in enumerate(keys) if v == key]
-        sub = run(cfg.replace(max_errors=b, read_len_bucket=bk),
-                  [prs[i] for i in sel],
-                  [quals[i] for i in sel], [qn[i] for i in sel])
-        for j, i in enumerate(sel):
-            recs[2 * i], recs[2 * i + 1] = sub[2 * j], sub[2 * j + 1]
-    return recs
+    from bitmapperbs_tpu_torch.models.host import map_grouped
+    return map_grouped(run, cfg, partial(_cfg_key, cfg, rate), prs, quals,
+                       qn, mates=2)
 
 
 def _closing_iter(pf):
@@ -531,11 +501,13 @@ def cmd_search(args) -> int:
         sys.stderr.write(f"[bitmapperbs_tpu_torch] resuming at record "
                          f"{resume['record']}\n")
 
+    from bitmapperbs_tpu_torch.models.host import (map_batch, map_batch_pe,
+                                                   map_reader_batches)
+
     # finalize workers are spawned (numpy only) before the device is touched
     pool = dix = mappers = None
     if not args.oracle:
         from bitmapperbs_tpu_torch.index.device import upload_index
-        from bitmapperbs_tpu_torch.models.host import map_batch, map_batch_pe
         from bitmapperbs_tpu_torch.models.pool import make_finalize_pool
         from bitmapperbs_tpu_torch.parallel.shard import make_cli_mappers
         pool = make_finalize_pool(idx, cfg, args.threads)
@@ -608,98 +580,50 @@ def cmd_search(args) -> int:
     if args.oracle:
         from bitmapperbs_tpu_torch.oracle.paired import map_batch_pe as ope
         from bitmapperbs_tpu_torch.oracle.pipeline import map_batch_se as ose
+        oracle = ope if args.pe else ose
 
-    def run_se(c, codes, quals, qnames):
-        if args.oracle:
-            return ose(idx, c, codes, quals, qnames)
-        return map_batch(idx, dix, c, codes, quals, qnames, stats=stats,
-                         pool=pool, mappers=mappers_for(c), graphs=True)
+        def run(c, units, quals, qnames):
+            return oracle(idx, c, units, quals, qnames)
+    else:
+        mapper = map_batch_pe if args.pe else map_batch
 
-    def run_pairs(c, prs, quals, qnames):
-        if args.oracle:
-            return ope(idx, c, prs, quals, qnames)
-        return map_batch_pe(idx, dix, c, prs, quals, qnames, stats=stats,
-                            pool=pool, mappers=mappers_for(c), graphs=True)
+        def run(c, units, quals, qnames):
+            return mapper(idx, dix, c, units, quals, qnames, stats=stats,
+                          pool=pool, mappers=mappers_for(c), graphs=True)
 
     try:
+        if args.pe:
+            limit_records = None
+            if range_plan is not None:
+                limit_records = range_plan.n_records - (
+                    resume["record"] - range_plan.start_record)
+            batches = read_pairs(
+                args.seq1, args.seq2, cfg.batch_size, args.phred64,
+                resume_offsets=(resume["offset"], resume.get("offset2", 0)),
+                resume_record=resume["record"], limit_records=limit_records)
+        else:
+            batches = FastqReader(
+                args.seq, cfg.batch_size, args.phred64,
+                resume_offset=resume["offset"],
+                resume_record=resume["record"],
+                limit_offset=(range_plan.limit_offset
+                              if range_plan is not None else None))
         with device_trace(args.profile, device):
-            if args.pe:
-                limit_records = None
-                if range_plan is not None:
-                    limit_records = range_plan.n_records - (
-                        resume["record"] - range_plan.start_record)
-                for b1, b2 in _closing_iter(Prefetcher(read_pairs(
-                        args.seq1, args.seq2, cfg.batch_size, args.phred64,
-                        resume_offsets=(resume["offset"],
-                                        resume.get("offset2", 0)),
-                        resume_record=resume["record"],
-                        limit_records=limit_records))):
-                    prs = list(zip(b1.codes, b2.codes))
-                    quals = list(zip(b1.quals, b2.quals))
-                    qn = b1.qnames
-                    # the cursor advances by the unfiltered batch: shard
-                    # ownership is by global record index, so record indices
-                    # and byte offsets stay aligned across a resume
-                    cursor = (b1.start_record + len(b1), b1.end_offset,
-                              b2.end_offset)
-                    if shard is not None:
-                        prs, qn, quals = shard.filter_batch(
-                            prs, qn, quals, b1.start_record)
-                        if not prs:
-                            save_cursor(*cursor)
-                            continue
-                    recs = _map_grouped_pe(run_pairs, cfg, error_rate, prs,
-                                           quals, qn)
-                    with span("io.write"):
-                        # two records per pair: mate 1, mate 2
-                        emit(recs, [r for p in prs for r in p],
-                             [q for q in qn for _ in (0, 1)],
-                             [q for p in quals for q in p])
-                        out_fh.flush()
-                        save_cursor(*cursor)
-            else:
-                # group `threads` reader batches per call so the finalize
-                # pool has cross-batch work; the cursor moves per group
-                group_n = max(1, args.threads)
-                gbuf: list = []
-                last = [None]
-
-                def flush_group():
-                    if not gbuf:
-                        return
-                    codes = [c for g in gbuf for c in g[0]]
-                    qnames = [c for g in gbuf for c in g[1]]
-                    quals = [c for g in gbuf for c in g[2]]
-                    gbuf.clear()
-                    recs = _map_grouped_se(run_se, cfg, error_rate, codes,
-                                           quals, qnames)
-                    with span("io.write"):
-                        emit(recs, codes, qnames, quals)
-                        out_fh.flush()
-                        save_cursor(*last[0])
-
-                reader = FastqReader(
-                    args.seq, cfg.batch_size, args.phred64,
-                    resume_offset=resume["offset"],
-                    resume_record=resume["record"],
-                    limit_offset=(range_plan.limit_offset
-                                  if range_plan is not None else None))
-                for batch in _closing_iter(Prefetcher(reader)):
-                    codes, qnames, quals = (batch.codes, batch.qnames,
-                                            batch.quals)
-                    last[0] = (batch.start_record + len(batch),
-                               batch.end_offset)
-                    if shard is not None:
-                        codes, qnames, quals = shard.filter_batch(
-                            codes, qnames, quals, batch.start_record)
-                        if not codes:
-                            if not gbuf:
-                                save_cursor(*last[0])
-                            continue
-                    gbuf.append((codes, qnames, quals))
-                    if len(gbuf) >= group_n:
-                        flush_group()
-                flush_group()
+            # SE groups `threads` reader batches a call so the finalize
+            # pool has cross-batch work; a PE call's batch is split over
+            # the pool (host.task_slices); the cursor moves per call
+            for recs, reads, qnames, quals, cursor in map_reader_batches(
+                    cfg, _closing_iter(Prefetcher(batches)), run,
+                    partial(_cfg_key, cfg, error_rate),
+                    per_call=1 if args.pe else max(1, args.threads),
+                    keep=shard.filter_batch if shard is not None else None):
+                if not reads:       # a batch of other hosts' records
+                    save_cursor(*cursor)
+                    continue
+                with span("io.write"):
+                    emit(recs, reads, qnames, quals)
+                    out_fh.flush()
+                    save_cursor(*cursor)
         if args.profile:
             sys.stderr.write(f"[bitmapperbs_tpu_torch] profiler trace -> "
                              f"{trace_path(args.profile)}\n"

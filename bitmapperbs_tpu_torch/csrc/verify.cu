@@ -1,14 +1,8 @@
 // Candidate verification kernels for Hopper (sm_90a), bound with ctypes by
 // bitmapperbs_tpu_torch/ops/kernels.py.
 //
-// btbs_verify_fused replaces bitmapperbs_tpu/ops/pallas_kernels.py
-//   _fused_verify_kernel (wrapper verify_fused_pallas): per candidate lane,
-//   the e-bit funnel shift of the wide window, the anchored asymmetric
-//   bisulfite Hamming count (ref C matches read T, N never matches, masked
-//   to the read length) and, when ham > e, semi-global multi-word Myers with
-//   the PEQ table built from the read planes in registers.
-//   out = ham if ham <= e else min over the ncols end columns.
-// btbs_verify_fused_gather replaces the same TPU kernel together with the
+// btbs_verify_fused_gather replaces bitmapperbs_tpu/ops/pallas_kernels.py
+//   _fused_verify_kernel (wrapper verify_fused_pallas) together with the
 //   window gather in front of it (bitmapperbs_tpu/ops/verify.py
 //   window_planes, as bitmapperbs_tpu/models/aligner.py
 //   candidate_grids_compact calls it): it takes what the compact path holds
@@ -25,44 +19,33 @@
 // btbs_myers replaces pallas_kernels.py _myers_kernel (wrapper myers_pallas):
 //   the same Myers recurrence from a precomputed PEQ table and pad rows
 //   (N columns take the pad row); out = min over the ncols end columns.
-// btbs_myers_scan replaces pallas_kernels.py _myers_scan_kernel (wrapper
-//   myers_scan_pallas): the recurrence of btbs_myers, with the running
-//   score written after EVERY column (paired-end mate rescue scans the
-//   whole insert window of a pair in one lane: ncols = R + m + 2e).
-// btbs_rescue_scan replaces the same TPU kernel together with what stands
-//   around it in paired-end mate rescue (bitmapperbs_tpu/models/paired.py
-//   lines 206-238: the window gather before the scan, and after it the
-//   selection of the best score, its lowest frame position and the best
-//   score more than e away).  It takes what the path holds before any
-//   plane exists and returns the three lanes the path needs; see the note
-//   above rescue_scan_kernel.
+// btbs_rescue_scan replaces pallas_kernels.py _myers_scan_kernel (wrapper
+//   myers_scan_pallas) together with what stands around it in paired-end
+//   mate rescue (bitmapperbs_tpu/models/paired.py lines 206-238: the window
+//   gather before the scan, and after it the selection of the best score,
+//   its lowest frame position and the best score more than e away).  It
+//   takes what the path holds before any plane exists and returns the three
+//   lanes the path needs; see the note above rescue_scan_kernel.
 //
-// Layout: one thread per lane (the wide gathering kernel: a group of
-// threads per lane, see there); each lane's words are contiguous int32 bits
-// (lane-major, as the port's tensors come): win [L][3][Ww], read planes
-// [L][3][Wd], lenmask / pad [L][Wd], peq [L][4][Wd]; out int32 [L], and for
-// the scan int32 [ncols][L] (column-major).  A scan lane reads ~3 Ww + 5 Wd
-// words but writes ncols (605 at insert 0-500, m = 96, e = 4), so the store
-// is what its layout is chosen for: column j of a warp's 32 lanes is one
-// 128-byte line.  The wrapper returns the [L, ncols] transpose as a view.
+// Layout of btbs_myers: one thread per lane; each lane's words are
+// contiguous int32 bits (lane-major, as the port's tensors come): win
+// [L][3][Ww], peq [L][4][Wd], pad [L][Wd]; out int32 [L].
 //
 // What bounds it on the H100: the column loop is serial per lane (ncols
 // steps of ~10 * Wd integer ops) and the state (VP, VN, PEQ, pad: 7 * Wd
 // words) must stay in registers.  Compute, not bytes: a lane reads
-// (3 Ww + 4 Wd) words once and writes one word (the scan: one per column,
-// ~4 bytes per ~30 integer ops).  The design keeps the whole state in registers
-// by instantiating the word count WD = 1..8 at compile time (reads up to
-// 256 bp) so every word loop unrolls; a runtime-Wd instantiation with local
-// arrays covers buckets up to 1024 bp.  The fused kernel skips the Myers
-// loop for lanes whose Hamming count already decides the result.  The three
-// entries that take planes read lane-major rows, one thread per row, so
-// their loads do not coalesce.
+// (3 Ww + 5 Wd) words once and writes one word.  The design keeps the whole
+// state in registers by instantiating the word count WD = 1..8 at compile
+// time (reads up to 256 bp) so every word loop unrolls; a runtime-Wd
+// instantiation with local arrays covers buckets up to 1024 bp.  btbs_myers
+// reads lane-major rows, one thread per row, so its loads do not coalesce.
 //
 // The gathering entry is bound the same way (operations: the Myers columns
-// of the lanes whose Hamming count does not decide them) and removes what
-// stood between it and that bound on the compact path: ~20 MB of int64
-// plane intermediates per 163,840-lane batch written and re-read through
-// device memory by some thirty small tensor ops, three concatenate /
+// of the lanes whose Hamming count does not decide them; it skips the loop
+// for the others) and removes what stood between it and that bound on the
+// compact path: ~20 MB of int64 plane intermediates per 163,840-lane batch
+// written and re-read through device memory by some thirty small tensor
+// ops, three concatenate /
 // narrow / copy passes to build the lane-major rows, and warps that ran all
 // ncols columns with most of their threads idle because the lanes with
 // ham > e are scattered.  A lane needs 12 (Wd + 2) contiguous bytes of genome
@@ -206,56 +189,6 @@ __device__ __forceinline__ void load_peq(
 
 __device__ __forceinline__ uint32_t funnel(const uint32_t* p, int k, int e) {
   return e == 0 ? p[k] : (p[k] >> e) | (p[k + 1] << (32 - e));
-}
-
-// WD > 0: compile-time word count; WD == 0: runtime wd (<= kMaxWords).
-template <int WD>
-__global__ void __launch_bounds__(kThreads) verify_fused_kernel(
-    const uint32_t* __restrict__ win, const uint32_t* __restrict__ rd,
-    const uint32_t* __restrict__ lm, int32_t* __restrict__ out, int64_t L,
-    int wd_rt, int ww, int m, int ncols, int e) {
-  constexpr int NW = WD > 0 ? WD : kMaxWords;
-  const int wd = WD > 0 ? WD : wd_rt;
-  const int64_t lane = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const uint32_t* w0 = win + lane * 3 * ww;
-  const uint32_t* w1 = w0 + ww;
-  const uint32_t* wn = w1 + ww;
-  const uint32_t* d0 = rd + lane * 3 * wd;
-  const uint32_t* d1 = d0 + wd;
-  const uint32_t* dn = d1 + wd;
-  const uint32_t* lmask = lm + lane * wd;
-
-  // anchored Hamming from the e-shifted wide window
-  int ham = 0;
-  for (int k = 0; k < wd; ++k) {
-    const uint32_t a0 = funnel(w0, k, e), a1 = funnel(w1, k, e),
-                   an = funnel(wn, k, e);
-    const uint32_t r0 = d0[k], r1 = d1[k], rn = dn[k];
-    const uint32_t eqb = ~(a0 ^ r0) & ~(a1 ^ r1);
-    const uint32_t match = (eqb | ((a0 & ~a1) & (r0 & r1))) & ~an & ~rn;
-    ham += __popc(~match & lmask[k]);
-  }
-  if (ham <= e) {
-    out[lane] = ham;
-    return;
-  }
-
-  // PEQ from the read planes (asymmetric match; pad rows always match)
-  uint32_t peq[4][NW], pad[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    if (k < wd) {
-      const uint32_t r0 = d0[k], r1 = d1[k], rn = dn[k];
-      const uint32_t p = ~lmask[k];
-      pad[k] = p;
-      peq[0][k] = (~r0 & ~r1 & ~rn) | p;
-      peq[1][k] = ((r0 & ~r1 & ~rn) | (r0 & r1 & ~rn)) | p;
-      peq[2][k] = (~r0 & r1 & ~rn) | p;
-      peq[3][k] = (r0 & r1 & ~rn) | p;
-    }
-  }
-  out[lane] = myers_min<NW>(w0, w1, wn, peq, pad, wd, m, ncols);
 }
 
 // bits [0, nb) for nb in [0, 32]
@@ -760,10 +693,10 @@ __global__ void __launch_bounds__(kThreads) verify_fused_gather_wide_kernel(
 //
 // What bounds it on the H100: operations.  A pair reads ~19 window words and
 // 15 PEQ words and writes three lanes, but runs R + m + 2e dependent Myers
-// columns.  One thread per pair (btbs_myers_scan) is 4,096 threads on 132
-// SMs, each a serial chain of 605 columns, storing a score matrix that is
-// only reduced again.  Here a pair's output columns are split over `chunks`
-// neighbouring threads of a warp, and no score leaves the block.
+// columns.  One thread per pair (the reference's kernel) is 4,096 threads
+// on 132 SMs, each a serial chain of 605 columns, storing a score matrix
+// that is only reduced again.  Here a pair's output columns are split over
+// `chunks` neighbouring threads of a warp, and no score leaves the block.
 //
 // Lemma (why a chunk may start fresh).  Let D[j] be the semi-global score
 // after column j of the whole window and D'[j] the score of a scan that
@@ -973,33 +906,6 @@ __global__ void __launch_bounds__(kThreads) myers_kernel(
   out[lane] = myers_min<NW>(w0, w0 + ww, w0 + 2 * ww, peq, pad, wd, m, ncols);
 }
 
-// out[j * L + lane]: the score after window column j (column-major store).
-template <int WD>
-__global__ void __launch_bounds__(kThreads) myers_scan_kernel(
-    const uint32_t* __restrict__ win, const uint32_t* __restrict__ peq_g,
-    const uint32_t* __restrict__ pad_g, int32_t* __restrict__ out, int64_t L,
-    int wd_rt, int ww, int m, int ncols) {
-  constexpr int NW = WD > 0 ? WD : kMaxWords;
-  const int wd = WD > 0 ? WD : wd_rt;
-  const int64_t lane = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const uint32_t* w0 = win + lane * 3 * ww;
-  uint32_t peq[4][NW], pad[NW];
-  load_peq<NW>(peq_g + lane * 4 * wd, pad_g + lane * wd, wd, peq, pad);
-  int32_t* col = out + lane;
-  myers_run<NW>(w0, w0 + ww, w0 + 2 * ww, peq, pad, wd, m, ncols,
-                [&](int j, int score) { col[int64_t(j) * L] = score; });
-}
-
-template <int WD>
-void launch_fused(const uint32_t* win, const uint32_t* rd, const uint32_t* lm,
-                  int32_t* out, int64_t L, int wd, int ww, int m, int ncols,
-                  int e, cudaStream_t st) {
-  const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
-  verify_fused_kernel<WD><<<grid, kThreads, 0, st>>>(win, rd, lm, out, L, wd,
-                                                     ww, m, ncols, e);
-}
-
 // The gathering verify's lanes (btbs_verify_fused_gather) past its table.
 struct GatherLanes {
   const int64_t *orient, *start, *rtab, *rrow, *rlen, *n_lanes;
@@ -1025,15 +931,6 @@ void launch_myers(const uint32_t* win, const uint32_t* peq,
   const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
   myers_kernel<WD><<<grid, kThreads, 0, st>>>(win, peq, pad, out, L, wd, ww,
                                               m, ncols);
-}
-
-template <int WD>
-void launch_myers_scan(const uint32_t* win, const uint32_t* peq,
-                       const uint32_t* pad, int32_t* out, int64_t L, int wd,
-                       int ww, int m, int ncols, cudaStream_t st) {
-  const unsigned grid = unsigned((L + kThreads - 1) / kThreads);
-  myers_scan_kernel<WD><<<grid, kThreads, 0, st>>>(win, peq, pad, out, L, wd,
-                                                   ww, m, ncols);
 }
 
 // The wide kernel at K read words per thread: a block of kThreads threads
@@ -1146,32 +1043,6 @@ cudaError_t with_planes(const void* gp, const void* const* gp_parts,
 }  // namespace
 
 extern "C" {
-
-// Returns the cudaError_t of the launch (0 = launched).
-int btbs_verify_fused(const void* win, const void* rd, const void* lm,
-                      void* out, int64_t L, int wd, int ww, int m, int ncols,
-                      int e, void* stream) {
-  if (!shapes_ok(L, wd, ww, ncols) || e < 0 || e > 31 ||
-      (e > 0 && ww < wd + 1))
-    return int(cudaErrorInvalidValue);
-  auto w = static_cast<const uint32_t*>(win);
-  auto r = static_cast<const uint32_t*>(rd);
-  auto l = static_cast<const uint32_t*>(lm);
-  auto o = static_cast<int32_t*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (wd) {
-    case 1: launch_fused<1>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 2: launch_fused<2>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 3: launch_fused<3>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 4: launch_fused<4>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 5: launch_fused<5>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 6: launch_fused<6>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 7: launch_fused<7>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    case 8: launch_fused<8>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-    default: launch_fused<0>(w, r, l, o, L, wd, ww, m, ncols, e, st); break;
-  }
-  return int(cudaGetLastError());
-}
 
 // The genome planes as with_planes above; orient, start (u32 value), rrow,
 // rlen int64 [L]; rtab int64 [R][3 * wd] read planes (u32 values); out int32
@@ -1296,29 +1167,6 @@ int btbs_myers(const void* win, const void* peq, const void* pad, void* out,
     case 7: launch_myers<7>(w, q, p, o, L, wd, ww, m, ncols, st); break;
     case 8: launch_myers<8>(w, q, p, o, L, wd, ww, m, ncols, st); break;
     default: launch_myers<0>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-  }
-  return int(cudaGetLastError());
-}
-
-int btbs_myers_scan(const void* win, const void* peq, const void* pad,
-                    void* out, int64_t L, int wd, int ww, int m, int ncols,
-                    void* stream) {
-  if (!shapes_ok(L, wd, ww, ncols)) return int(cudaErrorInvalidValue);
-  auto w = static_cast<const uint32_t*>(win);
-  auto q = static_cast<const uint32_t*>(peq);
-  auto p = static_cast<const uint32_t*>(pad);
-  auto o = static_cast<int32_t*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (wd) {
-    case 1: launch_myers_scan<1>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 2: launch_myers_scan<2>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 3: launch_myers_scan<3>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 4: launch_myers_scan<4>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 5: launch_myers_scan<5>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 6: launch_myers_scan<6>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 7: launch_myers_scan<7>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    case 8: launch_myers_scan<8>(w, q, p, o, L, wd, ww, m, ncols, st); break;
-    default: launch_myers_scan<0>(w, q, p, o, L, wd, ww, m, ncols, st); break;
   }
   return int(cudaGetLastError());
 }

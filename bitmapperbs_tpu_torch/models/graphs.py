@@ -32,9 +32,8 @@ Which calls replay a graph (`eligible`); every other call stays eager:
   * full batches only (B == cfg.batch_size): the power-of-two tail batches
     of models/host._pad_rows stay eager, which bounds the graphs per run;
   * the compact pipeline only: the dense path (cfg.compact False: the gdrop
-    re-run of models/host._gdrop_fallback_se and its PE counterpart, whose
-    rows vary) is sized for the worst case, and a pool would keep its
-    grids for the whole run;
+    re-run of models/host._gdrop_rerun, whose rows vary) is sized for the
+    worst case, and a pool would keep its grids for the whole run;
   * a whole index on one card: the mesh and sharded mappers
     (parallel/shard.py) dispatch data slices eagerly, and never come here.
 Any flat_chunks replays: the compact path keeps its flat buffer's fill

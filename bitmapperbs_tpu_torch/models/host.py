@@ -1,7 +1,16 @@
 """Host side of the device pipelines (counterpart of
 bitmapperbs_tpu/models/host.py): batch prep, dispatch with a bounded
 in-flight window, gdrop dense fallback, finalize to SAM records, for
-single-end reads (map_batch) and pairs (map_batch_pe).
+single-end reads (map_batch) and pairs (map_batch_pe), and the mapping loop
+over a reader's batches that the CLI runs (map_reader_batches).
+
+Reads and pairs take one path: map_batch and map_batch_pe call one body
+(_map_units) with what the two differ in, a _Kind (the reads a unit holds,
+the default names and qualities, the records' counters, the local
+finalizer and the pool's task); the device and dense functions come from
+one factory (_mappers), and the gdrop re-run and merge is one function.
+task_slices decides how a batch's finalize reaches the pool's workers, and
+map_grouped splits a call by per-read error budget and length bucket.
 
 Finalize and PE assembly are models/pool.py (native C++ finalize when
 index/sais_native/libsais.so is built, numpy spec path otherwise), kept
@@ -28,6 +37,8 @@ an indel, and for pairs the pairs, rescues, proper-pair records and records
 whose mate is unmapped.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -121,43 +132,49 @@ def _to_device(arr, lengths, device):
             torch.from_numpy(lengths).to(device))
 
 
-def _gdrop_fallback_se(dense_fn, cfg: AlignerConfig, arr, lengths, out_np,
-                       lo: int = -1):
+def _gdrop_rerun(dense, cfg: AlignerConfig, host: dict, lo: int = -1
+                 ) -> dict:
     """Re-run flat-buffer-overflow reads through the dense path.
 
     The compact pipeline drops candidate entries batch-dependently when its
     flat buffer fills; to keep output deterministic across batch
-    compositions and meshes, every flagged read's result is replaced by the
-    dense path's (the spec).  As in the reference, the whole batch is re-run
-    (dense_fn, on the host arrays) and merged per read."""
-    gdrop = out_np["gdrop"]
+    compositions and meshes, every flagged read's (pair's) result is
+    replaced by the dense path's (the spec).  As in the reference, the
+    whole batch is re-run (dense(), on the host arrays) and merged per
+    unit."""
+    gdrop = host["gdrop"]
     if not (cfg.compact and gdrop.any()):
-        return out_np
+        return host
     with span("host.gdrop", lo):
         count("gdrop.batches")
         count("gdrop.reads", int(gdrop.sum()))
-        dense = to_host(dense_fn(arr, lengths, int(lengths.min())))
-        return _merge_where(gdrop, dense, out_np)
+        return _merge_where(gdrop, to_host(dense()), host)
 
 
-def _se_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
-                graphs: bool = True):
-    """(map_fn, dense_fn), each fn(arr, lengths, min_read_len) on host
-    arrays: the mesh's (parallel/shard.CliMappers) or one device's, whose
-    eligible calls replay a CUDA graph when `graphs` is set."""
+def _mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
+             graphs: bool = True, pe: bool = False):
+    """(map_fn, dense_fn) on host arrays, single-end fn(arr, lengths,
+    min_read_len) or, for pairs (`pe`), fn(a1, l1, a2, l2, min1, min2): the
+    mesh's (parallel/shard.CliMappers) or one device's, whose eligible
+    calls replay a CUDA graph when `graphs` is set."""
     if mappers is not None:
-        return mappers.se, mappers.se_dense
+        return ((mappers.pe, mappers.pe_dense) if pe
+                else (mappers.se, mappers.se_dense))
+    mates = 2 if pe else 1
 
     def on(c):
-        def fn(arr, lengths, mn):
-            if graphs and device_graphs.eligible(dix, c, arr.shape[0]):
-                return device_graphs.map_batch(dix, c, arr, lengths, mn)
+        def fn(*args):          # each mate's (codes, lengths), then minima
+            rows = args[0].shape[0]
+            if graphs and device_graphs.eligible(dix, c, rows):
+                graph = (device_graphs.map_batch_pe if pe
+                         else device_graphs.map_batch)
+                return graph(dix, c, *args)
             if REC.on:
-                count(device_graphs.eager_reason(dix, c, arr.shape[0],
-                                                 graphs))
-            return map_batch_device(dix, c,
-                                    *_to_device(arr, lengths, dix.device),
-                                    min_read_len=mn)
+                count(device_graphs.eager_reason(dix, c, rows, graphs))
+            device = map_batch_pe_device if pe else map_batch_device
+            tensors = [t for k in range(0, 2 * mates, 2)
+                       for t in _to_device(args[k], args[k + 1], dix.device)]
+            return device(dix, c, *tensors, *args[2 * mates:])
         return fn
     return on(cfg), on(cfg.replace(compact=False))
 
@@ -174,9 +191,53 @@ def _count_records(flag: np.ndarray, ga: int, pe: bool) -> None:
               int(np.count_nonzero(flag & K.FLAG_MATE_UNMAPPED)))
 
 
-def _slices(n: int, k: int) -> list[tuple[int, int]]:
-    """[start, end) of at most k contiguous, nearly equal slices of n."""
-    step = max(1, -(-n // k))
+def _tally_se(raw: dict, host: dict, n: int, stats) -> None:
+    """A batch of reads: its capacity-overflow reads after the gdrop
+    merge."""
+    if stats is not None:
+        stats.overflow_reads += int(host["overflow"][:n].sum())
+
+
+def _tally_pe(raw: dict, host: dict, n: int, stats) -> None:
+    """A batch of pairs, from the device's outputs before the gdrop merge:
+    the pairs, the pairs that rescue decided, and the pairs with a
+    capacity overflow in either mate."""
+    count("pe.pairs", n)
+    if REC.on:
+        count("pe.rescue_hits", int(np.count_nonzero(
+            raw["resc_valid"][:n] & ~raw["pair_valid"][:n])))
+    if stats is not None:
+        stats.overflow_reads += int((raw["se1"]["overflow"][:n]
+                                     | raw["se2"]["overflow"][:n]).sum())
+
+
+class _Kind(NamedTuple):
+    """What single-end reads and pairs differ in on the host."""
+    mates: int                  # reads a unit holds: 1 a read, 2 a pair
+    name: str                   # default name of unit i: f"{name}{i}"
+    blank_quals: Callable       # n -> the qualities of n units given none
+    tally: Callable             # (raw, merged, n, stats): counters, stats
+    local: Callable             # (idx, rc_ref, cfg, task) -> records
+    task: Callable              # the pool's task function
+
+
+_SE = _Kind(1, "r", lambda n: [""] * n, _tally_se, _finalize_se_task_local,
+            _finalize_se_task)
+_PE = _Kind(2, "p", lambda n: None, _tally_pe,
+            lambda idx, rc_ref, cfg, task: _assemble_pe_local(
+                idx, rc_ref, cfg, *task),
+            _assemble_pe_task)
+
+
+def task_slices(n: int, workers: int, mates: int) -> list[tuple[int, int]]:
+    """[start, end) of each finalize-pool task of a batch of n units: one
+    task for a batch of reads (the CLI groups several batches a call); a
+    batch of pairs, which a call maps alone, in at most `workers` nearly
+    equal slices, since pairs are assembled independently and one task
+    would keep all but one worker idle."""
+    if mates == 1:
+        return [(0, n)]
+    step = max(1, -(-n // workers))
     return [(s, min(n, s + step)) for s in range(0, n, step)]
 
 
@@ -184,6 +245,16 @@ def _slice_tree(d: dict, s: int, e: int) -> dict:
     """Rows [s, e) of every array of a (nested) host output dict."""
     return {k: _slice_tree(v, s, e) if isinstance(v, dict) else v[s:e]
             for k, v in d.items()}
+
+
+def _task_slice(task: tuple, s: int, e: int) -> tuple:
+    """Units [s, e) of a finalize task (each mate's codes and lengths, n,
+    qualities, names, host outputs); the whole task as it is."""
+    *arrays, n, quals, qnames, host = task
+    if (s, e) == (0, n):
+        return task
+    return (*(a[s:e] for a in arrays), e - s, quals[s:e] if quals else None,
+            qnames[s:e], _slice_tree(host, s, e))
 
 
 def _pipelined(n: int, bs: int, dispatch, finish, pe: bool = False
@@ -227,6 +298,57 @@ def _pipelined(n: int, bs: int, dispatch, finish, pe: bool = False
     return out
 
 
+def _map_units(kind: _Kind, idx: BSIndex, dix: DeviceIndex,
+               cfg: AlignerConfig, units, quals, qnames, stats, pool,
+               mappers, graphs: bool) -> list[SamRecord] | list[SamLine]:
+    """map_batch / map_batch_pe's body: units are reads or (read1, read2)
+    pairs as `kind` says; kind.mates records a unit, in input order."""
+    rc_ref = idx.genome.rc_codes()
+    m_pad = cfg.read_len_bucket
+    bs = cfg.batch_size
+    rnd = mappers.batch_round if mappers is not None else 1
+    map_fn, dense_fn = _mappers(dix, cfg, mappers, graphs, kind.mates == 2)
+
+    def run(fn, planes):
+        return fn(*(a for mate in planes for a in mate),
+                  *(int(lengths.min()) for _, lengths in planes))
+
+    def dispatch(lo):
+        chunk = units[lo:lo + bs]
+        B = _pad_rows(len(chunk), bs, rnd)
+        with span("host.prepare", lo):
+            planes = [prepare_batch(
+                chunk if kind.mates == 1 else [u[k] for u in chunk], m_pad, B)
+                for k in range(kind.mates)]
+        with span("host.dispatch", lo):
+            out = run(map_fn, planes)
+        return len(chunk), planes, out
+
+    def finish(lo, item):
+        n, planes, out = item
+        raw = to_host(out)
+        host = _gdrop_rerun(lambda: run(dense_fn, planes), cfg, raw, lo)
+        kind.tally(raw, host, n, stats)
+        task = (*(a for mate in planes for a in mate), n,
+                quals[lo:lo + n] if quals else kind.blank_quals(n),
+                qnames[lo:lo + n] if qnames else
+                [f"{kind.name}{lo + i}" for i in range(n)], host)
+        if pool is None:
+            with span("host.finalize", lo):
+                return kind.local(idx, rc_ref, cfg, task)
+        tasks = []
+        for s, e in task_slices(n, pool._processes, kind.mates):
+            with span("host.submit", lo + s):
+                tasks.append((lo + s, pool.apply_async(
+                    kind.task, (_task_slice(task, s, e)
+                                + (cfg, REC.task_trace(lo + s)),))))
+        return tuple(tasks)
+
+    with span("host.call", call=True):
+        return _pipelined(len(units), bs, dispatch, finish,
+                          pe=kind.mates == 2)
+
+
 def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
               quals=None, qnames=None, stats=None, pool=None,
               mappers=None, graphs: bool = True
@@ -243,61 +365,8 @@ def map_batch(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, reads,
     which is then unused.  graphs: replay a CUDA graph per full batch on
     one card (models/graphs.py); False keeps every device call eager.  The
     records do not depend on it."""
-    quals = quals or [""] * len(reads)
-    qnames = qnames or [f"r{i}" for i in range(len(reads))]
-    rc_ref = idx.genome.rc_codes()
-    m_pad = cfg.read_len_bucket
-    bs = cfg.batch_size
-    rnd = mappers.batch_round if mappers is not None else 1
-    map_fn, dense_fn = _se_mappers(dix, cfg, mappers, graphs)
-
-    def dispatch(lo):
-        chunk = reads[lo:lo + bs]
-        with span("host.prepare", lo):
-            arr, lengths = prepare_batch(chunk, m_pad,
-                                         batch=_pad_rows(len(chunk), bs, rnd))
-        with span("host.dispatch", lo):
-            out = map_fn(arr, lengths, int(lengths.min()))
-        return len(chunk), arr, lengths, out
-
-    def finish(lo, item):
-        n, arr, lengths, out = item
-        out_np = _gdrop_fallback_se(dense_fn, cfg, arr, lengths,
-                                    to_host(out), lo)
-        if stats is not None:
-            stats.overflow_reads += int(out_np["overflow"][:n].sum())
-        task = (arr, lengths, n, quals[lo:lo + n], qnames[lo:lo + n], out_np)
-        if pool is not None:
-            with span("host.submit", lo):
-                return ((lo, pool.apply_async(
-                    _finalize_se_task, (task + (cfg, REC.task_trace(lo)),))),)
-        with span("host.finalize", lo):
-            return _finalize_se_task_local(idx, rc_ref, cfg, task)
-
-    with span("host.call", call=True):
-        return _pipelined(len(reads), bs, dispatch, finish)
-
-
-def _pe_mappers(dix: DeviceIndex, cfg: AlignerConfig, mappers,
-                graphs: bool = True):
-    """PE analogue of _se_mappers: fn(a1, l1, a2, l2, min1, min2)."""
-    if mappers is not None:
-        return mappers.pe, mappers.pe_dense
-
-    def on(c):
-        def fn(a1, l1, a2, l2, mn1, mn2):
-            if graphs and device_graphs.eligible(dix, c, a1.shape[0]):
-                return device_graphs.map_batch_pe(dix, c, a1, l1, a2, l2,
-                                                  mn1, mn2)
-            if REC.on:
-                count(device_graphs.eager_reason(dix, c, a1.shape[0],
-                                                 graphs))
-            return map_batch_pe_device(
-                dix, c, *_to_device(a1, l1, dix.device),
-                *_to_device(a2, l2, dix.device), min_read_len1=mn1,
-                min_read_len2=mn2)
-        return fn
-    return on(cfg), on(cfg.replace(compact=False))
+    return _map_units(_SE, idx, dix, cfg, reads, quals, qnames, stats, pool,
+                      mappers, graphs)
 
 
 def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
@@ -313,64 +382,100 @@ def map_batch_pe(idx: BSIndex, dix: DeviceIndex, cfg: AlignerConfig, pairs,
     flight, one D2H copy per batch, a whole-batch dense re-run merged per
     pair when any pair has gdrop, stats.overflow_reads counts pairs with a
     capacity overflow in either mate, `pool` fans the assembly out (a
-    batch's pairs in one slice per worker),
+    batch's pairs in one slice per worker: task_slices),
     `mappers` maps over a mesh (pe / pe_dense), and `graphs` replays a CUDA
     graph per full batch on one card."""
-    m_pad = cfg.read_len_bucket
-    bs = cfg.batch_size
-    rc_ref = idx.genome.rc_codes()
-    rnd = mappers.batch_round if mappers is not None else 1
-    map_fn, dense_fn = _pe_mappers(dix, cfg, mappers, graphs)
+    return _map_units(_PE, idx, dix, cfg, pairs, quals, qnames, stats, pool,
+                      mappers, graphs)
 
-    def run(fn, a1, l1, a2, l2):
-        return fn(a1, l1, a2, l2, int(l1.min()), int(l2.min()))
 
-    def dispatch(lo):
-        chunk = pairs[lo:lo + bs]
-        B = _pad_rows(len(chunk), bs, rnd)
-        with span("host.prepare", lo):
-            a1, l1 = prepare_batch([p[0] for p in chunk], m_pad, B)
-            a2, l2 = prepare_batch([p[1] for p in chunk], m_pad, B)
-        with span("host.dispatch", lo):
-            out = run(map_fn, a1, l1, a2, l2)
-        return len(chunk), a1, l1, a2, l2, out
+def map_grouped(run, cfg: AlignerConfig, key, units, quals, qnames,
+                mates: int = 1) -> list:
+    """Partition a call's units (reads, or (read1, read2) pairs for
+    mates=2) by per-read static-config key and map each group with its own
+    config through run(c, units, quals, qnames); the records, `mates` a
+    unit, are reassembled in input order.  key(length) -> (max_errors,
+    read_len_bucket) of one read (cli._cfg_key); a pair's key is the max
+    of its two mates' (equal-length mates -- the norm -- resolve exactly
+    per read)."""
+    if mates == 1:
+        keys = [key(len(u)) for u in units]
+    else:
+        keys = []
+        for a, b in units:
+            ka, kb = key(len(a)), key(len(b))
+            keys.append((max(ka[0], kb[0]), max(ka[1], kb[1])))
+    uniq = sorted(set(keys))
+    if len(uniq) == 1:
+        b, bk = uniq[0]
+        return run(cfg.replace(max_errors=b, read_len_bucket=bk),
+                   units, quals, qnames)
+    recs = [None] * (mates * len(units))
+    for b, bk in uniq:
+        sel = [i for i, v in enumerate(keys) if v == (b, bk)]
+        sub = run(cfg.replace(max_errors=b, read_len_bucket=bk),
+                  [units[i] for i in sel], [quals[i] for i in sel],
+                  [qnames[i] for i in sel])
+        for j, i in enumerate(sel):
+            recs[mates * i:mates * (i + 1)] = sub[mates * j:mates * (j + 1)]
+    return recs
 
-    def finish(lo, item):
-        n, a1, l1, a2, l2, out = item
-        host = to_host(out)
-        count("pe.pairs", n)
-        if REC.on:
-            count("pe.rescue_hits", int(np.count_nonzero(
-                host["resc_valid"][:n] & ~host["pair_valid"][:n])))
-        if stats is not None:
-            stats.overflow_reads += int((host["se1"]["overflow"][:n]
-                                         | host["se2"]["overflow"][:n]).sum())
-        if cfg.compact and host["gdrop"].any():
-            with span("host.gdrop", lo):
-                count("gdrop.batches")
-                count("gdrop.reads", int(host["gdrop"].sum()))
-                dense = to_host(run(dense_fn, a1, l1, a2, l2))
-                host = _merge_where(host["gdrop"], dense, host)
-        qs = quals[lo:lo + n] if quals else None
-        qn = (qnames[lo:lo + n] if qnames else
-              [f"p{lo + i}" for i in range(n)])
-        if pool is None:
-            with span("host.finalize", lo):
-                return _assemble_pe_local(idx, rc_ref, cfg, a1, l1, a2, l2,
-                                          n, qs, qn, host)
-        # one call maps one batch of pairs: its assembly is split over the
-        # pool's workers (pairs are assembled independently), where one
-        # task a batch would keep all but one worker idle
-        tasks = []
-        for s, e in _slices(n, pool._processes):
-            with span("host.submit", lo + s):
-                task = (a1[s:e], l1[s:e], a2[s:e], l2[s:e], e - s,
-                        qs[s:e] if qs else None, qn[s:e],
-                        _slice_tree(host, s, e))
-                tasks.append((lo + s, pool.apply_async(
-                    _assemble_pe_task,
-                    (task + (cfg, REC.task_trace(lo + s)),))))
-        return tuple(tasks)
 
-    with span("host.call", call=True):
-        return _pipelined(len(pairs), bs, dispatch, finish, pe=True)
+def map_reader_batches(cfg: AlignerConfig, batches, run, key,
+                       per_call: int = 1, keep=None):
+    """The mapping loop over a reader's batches: io.fastq.ReadBatches of
+    single-end reads, or (mate 1, mate 2) batches from io.fastq.read_pairs.
+
+    Every `per_call` batches are mapped as one call: map_grouped under
+    `key` through run(c, units, quals, qnames) (map_batch / map_batch_pe
+    with their pool and mesh, or the oracle's mappers).  keep: optional
+    filter(units, qnames, quals, start_record) -> the three lists of the
+    units this process maps (parallel/multihost.HostShard.filter_batch).
+
+    Yields per call, in input order, (records, reads, qnames, quals,
+    cursor): one read, name and quality per record (a pair's mate 1, then
+    mate 2) and the cursor that the call acknowledges, (next record, byte
+    offset[, mate 2's byte offset]) after the last batch read.  A batch
+    that `keep` empties is acknowledged by the next call when batches wait
+    in the call's buffer, and otherwise at once, by a call of no records.
+    """
+    buf, cursor, mates = [], None, 1
+
+    def call():
+        units = [u for b in buf for u in b[0]]
+        qnames = [q for b in buf for q in b[1]]
+        quals = [q for b in buf for q in b[2]]
+        buf.clear()
+        recs = map_grouped(run, cfg, key, units, quals, qnames, mates)
+        if mates == 1:
+            return recs, units, qnames, quals, cursor
+        return (recs, [r for p in units for r in p],
+                [q for q in qnames for _ in (0, 1)],
+                [q for p in quals for q in p], cursor)
+
+    for batch in batches:
+        if isinstance(batch, tuple):
+            mates, (b1, b2) = 2, batch
+            units = list(zip(b1.codes, b2.codes))
+            qnames, quals = b1.qnames, list(zip(b1.quals, b2.quals))
+            cursor = (b1.start_record + len(b1), b1.end_offset,
+                      b2.end_offset)
+        else:
+            b1, units, qnames, quals = (batch, batch.codes, batch.qnames,
+                                        batch.quals)
+            cursor = (b1.start_record + len(b1), b1.end_offset)
+        if keep is not None:
+            # the cursor advances by the unfiltered batch: shard ownership
+            # is by global record index, so record indices and byte
+            # offsets stay aligned across a resume
+            units, qnames, quals = keep(units, qnames, quals,
+                                        b1.start_record)
+            if not units:
+                if not buf:
+                    yield [], [], [], [], cursor
+                continue
+        buf.append((units, qnames, quals))
+        if len(buf) >= per_call:
+            yield call()
+    if buf:
+        yield call()

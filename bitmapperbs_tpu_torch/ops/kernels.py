@@ -1,14 +1,14 @@
 """CUDA kernels and their plain PyTorch versions (counterpart of
 bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
 
-    verify_fused         <- verify_fused_pallas / _fused_verify_kernel
-    verify_fused_gather  <- the same kernel with ops/verify.window_planes
-                            in front of it, as the compact path runs them
+    verify_fused_gather  <- verify_fused_pallas / _fused_verify_kernel with
+                            ops/verify.window_planes in front of it, as the
+                            compact path runs them
     myers                <- myers_pallas / _myers_kernel
-    myers_scan           <- myers_scan_pallas / _myers_scan_kernel
-    rescue_scan          <- the same kernel with what paired-end mate rescue
-                            runs around it: the window gather in front, the
-                            best / position / second-best selection behind
+    rescue_scan          <- myers_scan_pallas / _myers_scan_kernel with what
+                            paired-end mate rescue runs around it: the window
+                            gather in front, the best / position /
+                            second-best selection behind
     gather_rows          <- make_pallas_gather.gather
     gather_rows_shard    <- the same gather over one shard of a table split
                             into row ranges (rows outside it are zero), as
@@ -28,9 +28,6 @@ bitmapperbs_tpu/ops/pallas_kernels.py and scripts/pallas_gather_proto.py).
                             366-437, 490-548); their lane counts n_used
                             and n_valid stay on the card, where fm_locate
                             and verify_fused_gather take them (`n_lanes`)
-
-verify_fused and myers_scan take planes gathered by the caller; no mapping
-path calls them since the gathering entries serve the sharded index too.
 
 The verify wrappers take u32 plane lanes as int64 tensors (ops/u32.py);
 gather_rows takes an int32 table and int64 row indices; the FM wrappers take
@@ -75,11 +72,11 @@ from bitmapperbs_tpu_torch.models import aligner   # mutual: used in calls
 from bitmapperbs_tpu_torch.ops import fm, verify   # mutual: used in calls
 from bitmapperbs_tpu_torch.ops.u32 import INVALID, MASK, bnot, to_i32, wrap
 
-LAUNCHES = {"verify_fused": 0, "verify_fused_gather": 0, "myers": 0,
-            "myers_scan": 0, "rescue_scan": 0, "gather_rows": 0,
-            "gather_rows_shard": 0, "fm_search": 0, "fm_extend": 0,
-            "fm_locate": 0, "pair_join": 0, "flat_expand": 0,
-            "flat_dedup": 0, "scatter_back": 0, "select_se": 0}
+LAUNCHES = {"verify_fused_gather": 0, "myers": 0, "rescue_scan": 0,
+            "gather_rows": 0, "gather_rows_shard": 0, "fm_search": 0,
+            "fm_extend": 0, "fm_locate": 0, "pair_join": 0,
+            "flat_expand": 0, "flat_dedup": 0, "scatter_back": 0,
+            "select_se": 0}
 
 MAX_WORDS = 32                  # read words the kernels take (1,024 bp)
 # verify_fused_gather over 8 read words: a lane on ceil(words / K) threads
@@ -162,9 +159,6 @@ def _lib():
         paths = build()
         lib = ctypes.CDLL(paths["verify"])
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.btbs_verify_fused.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
-                                          i32, i32, vp]
-        lib.btbs_verify_fused.restype = ctypes.c_int
         planes = [vp, vp, i32, i64]       # gp, gp_parts, nparts, gp_rows
         lib.btbs_verify_fused_gather.argtypes = planes + [
             vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32,
@@ -173,8 +167,6 @@ def _lib():
         lib.btbs_myers.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                    vp]
         lib.btbs_myers.restype = ctypes.c_int
-        lib.btbs_myers_scan.argtypes = lib.btbs_myers.argtypes
-        lib.btbs_myers_scan.restype = ctypes.c_int
         lib.btbs_rescue_scan.argtypes = (
             planes + [vp, i64] * 6 + [vp, i64, i64, i64, vp, i64, i64]
             + [vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp])
@@ -379,28 +371,6 @@ def verify_fused_ref(win, read_planes, lenmask, m: int, ncols: int, e: int):
     return torch.where(ham <= e, ham, med)
 
 
-def verify_fused(win, read_planes, lenmask, m: int, ncols: int, e: int):
-    """win: 3 x int64 [..., Ww] window planes at anchor - e; read_planes:
-    3 x int64 [..., Wd]; lenmask int64 [..., Wd].  Returns int32 lanes:
-    ham if ham <= e else the semi-global Myers distance."""
-    if not _on_cuda(*win, *read_planes, lenmask):
-        return verify_fused_ref(win, read_planes, lenmask, m, ncols, e)
-    Wd, Ww = m // 32, win[0].shape[-1]
-    lanes = lenmask.shape[:-1]
-    w = _rows_i32(win, lanes, Ww)
-    r = _rows_i32(read_planes, lanes, Wd)
-    lm = _rows_i32((lenmask,), lanes, Wd)
-    L = w.shape[0]
-    out = torch.empty(L, dtype=torch.int32, device=w.device)
-    if L:
-        with _launching(w.device) as stream:
-            _check_rc(_lib().btbs_verify_fused(
-                w.data_ptr(), r.data_ptr(), lm.data_ptr(), out.data_ptr(), L,
-                Wd, Ww, m, ncols, e, stream), "btbs_verify_fused")
-        LAUNCHES["verify_fused"] += 1
-    return out.reshape(lanes)
-
-
 # ---- fused verify with the window gather inside ------------------------------
 
 def _check_planes(g_planes, g_words: int) -> None:
@@ -456,12 +426,12 @@ def verify_fused_gather(g_planes, orient, start, read_tab, row, lens,
                         genome_len: int, g_words: int, m: int, ncols: int,
                         e: int, words_per_thread: int | None = None,
                         n_lanes=None):
-    """verify_fused on windows it fetches itself.  g_planes: int32 bits
-    [2 * g_words, 3] (index/device.py), or their shard set; per lane (int64,
-    one shape): orient
-    (0 fwd / 1 rc), start (u32 window start, anchor - e, possibly wrapped
-    below 0), row (into read_tab) and lens (read length); read_tab: int64
-    u32 [R, 3 * Wd] read planes (b0 | b1 | nmask words).  Returns int32
+    """The fused Hamming + Myers verify (verify_fused_ref) on windows it
+    fetches itself.  g_planes: int32 bits [2 * g_words, 3]
+    (index/device.py), or their shard set; per lane (int64, one shape):
+    orient (0 fwd / 1 rc), start (u32 window start, anchor - e, possibly
+    wrapped below 0), row (into read_tab) and lens (read length); read_tab:
+    int64 u32 [R, 3 * Wd] read planes (b0 | b1 | nmask words).  Returns int32
     lanes: ham if ham <= e else the semi-global Myers distance.  n_lanes:
     None, or an int64 [1] count on the lanes' device (1-D lanes): lanes at
     or past it give INF_SCORE and, on the card, load nothing."""
@@ -544,30 +514,6 @@ def myers(win, peq, pad, m: int, ncols: int):
                 m // 32, win[0].shape[-1], m, ncols, stream), "btbs_myers")
         LAUNCHES["myers"] += 1
     return out.reshape(lanes)
-
-
-def myers_scan_ref(win, peq, pad, m: int, ncols: int):
-    """Plain version: ops/verify.myers_scan."""
-    return verify.myers_scan(win, peq, pad, m, ncols)
-
-
-def myers_scan(win, peq, pad, m: int, ncols: int):
-    """As `myers`, but returns every column's running score: int32
-    [..., ncols].  The kernel stores column-major ([ncols, L]); the result
-    is its transpose, a view."""
-    if not _on_cuda(*win, peq, pad):
-        return myers_scan_ref(win, peq, pad, m, ncols)
-    w, q, p, lanes = _myers_rows(win, peq, pad, m)
-    L = w.shape[0]
-    out = torch.empty((ncols, L), dtype=torch.int32, device=w.device)
-    if L:
-        with _launching(w.device) as stream:
-            _check_rc(_lib().btbs_myers_scan(
-                w.data_ptr(), q.data_ptr(), p.data_ptr(), out.data_ptr(), L,
-                m // 32, win[0].shape[-1], m, ncols, stream),
-                "btbs_myers_scan")
-        LAUNCHES["myers_scan"] += 1
-    return out.t().reshape(*lanes, ncols)
 
 
 # ---- paired-end mate rescue: window gather + Myers scan + selection --------

@@ -10,10 +10,10 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
   2. build: the native finalize library (make) and the CUDA kernels (one
      nvcc per source), all started together
   3. each kernel vs its plain PyTorch version at the main paths' shapes,
-     torch.equal, median CUDA-event times: verify_fused, verify_fused_gather
-     (the same lanes, fetching its own windows from the genome planes) and
-     myers at 163,840 lanes (m = 96, e = 4); verify_fused and
-     verify_fused_gather again at the 288 bucket of reads over 256 bp
+     torch.equal, median CUDA-event times: verify_fused_gather (fetching
+     its own windows from the genome planes) and myers at 163,840 lanes
+     (m = 96, e = 4); verify_fused_gather again at the 288 bucket of reads
+     over 256 bp
      (before phase 12: 9 read words, 296 columns, 1,024 reads x flat cap
      lanes; the gathering entry's thread-group kernel, a lane of wd words
      on ceil(wd / K) threads of K words, one K per bucket
@@ -24,10 +24,10 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      time, a second timing from a CUDA graph of 20 launches, and every
      build's K timed at the bucket, held to the bucket's own; the 288
      bucket's lanes once more on planes tiled to ten times the genome,
-     which spreads the same windows over 75 MB); myers_scan at
-     4,096 lanes (one per pair; insert 0-500 -> 605 columns, 19 window
-     words) and at a ragged 4,093; rescue_scan (the scan with its window
-     fetch in front and its selection behind) on the same pairs, planted
+     which spreads the same windows over 75 MB); rescue_scan (the Myers
+     scan with its window fetch in front and its selection behind) at
+     4,096 pairs (insert 0-500 -> 605 columns, 19 window words) and at a
+     ragged 4,093, planted
      pairs without a window, zero and negative spans and mates cut down to
      a few bases (ties, seconds); its bound counts the columns the function
      needs (one scan per pair over its valid columns), with the columns its
@@ -169,7 +169,7 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      mesh: SAM equal to the oracle's, rescue deciding all 64.  The sharded
      paths launch what one card launches (fm_search, fm_locate,
      verify_fused_gather, and PE rescue_scan), gather_rows_shard and myers
-     only in the dense re-run, and no verify_fused or myers_scan; each
+     only in the dense re-run; each
      path's synced wall, the last batches' per-batch walls on one card,
      data parallel and sharded (taking turns, 7 rounds), and each shard's
      table bytes are printed
@@ -181,7 +181,7 @@ Phases, each printing `[smoke] ...` lines; any failure raises (exit != 0):
      inside mid-copy satellite arrays, which overflow the flat buffer and
      take the dense re-run at 128 candidates; then 1,024 reads of 280 bp in
      a 288 bucket, whose 9 plane words take the gathering verify's
-     thread-group kernel (one launch, no window_planes, no verify_fused);
+     thread-group kernel (one launch, no window_planes);
      both again through their CUDA graphs, records equal.
      SAM
      of a sample equals the oracle's; recall, mapped share, overflow and
@@ -241,12 +241,11 @@ kernels' record gives, per kernel, the launches of the slices' main paths
 SE and PE paths, phase 12's 96 bp batches, its 280 bp batch, counted on
 its own, and phase 13) with every path's beside them.
 Every TPU kernel of the reference has at least one entry point that those
-paths launch, and every entry point launches on one of them but
-verify_fused and myers_scan, which no path takes any more: phase 3 holds
-them to their plain versions.  pair_join and the four flat-buffer entries
-stand for no TPU kernel (NO_TPU_KERNEL_ENTRIES); pair_join launches on the
-PE paths, the flat-buffer entries once per candidate stage (select_se once
-per SE and twice per PE device call, and in every dense re-run).
+paths launch, and every entry point launches on one of them.  pair_join and
+the four flat-buffer entries stand for no TPU kernel
+(NO_TPU_KERNEL_ENTRIES); pair_join launches on the PE paths, the
+flat-buffer entries once per candidate stage (select_se once per SE and
+twice per PE device call, and in every dense re-run).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -360,10 +359,8 @@ INT32_PIPE = frozenset(
     "IADD3 LOP3 PLOP3 SHF ISETP SEL LEA IMNMX VIMNMX VIADD VIADDMNMX PRMT "
     "IABS POPC FLO BREV MOV SGXT BMSK".split())
 SASS_KERNELS = {        # kernel -> (library, what its mangled name contains)
-    "verify_fused": ("verify", "verify_fused_kernelILi3E"),
     "verify_fused_gather": ("verify", "verify_fused_gather_kernelILi3ELb0E"),
     "myers": ("verify", "12myers_kernelILi3E"),
-    "myers_scan": ("verify", "myers_scan_kernelILi3E"),
     "rescue_scan": ("verify", "rescue_scan_kernelILi3ELb0ELi0ELb0E"),
     "fm_search": ("fm", "fm_search_kernelILb0E"),
     "fm_extend": ("fm", "fm_extend_kernelILb0E"),
@@ -407,12 +404,8 @@ CP_ROW_BYTES = 68
 CP_ROW_SECTORS = {"fm_search": 2.375, "fm_extend": 2.375, "fm_locate": 3}
 
 KERNEL_SOURCES = {
-    "verify_fused": ("bitmapperbs_tpu_torch/csrc/verify.cu",
-                     "bitmapperbs_tpu/ops/pallas_kernels.py:212"),
     "myers": ("bitmapperbs_tpu_torch/csrc/verify.cu",
               "bitmapperbs_tpu/ops/pallas_kernels.py:29"),
-    "myers_scan": ("bitmapperbs_tpu_torch/csrc/verify.cu",
-                   "bitmapperbs_tpu/ops/pallas_kernels.py:119"),
     "rescue_scan": ("bitmapperbs_tpu_torch/csrc/verify.cu",
                     "bitmapperbs_tpu/ops/pallas_kernels.py:119 "
                     "(myers_scan_pallas) with the selection of "
@@ -446,10 +439,6 @@ KERNEL_SOURCES = {
                   "bitmapperbs_tpu/models/aligner.py:520-548 (plain jnp "
                   "under jax.jit: no Pallas kernel)"),
 }
-# the entries that launch on no main path, phase 3 only: there they stand
-# for TPU kernels 1 and 3 against their plain versions (the sharded index,
-# the last path that took them, runs the gathering entries)
-PHASE_3_ONLY = ("verify_fused", "myers_scan")
 # the entries with no TPU kernel behind them: work that the reference
 # writes as plain jnp and leaves to XLA under jax.jit, which the port runs
 # as a kernel of its own; each must launch on a main path too
@@ -460,9 +449,9 @@ FLAT_KERNELS = NO_TPU_KERNEL_ENTRIES[1:]
 # pl.pallas_call) and the port's entry points that stand for it: at least
 # one entry of each must launch on a main path
 TPU_KERNEL_ENTRIES = {
-    "verify_fused_pallas": ("verify_fused", "verify_fused_gather"),
+    "verify_fused_pallas": ("verify_fused_gather",),
     "myers_pallas": ("myers",),
-    "myers_scan_pallas": ("myers_scan", "rescue_scan"),
+    "myers_scan_pallas": ("rescue_scan",),
     "make_pallas_gather.gather": ("gather_rows", "gather_rows_shard",
                                   "fm_search", "fm_extend", "fm_locate"),
 }
@@ -843,9 +832,6 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
     n_myers = int((ham > E).sum())
     L = n_lanes
     bounds = {
-        "verify_fused": bound(
-            L * 4 * (3 * Ww + 4 * Wd + 1),
-            verify_ops("verify_fused", L, n_myers, ncols, Wd)),
         "myers": bound(L * 4 * (3 * Ww + 5 * Wd + 1),
                        verify_ops("myers", L, L, ncols, Wd)),
         # Ww + 1 plane rows of 12 bytes, four int64 lane inputs, one int64
@@ -855,10 +841,6 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
             verify_ops("verify_fused_gather", L, n_myers, ncols, Wd)),
     }
     cases = {
-        "verify_fused": (lambda: kernels.verify_fused(wide, rp, lm, m, ncols,
-                                                      E),
-                         lambda: kernels.verify_fused_ref(wide, rp, lm, m,
-                                                          ncols, E)),
         "myers": (lambda: kernels.myers(wide, peq, pad, m, ncols),
                   lambda: kernels.myers_ref(wide, peq, pad, m, ncols)),
         "verify_fused_gather": (
@@ -893,7 +875,7 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
         # the gathering entry has two kernels (registers / shared memory)
         inside = device_ms(kern, name if name == "verify_fused_gather"
                            else name + "_kernel")
-        if name.startswith("verify_fused"):
+        if name == "verify_fused_gather":
             frac = float((want <= E).float().mean())
             extra = f", result <= e on {frac:.3f} of lanes"
         else:
@@ -915,7 +897,7 @@ def phase_kernels(idx, dix, names, n_lanes: int = KERNEL_LANES,
             f" kernel) vs plain {plain_ms:.3f} ms;"
             f" bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
             + (f" ({n_myers} lanes run Myers)"
-               if name.startswith("verify_fused") else ""))
+               if name == "verify_fused_gather" else ""))
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                      "library_ms": None, "device_ms": inside, "lanes": L,
                      "read_words": Wd}
@@ -1030,54 +1012,6 @@ def phase_wide_span(idx, dix, m: int = LONG_BUCKET,
         f"{clocked[1]} MHz")
     del tiled
     return out, one
-
-
-def phase_scan_kernel(idx, dix) -> dict:
-    """myers_scan vs its plain version at the PE rescue shape."""
-    import torch
-
-    from bitmapperbs_tpu_torch.ops import kernels
-
-    m, span = BUCKET, MAX_INSERT - MIN_INSERT + 1
-    ncols = span + m + 2 * E
-    out = None
-    for n in SCAN_LANES:
-        win, _, _, peq, pad, _ = kernel_inputs(idx, dix, n, seed=11,
-                                               span=span)
-        def kern():
-            return kernels.myers_scan(win, peq, pad, m, ncols)
-
-        def plain():
-            return kernels.myers_scan_ref(win, peq, pad, m, ncols)
-
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        assert got.shape == want.shape == (n, ncols), (got.shape, want.shape)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"myers_scan: kernel != plain on "
-                                 f"{int((got != want).sum())} of {got.numel()}"
-                                 f" scores ({n} lanes)")
-        hit = float((want.amin(dim=-1) <= E).float().mean())
-        msg = (f"kernel myers_scan: {n} lanes x {ncols} columns (Ww "
-               f"{win[0].shape[-1]}) equal to plain (max_abs_err {err}; a "
-               f"column <= e on {hit:.3f} of lanes)")
-        if out is None:
-            ms = median_ms(kern)
-            plain_ms = median_ms(plain, reps=PLAIN_SCAN_REPS)
-            inside = device_ms(kern, "myers_scan_kernel")
-            Wd, Ww = m // 32, win[0].shape[-1]
-            b = bound(n * 4 * (3 * Ww + 5 * Wd + ncols),
-                      verify_ops("myers_scan", n, n, ncols, Wd))
-            msg += (f"; median {ms:.3f} ms ({fmt_ms(inside)} inside the "
-                    f"kernel) vs plain {plain_ms:.3f} ms; bound "
-                    f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                   "library_ms": None, "device_ms": inside}
-        else:
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-        log(msg)
-    return out
 
 
 def rescue_columns_run(r_ok, span, m: int, e: int, R: int,
@@ -2790,8 +2724,6 @@ def run_mesh(idx, dix, card: str, se: dict, pe: dict, wide: dict):
                        fused + ("rescue_scan",))):
         for k in want:
             assert launches[key][k] > 0, f"{key}: {k} never launched"
-        for k in ("verify_fused", "myers_scan"):
-            assert launches[key][k] == 0, f"{key}: {k} launched"
     assert launches["pe_10mbp_sharded_insert_100k"]["rescue_scan"] % 2 == 0
     log(f"phase 11c: {time.perf_counter() - t_phase:.2f} s")
     return kstat, launches, shard_stats
@@ -4145,9 +4077,9 @@ def gbp_variant(key: str, label: str, idx, dix, cfg, items: list,
 def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     """Phases 12-14 on the planted-repeat genome; returns the records of
     the kernels checked on its index (gather_rows, the FM kernels,
-    verify_fused at the 288 bucket) and the launch counts of its main paths
-    (phase 12's 96 bp batches, its 280 bp batch, phase 13, and phases 13c
-    and 13d's PBAT and --sensitive paths)."""
+    verify_fused_gather at the 288 bucket) and the launch counts of its
+    main paths (phase 12's 96 bp batches, its 280 bp batch, phase 13, and
+    phases 13c and 13d's PBAT and --sensitive paths)."""
     import argparse
 
     import torch
@@ -4173,16 +4105,15 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     idx, dix, cfg = gbp_index(device)
     cap = cfg.resolve_flat_cap(dix.genome_len, 2)
 
-    # ---- phase 3 (gather_rows, the FM kernels, both fused verify entries
-    # at the 288 bucket: 9 read words) on this index's tables ---------------
+    # ---- phase 3 (gather_rows, the FM kernels, the gathering verify at
+    # the 288 bucket: 9 read words) on this index's tables ------------------
     kstats = {"gather_rows": phase_gather_kernel(dix, GBP_BATCH * cap)}
     long_cfg = cfg.replace(read_len_bucket=LONG_BUCKET, batch_size=N_LONG)
-    long_k = phase_kernels(
-        idx, dix, ("verify_fused", "verify_fused_gather"),
+    kstats["verify_fused_gather_long"] = phase_kernels(
+        idx, dix, ("verify_fused_gather",),
         n_lanes=N_LONG * long_cfg.resolve_flat_cap(dix.genome_len, 2),
-        m=LONG_BUCKET, read_len=LONG_READ_LEN, plain_reps=PLAIN_LONG_REPS)
-    kstats["verify_fused"] = long_k["verify_fused"]
-    kstats["verify_fused_gather_long"] = long_k["verify_fused_gather"]
+        m=LONG_BUCKET, read_len=LONG_READ_LEN,
+        plain_reps=PLAIN_LONG_REPS)["verify_fused_gather"]
     # phase 3's span lanes on the 10 Mbp planes again, at this point of the
     # run: apart from the card's state, what the Gbp lanes cost more
     again = clocked_graph_ms(lambda: kernels.verify_fused_gather(*span_args))
@@ -4250,7 +4181,6 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
         assert long_launches[name] > 0, \
             f"{name} never ran on the Gbp SE path at {LONG_READ_LEN} bp"
     assert long_launches["verify_fused_gather"] == 1, long_launches
-    assert long_launches["verify_fused"] == 0, long_launches
     oracle = [r.line() for r in map_batch_se(
         idx, long_cfg, long_reads[:N_LONG_ORACLE], long_quals[:N_LONG_ORACLE],
         long_names[:N_LONG_ORACLE])]
@@ -4387,7 +4317,6 @@ def run_gbp(card: str, span_args: tuple) -> tuple[dict, dict]:
     for name in ("gather_rows", "verify_fused_gather", "rescue_scan",
                  "pair_join", *FM_KERNELS):
         assert pe_launches[name] > 0, f"{name} never ran on the Gbp PE path"
-    assert pe_launches["myers_scan"] == 0, pe_launches
     plines = [r.line() for r in precs]
     oracle = [r.line() for r in oracle_pe(idx, pcfg, pairs[:N_GBP_PE_ORACLE],
                                           pquals[:N_GBP_PE_ORACLE],
@@ -4585,9 +4514,8 @@ def run(card: str) -> dict:
         f" MB of tables; sa_rate {dix.sa_rate}, klt_k {dix.klt_k})")
 
     # ---- phase 3: kernels vs plain ------------------------------------------
-    kstats = phase_kernels(idx, dix, ("verify_fused", "myers",
-                                      "verify_fused_gather"))
-    fused_96, gather_96 = kstats["verify_fused"], kstats["verify_fused_gather"]
+    kstats = phase_kernels(idx, dix, ("myers", "verify_fused_gather"))
+    gather_96 = kstats["verify_fused_gather"]
     gather_wide = {
         f"m {m} x {n} lanes": phase_kernels(
             idx, dix, ("verify_fused_gather",), n_lanes=n, m=m,
@@ -4595,7 +4523,6 @@ def run(card: str) -> dict:
         for m, read_len, n in WIDE_VERIFY_SHAPES}
     gather_wide[f"m {LONG_BUCKET} span"], span_args = phase_wide_span(
         idx, dix)
-    kstats["myers_scan"] = phase_scan_kernel(idx, dix)
     kstats["rescue_scan"] = phase_rescue_kernel(idx, dix)
 
     with tempfile.TemporaryDirectory(prefix="btbs_smoke_idx_") as d:
@@ -4612,10 +4539,7 @@ def run(card: str) -> dict:
     torch.cuda.empty_cache()
     gbp_kstats, gbp_paths = run_gbp(card, span_args)
     gather_long = gbp_kstats.pop("verify_fused_gather_long")
-    kstats.update(gbp_kstats)         # verify_fused: the 288-bucket shape
-    kstats["verify_fused"]["shapes"] = {
-        f"m {LONG_BUCKET}": dict(kstats["verify_fused"]),
-        f"m {BUCKET}": fused_96}
+    kstats.update(gbp_kstats)
     kstats["verify_fused_gather"] = {
         **gather_96, "shapes": {f"m {BUCKET}": gather_96,
                                 f"m {LONG_BUCKET}": gather_long,
@@ -4638,10 +4562,8 @@ def run(card: str) -> dict:
             f"main paths"
     for name in NO_TPU_KERNEL_ENTRIES:
         assert launches[name] > 0, f"{name} launched on no main path"
-    idle = {name for name in KERNEL_SOURCES if launches[name] == 0}
-    assert idle == set(PHASE_3_ONLY), \
-        f"entries that no main path launched: {sorted(idle)}; phase 3 " \
-        f"only: {PHASE_3_ONLY}"
+    idle = sorted(name for name in KERNEL_SOURCES if launches[name] == 0)
+    assert not idle, f"entries that no main path launched: {idle}"
     # the SHARD instances' records beside each kernel's own
     for name, rec in shard_stats.items():
         kstats[name]["shard"] = rec

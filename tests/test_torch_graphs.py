@@ -217,11 +217,10 @@ def test_host_dispatch(dispatch, pe, flag):
     dix = card_index()
     arr = np.zeros((BS, 96), np.uint8)
     ln = np.full(BS, 90, np.int32)
+    map_fn, dense_fn = host._mappers(dix, cfg(), None, flag, pe=pe)
     if pe:
-        map_fn, dense_fn = host._pe_mappers(dix, cfg(), None, flag)
         run = lambda fn, a, n: fn(a, n, a, n, 90, 90)  # noqa: E731
     else:
-        map_fn, dense_fn = host._se_mappers(dix, cfg(), None, flag)
         run = lambda fn, a, n: fn(a, n, 90)            # noqa: E731
     run(map_fn, arr, ln)
     run(map_fn, arr[:4], ln[:4])
@@ -243,13 +242,11 @@ def test_eager_calls_counted_by_reason(dispatch, pe):
     REC.start()
     try:
         for flag in (True, False):
+            map_fn, dense_fn = host._mappers(card_index(), cfg(), None,
+                                             flag, pe=pe)
             if pe:
-                map_fn, dense_fn = host._pe_mappers(card_index(), cfg(),
-                                                    None, flag)
                 run = lambda fn, a, n: fn(a, n, a, n, 90, 90)  # noqa: E731
             else:
-                map_fn, dense_fn = host._se_mappers(card_index(), cfg(),
-                                                    None, flag)
                 run = lambda fn, a, n: fn(a, n, 90)            # noqa: E731
             run(map_fn, arr, ln)
             run(map_fn, arr[:4], ln[:4])
@@ -320,9 +317,8 @@ def test_mesh_mappers_stay_eager(dispatch, pe):
     the host never replays a graph for them."""
     mesh = types.SimpleNamespace(se="se", se_dense="se_dense", pe="pe",
                                  pe_dense="pe_dense")
-    pick = host._pe_mappers if pe else host._se_mappers
     want = ("pe", "pe_dense") if pe else ("se", "se_dense")
-    assert pick(card_index(), cfg(), mesh, True) == want
+    assert host._mappers(card_index(), cfg(), mesh, True, pe=pe) == want
     assert dispatch == []
 
 

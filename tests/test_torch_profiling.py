@@ -218,12 +218,12 @@ def test_host_spans_nest_under_their_call(world, recording, pe):
 
 
 def task_los(n: int, pe: bool, workers: int = 2) -> list[int]:
-    """The first read (pair) of each pool task: one task a batch for SE; a
-    PE batch's pairs split over the pool's workers."""
-    if not pe:
-        return list(range(0, n, BS))
+    """The first read (pair) of each pool task, as host.task_slices lays
+    them out: one task a batch for SE; a PE batch's pairs split over the
+    pool's workers."""
     return [lo + s for lo in range(0, n, BS)
-            for s, _ in host._slices(min(BS, n - lo), workers)]
+            for s, _ in host.task_slices(min(BS, n - lo), workers,
+                                         2 if pe else 1)]
 
 
 @pytest.mark.parametrize("pe", [False, True])

@@ -350,15 +350,14 @@ def test_sharded_paths_launch_the_fused_kernels(setup, pe_setup, monkeypatch):
     """On a sharded index the mapping paths call what one card calls:
     map_batch_device and map_batch_pe_device (with rescue by the Myers
     scan) reach kernels.fm_search / fm_extend / fm_locate /
-    verify_fused_gather / rescue_scan, never kernels.verify_fused or
-    kernels.myers_scan, and no lockstep loop but as the fused wrappers'
-    plain versions (one call each per wrapper call)."""
+    verify_fused_gather / rescue_scan, and no lockstep loop but as the
+    fused wrappers' plain versions (one call each per wrapper call)."""
     from bitmapperbs_tpu_torch.models.aligner import map_batch_device
     from bitmapperbs_tpu_torch.models.paired import map_batch_pe_device
 
     names = ("fm_search", "fm_extend", "fm_locate", "verify_fused_gather",
-             "rescue_scan", "verify_fused", "myers_scan", "search_lockstep",
-             "extend_lockstep", "locate_lockstep")
+             "rescue_scan", "search_lockstep", "extend_lockstep",
+             "locate_lockstep")
     calls = dict.fromkeys(names, 0)
 
     def spy(mod, name):
@@ -385,7 +384,6 @@ def test_sharded_paths_launch_the_fused_kernels(setup, pe_setup, monkeypatch):
     for name in ("fm_search", "fm_extend", "fm_locate",
                  "verify_fused_gather", "rescue_scan"):
         assert calls[name] > 0, (name, calls)
-    assert calls["verify_fused"] == calls["myers_scan"] == 0, calls
     for k in ("search", "extend", "locate"):
         assert calls[f"{k}_lockstep"] == calls[f"fm_{k}"], calls
 

@@ -137,10 +137,10 @@ def test_bound_takes_the_larger(nbytes, ops, by):
 
 @pytest.mark.parametrize("words, scale", [(3, 1.0), (9, 3.0)])
 def test_verify_ops_scale_with_the_words(monkeypatch, words, scale):
-    monkeypatch.setitem(chip_smoke.SASS_OPS, "verify_fused",
+    monkeypatch.setitem(chip_smoke.SASS_OPS, "verify_fused_gather",
                         {"loop": 48, "once": 93})
-    got = chip_smoke.verify_ops("verify_fused", lanes=1000, myers_lanes=400,
-                                ncols=104, words=words)
+    got = chip_smoke.verify_ops("verify_fused_gather", lanes=1000,
+                                myers_lanes=400, ncols=104, words=words)
     assert got == pytest.approx((1000 * 93 + 400 * 104 * 48) * scale)
 
 

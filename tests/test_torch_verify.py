@@ -174,12 +174,10 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     m, e = 96, 4
     wt, rt, lt, *_ = _fused_inputs(rng, 64, m, e)
     before = dict(kernels.LAUNCHES)
-    same(kernels.verify_fused(wt, rt, lt, m, m + 2 * e, e),
-         kernels.verify_fused_ref(wt, rt, lt, m, m + 2 * e, e))
     peq, pad = tv.peq_from_planes(*rt, ~lt & 0xFFFFFFFF)
     same(kernels.myers(wt, peq, pad, m, m + 2 * e),
          kernels.myers_ref(wt, peq, pad, m, m + 2 * e))
     assert kernels.LAUNCHES == before          # no kernel ran
     with pytest.raises(ValueError):            # no silent mixed-device path
-        kernels.verify_fused(tuple(p.to("meta") for p in wt), rt, lt, m,
-                             m + 2 * e, e)
+        kernels.myers(tuple(p.to("meta") for p in wt), peq, pad, m,
+                      m + 2 * e)

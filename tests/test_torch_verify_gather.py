@@ -312,8 +312,8 @@ def test_gathering_verify_widths_and_raises(rng):
 
 def test_long_bucket_takes_the_planes_entry():
     """Reads over 256 bp (9 plane words) took the planes entry once; now
-    the compact path hands every bucket to the gathering entry (one call,
-    no verify_fused), and the tuples still equal the JAX package's."""
+    the compact path hands every bucket to the gathering entry (one call),
+    and the tuples still equal the JAX package's."""
     from bitmapperbs_tpu.config import AlignerConfig
     from bitmapperbs_tpu.index.build import build_index
     from bitmapperbs_tpu.index.device import upload_index as jupload
@@ -332,16 +332,15 @@ def test_long_bucket_takes_the_planes_entry():
                           sub_rate=0.004, indel_rate=0.001)
     arr, lens = prepare_batch([s.codes for s in sims], m, B)
     calls = []
-    saved = (kernels.verify_fused, kernels.verify_fused_gather)
-    kernels.verify_fused = lambda *a: calls.append("planes") or saved[0](*a)
+    saved = kernels.verify_fused_gather
     kernels.verify_fused_gather = \
-        lambda *a, **k: calls.append("gather") or saved[1](*a, **k)
+        lambda *a, **k: calls.append("gather") or saved(*a, **k)
     try:
         got = tal.map_batch_device(upload_index(idx), cfg,
                                    torch.from_numpy(arr),
                                    torch.from_numpy(lens))
     finally:
-        kernels.verify_fused, kernels.verify_fused_gather = saved
+        kernels.verify_fused_gather = saved
     assert calls == ["gather"]
     want = jal.map_batch_device(jupload(idx), cfg, jnp.asarray(arr),
                                 jnp.asarray(lens))
